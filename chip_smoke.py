@@ -18,12 +18,23 @@ the root of a checkout it:
      plain version;
   5. renders 64x64 at 2+2 spp on the card and on the CPU with the same
      seed and requires >= 99.5% of pixels to agree (rtol 1e-4,
-     atol 1e-6).
+     atol 1e-6);
+  6. the textured + next-event-estimation path: the same box with the
+     checker texture (``textured=True``) and RenderConfig(nee=True) —
+     (a) after one step(1) at 1024x1024, K1 in its t_max / any-hit mode
+     against its plain version on the 2^20-lane shadow pool (the same
+     visibility on every lane); (b) K2 with textures and NEE against its
+     plain version on that pool, with parity and with Threefry draws,
+     and K2 on a scene small enough for the TPU kernel's tri_sel form;
+     (c) the NEE main path at 1024x1024, timed as in 4, which must run
+     K1 at least twice per iteration, K2 and K3, and no plain version;
+     (d) the 64x64 card-vs-CPU render of 5 on this path.
 
 The scene is the glTF given with --scene, else the procedural box
 ``make_box_scene(spheres=10, subdiv=3)`` (12,812 triangles, 86 clusters,
 the resident class of the reference's cornell box), built from a fixed
-seed; the host seeds are fixed too.
+seed; the host seeds are fixed too.  Phase 6 always renders the
+procedural box.
 
 Prints one JSON line of kernel results, then the card line, then as its
 last line {"ok": true, "device": {...}}.  Any failed check raises.
@@ -60,10 +71,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def load_scene(path):
+def load_scene(path, **box):
     from logipathtracer_tpu_torch import compile_scene, load_gltf
     from logipathtracer_tpu_torch.scene.procedural import make_box_scene
-    g = load_gltf(path) if path else make_box_scene(spheres=10, subdiv=3)
+    box = {"spheres": 10, "subdiv": 3, **box}
+    g = load_gltf(path) if path else make_box_scene(**box)
     return compile_scene(g)
 
 
@@ -80,6 +92,17 @@ def _median_ms(fn, runs: int) -> float:
     return float(np.median(times))
 
 
+def _time_once(fn):
+    """(result, ms) of one call, timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def _counters():
     from logipathtracer_tpu_torch.ops.kernels import (compact_intersect,
                                                       flush, shade)
@@ -91,6 +114,12 @@ def reset_counts():
     for m in _counters().values():
         m.launches = 0
         m.plain_calls = 0
+        if hasattr(m, "mode_launches"):
+            m.mode_launches.clear()
+
+
+def read_counts():
+    return {k: (m.launches, m.plain_calls) for k, m in _counters().items()}
 
 
 def primary_pool(renderer, seed_xy=(48271, 16807)):
@@ -126,7 +155,7 @@ def bounce_pool(renderer):
     _, perm = torch.sort(key, stable=True)
     pool = {k: st[k][perm].clone() for k in
             ("origin", "direction", "mask", "acc", "seed", "alive",
-             "bounce")}
+             "bounce", "prev_pdf")}
     dead = ~pool["alive"]
     pool["origin"][dead] = 1e30
     pool["direction"][dead] = 1.0
@@ -154,22 +183,56 @@ def check_k1(scene, origin, direction, tile, eps, runs=(10, 3)):
     return err, k_ms, p_ms, hit_frac
 
 
-def check_k2(scene, cfg, pool, t, tri, parity, runs=(10, 3)):
+def check_k2(scene, cfg, pool, t, tri, parity, runs=(10, 3), opt=None):
+    """K2 against its plain version on one pool; ``opt`` adds the
+    texture / NEE inputs.  runs[1] == 1 times the plain version once,
+    on the very call that is compared."""
     from logipathtracer_tpu_torch.ops.kernels import shade as sk
     args = (scene.tri_shade, pool["origin"], pool["direction"], pool["acc"],
             pool["mask"], pool["alive"], pool["seed"], pool["bounce"], t,
             tri)
     kw = dict(env=cfg.env_color, rr_threshold=cfg.rr_threshold,
               rr_bounces=cfg.rr_bounces, max_order=cfg.heitz_max_order,
-              parity=parity)
+              parity=parity, **(opt or {}))
     got = sk.shade(*args, **kw)
-    ref = sk.shade_plain(*args, **kw)
-    torch.cuda.synchronize()
+    ref, p_once = _time_once(lambda: sk.shade_plain(*args, **kw))
     diverged, err = sk.shade_agreement([x.cpu() for x in ref],
                                        [x.cpu() for x in got])
     k_ms = _median_ms(lambda: sk.shade(*args, **kw), runs[0])
-    p_ms = _median_ms(lambda: sk.shade_plain(*args, **kw), runs[1])
+    p_ms = (p_once if runs[1] <= 1 else
+            _median_ms(lambda: sk.shade_plain(*args, **kw), runs[1]))
     return diverged, err, k_ms, p_ms
+
+
+def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
+    """K1 in its t_max / any-hit mode against its plain version on a
+    shadow pool: the visibility predicate t < t_max must agree on every
+    lane.  The plain version runs once, timed.  Returns (max |dt|,
+    kernel ms, plain ms, blocked fraction of the lanes with a light
+    sample, lanes with a light sample)."""
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    from logipathtracer_tpu_torch.ops.kernels.shade import PARK
+    from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
+    rays8, r = ci.pack_rays8(origin, direction, tile, t_max=t_lim)
+    wmin, wmax = scene_cluster_bounds(scene)
+    wl, wn = ci.build_chunk_worklists(wmin, wmax, rays8, tile, has_tmax=True)
+    inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
+    args = (rays8, wl, wn, scene.cl_meta, inv, scene.cl_aabb,
+            scene.cl_tris, tile, eps)
+    kw = dict(has_tmax=True, any_hit=True)
+    got = ci.compact_wl_intersect(*args, **kw)
+    ref, p_ms = _time_once(lambda: ci.compact_wl_intersect_plain(*args,
+                                                                 **kw))
+    blocked_k = got[0][:r] < t_lim
+    blocked_p = ref[0][:r] < t_lim
+    bad = int((blocked_k != blocked_p).sum())
+    assert bad == 0, f"K1 any-hit: visibility differs on {bad} lanes"
+    err = float((got[0] - ref[0]).abs().max())
+    shadow = origin[:, 0] != PARK
+    n_shadow = int(shadow.sum())
+    frac = float(blocked_k[shadow].float().mean()) if n_shadow else 0.0
+    k_ms = _median_ms(lambda: ci.compact_wl_intersect(*args, **kw), runs)
+    return err, k_ms, p_ms, frac, n_shadow
 
 
 def make_tail(npix, rows, retired, dev, seed=0):
@@ -210,6 +273,139 @@ def render_radiance(scene, cfg, dev, host_seed, chunks):
     return r.radiance(), r
 
 
+def nee_phase(dev, card, flagship_rate):
+    """Phase 6: the textured + NEE path (module docstring).  Returns the
+    K1 any-hit and K2 tex+nee rows (max err, kernel ms, plain ms) and the
+    main path's launches by mode."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    from logipathtracer_tpu_torch.ops.kernels import shade as sk
+    from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
+    from logipathtracer_tpu_torch.render.megakernel import \
+        resolve_tex_prologue
+
+    host_scene = load_scene(None, textured=True)
+    cfg = RenderConfig(width=1024, height=1024, nee=True)
+    tile = cfg.compact_tile
+    print(f"NEE scene: {host_scene.num_triangles} triangles, "
+          f"{host_scene.num_lights} lights, atlas "
+          f"{tuple(host_scene.tex_atlas.shape)}, tex_slots "
+          f"{host_scene.tex_slots}", flush=True)
+
+    # (a) + (b): K1 any-hit and K2 tex+nee on the NEE render's pool
+    probe = ProgressiveRenderer(host_scene, cfg, host_seed=1, device=dev)
+    scene = probe.scene
+    pool = bounce_pool(probe)
+    t, obj, tri = intersect_scene_sweep(scene, pool["origin"],
+                                        pool["direction"], eps=cfg.eps,
+                                        tile=tile)
+    mat, ffm, nmap = resolve_tex_prologue(scene, cfg, pool["origin"],
+                                          pool["direction"], t, obj, tri)
+    opt = dict(mat=mat, ff_mapped=ffm, has_nmap=nmap,
+               light_tris=scene.light_tris, light_cdf=scene.light_cdf,
+               prev_pdf=pool["prev_pdf"], nee_mis=cfg.nee_mis,
+               total_light_area=float(scene.total_light_area))
+    out = sk.shade(scene.tri_shade, pool["origin"], pool["direction"],
+                   pool["acc"], pool["mask"], pool["alive"], pool["seed"],
+                   pool["bounce"], t, tri, env=cfg.env_color,
+                   rr_threshold=cfg.rr_threshold, rr_bounces=cfg.rr_bounces,
+                   max_order=cfg.heitz_max_order, parity=cfg.parity_rng,
+                   **opt)
+    shadow_o, shadow_d, t_lim = out[7], out[8], out[9]
+    k1 = check_k1_shadow(scene, shadow_o, shadow_d, t_lim, tile, cfg.eps)
+    print(f"K1 t_max+any-hit shadow pool {t_lim.shape[0]} lanes "
+          f"({k1[4]} shadow rays, {k1[3]:.3f} blocked): same visibility "
+          f"on every lane, max|dt| {k1[0]:.3g}, kernel {k1[1]:.3f} ms, "
+          f"plain {k1[2]:.1f} ms (once)", flush=True)
+    k2 = check_k2(scene, cfg, pool, t, tri, parity=True, runs=(10, 1),
+                  opt=opt)
+    print(f"K2 tex+nee parity {t.shape[0]} lanes: diverged {k2[0]:.5f}, "
+          f"max|d| {k2[1]:.3g}, kernel {k2[2]:.3f} ms, plain {k2[3]:.1f} ms "
+          f"(once)", flush=True)
+    k2t = check_k2(scene, cfg, pool, t, tri, parity=False, runs=(3, 1),
+                   opt=opt)
+    print(f"K2 tex+nee threefry: diverged {k2t[0]:.5f}, max|d| "
+          f"{k2t[1]:.3g}, kernel {k2t[2]:.3f} ms, plain {k2t[3]:.1f} ms "
+          f"(once)", flush=True)
+    del probe, pool, out, opt, mat, ffm, nmap
+
+    # K2 on a scene of <= 512 triangles (the TPU kernel's tri_sel form)
+    small = load_scene(None, spheres=1, subdiv=1)
+    probe = ProgressiveRenderer(small, cfg.replace(nee=False), host_seed=1,
+                                device=dev)
+    o, d, seed = primary_pool(probe)
+    ts, _, tris = intersect_scene_sweep(probe.scene, o, d, eps=cfg.eps,
+                                        tile=tile)
+    n = o.shape[0]
+    o, d, seed = (x.contiguous() for x in (o, d, seed))
+    spool = dict(origin=o, direction=d, seed=seed,
+                 acc=torch.zeros_like(o), mask=torch.ones_like(o),
+                 alive=torch.ones(n, dtype=torch.bool, device=dev),
+                 bounce=torch.zeros(n, dtype=torch.int32, device=dev))
+    k2s = check_k2(probe.scene, cfg, spool, ts, tris, parity=True,
+                   runs=(3, 1))
+    print(f"K2 on a {small.num_triangles}-triangle scene (tri_sel class), "
+          f"{n} lanes: diverged {k2s[0]:.5f}, max|d| {k2s[1]:.3g}, kernel "
+          f"{k2s[2]:.3f} ms, plain {k2s[3]:.1f} ms (once)", flush=True)
+    del probe, spool
+
+    # (c) the NEE main path
+    renderer = ProgressiveRenderer(host_scene, cfg, host_seed=0, device=dev)
+    reset_counts()
+    renderer.step(1)                        # warm-up
+    iters = [renderer.last_iterations]
+    torch.cuda.synchronize()
+    rays0 = renderer.total_rays
+    shadow0 = int(renderer._wf_state["shadow_rays"])
+    t0 = time.perf_counter()
+    timed = (2, 2)
+    for n_spp in timed:
+        renderer.step(n_spp)
+        iters.append(renderer.last_iterations)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rays = renderer.total_rays - rays0
+    shadow = int(renderer._wf_state["shadow_rays"]) - shadow0
+    counts = read_counts()
+    modes = {"any_hit": ci.mode_launches["any_hit"],
+             "closest": ci.mode_launches["closest"],
+             "tex+nee": sk.mode_launches["tex+nee"]}
+    rad = renderer.radiance()
+    assert rad.shape == (1024, 1024, 3) and np.isfinite(rad).all()
+    mean = float(rad.mean())
+    assert 1e-3 < mean < 10.0, f"implausible mean radiance {mean}"
+    for k, (launched, plain) in counts.items():
+        assert launched > 0, f"NEE path never launched kernel {k}"
+        assert plain == 0, f"NEE path ran the plain version of {k}"
+    n_it = sum(iters)
+    assert counts["compact_intersect"][0] >= 2 * n_it, \
+        f"K1 launched {counts['compact_intersect'][0]} times in {n_it} " \
+        f"iterations"
+    assert modes["any_hit"] == modes["tex+nee"] == counts["shade"][0]
+    spp = sum(timed)
+    print(f"NEE+textured main path 1024x1024 spp {spp}: "
+          f"{spp / wall:.3f} samples/s, {rays / wall / 1e6:.2f} Mrays/s "
+          f"(path rays), iterations per chunk {iters[1:]}, mean radiance "
+          f"{mean:.6f}; flagship {flagship_rate[0]:.3f} samples/s, "
+          f"{flagship_rate[1]:.2f} Mrays/s [{card}]", flush=True)
+    print(f"NEE shadow rays: {shadow} in the timed chunks "
+          f"({shadow / wall / 1e6:.2f} M/s), not counted in Mrays/s",
+          flush=True)
+    print(f"NEE launches: {json.dumps(counts)} by mode "
+          f"{json.dumps(modes)} in {n_it} iterations", flush=True)
+
+    # (d) card vs CPU on the NEE path
+    small_cfg = RenderConfig(width=64, height=64, pool_size=4096, nee=True)
+    img_gpu, _ = render_radiance(host_scene, small_cfg, dev, 7, (2, 2))
+    img_cpu, _ = render_radiance(host_scene, small_cfg, "cpu", 7, (2, 2))
+    close = np.isclose(img_gpu, img_cpu, rtol=IMG_RTOL,
+                       atol=IMG_ATOL).all(-1)
+    print(f"NEE card vs CPU 64x64 2+2 spp: {close.mean():.5f} of pixels "
+          f"close", flush=True)
+    assert close.mean() >= IMG_FRAC, "NEE card and CPU renders disagree"
+    return {"k1": k1[:3], "k2": k2[1:], "modes": modes}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default=None,
@@ -234,8 +430,7 @@ def main(argv=None) -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    for name in ("compact_intersect", "shade", "flush"):
-        _build.load(name)
+    _build.load_all(("compact_intersect", "shade", "flush"))
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"{json.dumps(_build.BUILD_SECONDS)}", flush=True)
 
@@ -294,8 +489,7 @@ def main(argv=None) -> int:
     wall = time.perf_counter() - t0
     rays = renderer.total_rays - rays0
     rad = renderer.radiance()
-    counts = {k: (m.launches, m.plain_calls)
-              for k, m in _counters().items()}
+    counts = read_counts()
     assert rad.shape == (1024, 1024, 3) and np.isfinite(rad).all()
     mean = float(rad.mean())
     assert 1e-3 < mean < 10.0, f"implausible mean radiance {mean}"
@@ -317,19 +511,31 @@ def main(argv=None) -> int:
     print(f"card vs CPU 64x64 2+2 spp: {close.mean():.5f} of pixels close",
           flush=True)
     assert close.mean() >= IMG_FRAC, "card and CPU renders disagree"
+    flagship_rate = (spp / wall, rays / wall / 1e6)
+
+    # ---- 6. textured + NEE path -----------------------------------------
+    nee = nee_phase(dev, card, flagship_rate)
 
     from logipathtracer_tpu_torch.ops.kernels import (compact_intersect,
                                                       flush, shade)
+    k1_any = "logipathtracer_tpu/ops/pallas/compact_intersect.py:243"
     rows = [
-        ("compact_intersect", compact_intersect, k1p[0], k1p[1], k1p[2]),
-        ("shade", shade, k2[1], k2[2], k2[3]),
-        ("flush", flush, k3[0], k3[1], k3[2]),
+        ("compact_intersect", compact_intersect, compact_intersect.REPLACES,
+         counts["compact_intersect"][0], k1p[0], k1p[1], k1p[2]),
+        ("compact_intersect[tmax+any_hit]", compact_intersect, k1_any,
+         nee["modes"]["any_hit"], *nee["k1"]),
+        ("shade", shade, shade.REPLACES, counts["shade"][0], k2[1], k2[2],
+         k2[3]),
+        ("shade[tex+nee]", shade, shade.REPLACES, nee["modes"]["tex+nee"],
+         *nee["k2"]),
+        ("flush", flush, flush.REPLACES, counts["flush"][0], k3[0], k3[1],
+         k3[2]),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": m.SOURCE,
-         "replaces": m.REPLACES, "launches": counts[n][0],
+         "replaces": where, "launches": launched,
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
-        for n, m, err, k_ms, p_ms in rows]}))
+        for n, m, where, launched, err, k_ms, p_ms in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

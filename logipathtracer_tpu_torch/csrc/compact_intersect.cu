@@ -11,6 +11,14 @@
 // and strictly closer than the best, so the lowest slot wins ties.
 // Miss: t = INF, tri = obj = -1.
 //
+// Shadow queries (next-event estimation): with has_tmax the best t
+// starts at min(rays8[6], BIG), so only hits closer than t_max count.
+// With any_hit as well, a lane's first accepted hit parks its best t at
+// -BIG (the TPU kernel's compact_intersect.py:243-250): every later slab
+// test fails, while the thread still takes part in __syncthreads_or, and
+// t comes out -BIG.  tri/obj are then not closest-hit values; only the
+// predicate t < t_max is part of the contract.
+//
 // One thread per ray; a block holds `threads` consecutive rays of one
 // worklist tile.  A fired cluster's 9 x S triangle floats are staged in
 // shared memory only when some ray of the block passes its slab.
@@ -44,7 +52,8 @@ __global__ void compact_wl_kernel(const float* __restrict__ rays8, int R,
                                   const float* __restrict__ inv,
                                   const float* __restrict__ aabb,
                                   const float* __restrict__ tris, int S,
-                                  float eps, float* __restrict__ t_out,
+                                  float eps, int has_tmax, int any_hit,
+                                  float* __restrict__ t_out,
                                   int* __restrict__ tri_out,
                                   int* __restrict__ obj_out) {
   extern __shared__ float smem[];  // [9, S]
@@ -54,7 +63,7 @@ __global__ void compact_wl_kernel(const float* __restrict__ rays8, int R,
               oz = rays8[2 * R + r];
   const float dx = rays8[3 * R + r], dy = rays8[4 * R + r],
               dz = rays8[5 * R + r];
-  float best = kBig;
+  float best = has_tmax ? nmin(rays8[6 * R + r], kBig) : kBig;
   int btri = -1, bobj = -1;
   const int n = wn[ti];
   for (int k = 0; k < n; ++k) {
@@ -105,6 +114,10 @@ __global__ void compact_wl_kernel(const float* __restrict__ rays8, int R,
           best = t;
           btri = base + s;
           bobj = obj;
+          if (any_hit) {
+            best = -kBig;  // blocked: no later test can pass
+            break;
+          }
         }
       }
     }
@@ -120,8 +133,8 @@ __global__ void compact_wl_kernel(const float* __restrict__ rays8, int R,
 extern "C" int lpt_compact_wl_intersect(
     const void* rays8, int R, const void* wl, const void* wn, int C,
     int tile, const void* meta, const void* inv, const void* aabb,
-    const void* tris, int S, float eps, int threads, void* t, void* tri,
-    void* obj, void* stream) {
+    const void* tris, int S, float eps, int threads, int has_tmax,
+    int any_hit, void* t, void* tri, void* obj, void* stream) {
   const size_t smem = sizeof(float) * 9 * static_cast<size_t>(S);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -134,7 +147,8 @@ extern "C" int lpt_compact_wl_intersect(
       static_cast<const float*>(rays8), R, static_cast<const int*>(wl),
       static_cast<const int*>(wn), C, tile, static_cast<const int*>(meta),
       static_cast<const float*>(inv), static_cast<const float*>(aabb),
-      static_cast<const float*>(tris), S, eps, static_cast<float*>(t),
+      static_cast<const float*>(tris), S, eps, has_tmax, any_hit,
+      static_cast<float*>(t),
       static_cast<int*>(tri), static_cast<int*>(obj));
   return static_cast<int>(cudaGetLastError());
 }

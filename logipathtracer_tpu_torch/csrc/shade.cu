@@ -1,19 +1,36 @@
-// Fused shading step per ray (kernel K2): untextured, non-NEE, Heitz.
+// Fused shading step per ray (kernel K2), Heitz BSDF.
 //
 // Replaces logipathtracer_tpu/ops/pallas/shade.py::shade_pallas ->
-// _kernel / _shade_tile (gather form).  Per lane: miss writes mask * env
-// (an assignment) and kills the path; otherwise emission with the
-// pre-bounce mask, barycentrics, shading normal, tangent basis, lobe
+// _kernel / _shade_tile in all its variants.  Per lane: miss writes
+// mask * env (an assignment) and kills the path; otherwise emission with
+// the pre-bounce mask, barycentrics, shading normal, tangent basis, lobe
 // pick, the Heitz multiple-scattering walk of at most max_order orders,
 // and Russian roulette, with the parity-hash or Threefry draws in the
 // JAX package's order.  The arithmetic repeats the plain PyTorch version
 // (ops/kernels/shade.py::shade_plain, the port of the jnp shade path)
 // operation by operation.
 //
-// One thread per lane; each reads its tri_shade[tri] row (64 floats)
-// itself.  Bound: operations — log/sin/cos/pow and ~600 flops per walk
-// order, with divergence between lanes of a warp (lobe, walk length),
-// which this simple design does not address.
+// Optional inputs, each a null pointer when unused (the lane then takes
+// the form without textures / NEE, unchanged):
+//  * mat [R, 10]: material overrides resolved by the texture prologue
+//    (the TPU kernel's tex variant): base rgba, emission, metallic,
+//    roughness (floored before its texture multiply: not floored here),
+//    transmission.  ffm [R, 3] + nmap [R]: the normal-mapped front-face
+//    normal; `outside` and the emission MIS weight keep the unmapped n.
+//  * light_tris [L, 16] + light_cdf [L] + prev_pdf [R] (the nee
+//    variant): diffuse lanes draw r1, r2, r3 after the lobe pick, pick a
+//    light by binary search (searchsorted-left, clamped to L - 1; the
+//    table stays in global memory, no light-count cap), sample a point on
+//    it, and the walk estimates f * cos toward it.  Outputs: prev_pdf',
+//    the shadow query (origin, direction, t_lim) and the pending
+//    contribution; lanes without a light sample get the parked query
+//    (origin 1e30, direction +z, t_lim 1, contribution 0).
+// The TPU kernel's tri_sel variant is this gather form: every lane reads
+// its own tri_shade[tri] row.
+//
+// One thread per lane.  Bound: operations — log/exp/sin/cos/pow and ~600
+// flops per walk order, with divergence between lanes of a warp (lobe,
+// walk length), which this simple design does not address.
 //
 // Built with -fmad=false and no fast math: products and sums round as
 // in the plain version, divides and sqrt are IEEE, and min/max/clamp
@@ -27,6 +44,10 @@ namespace {
 
 constexpr float kInf = 3.4e38f;
 constexpr double kPi = 3.141592653589;  // shaders/common/constants.glsl:5
+constexpr float kPiF = static_cast<float>(kPi);
+constexpr float kPark = 1e30f;
+constexpr float kTLimScale = static_cast<float>(1.0 - 1e-3);
+constexpr int kMatCols = 10;
 
 struct V3 {
   float x, y, z;
@@ -51,6 +72,10 @@ __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 // torch.clamp(x, min=lo): NaN stays NaN.
 __device__ __forceinline__ float clamp_min(float x, float lo) {
   return x != x ? x : fmaxf(x, lo);
+}
+// torch.clamp(x, max=hi): NaN stays NaN.
+__device__ __forceinline__ float clamp_max(float x, float hi) {
+  return x != x ? x : fminf(x, hi);
 }
 __device__ __forceinline__ float clamp01(float x) {
   return x != x ? x : fminf(fmaxf(x, 0.0f), 1.0f);
@@ -142,10 +167,21 @@ __device__ __forceinline__ float fresnel_dielectric(float vdoth, float eta) {
   return cos_t2 <= 0.0f ? 1.0f : f;
 }
 
-// Fused Heitz walk for one lane (ops/bsdf.py heitz_sample).
+// Walk-side NEE inputs: the light direction in tangent space and the
+// escape-probability rate toward it (ops/bsdf.py heitz_sample eval_dir).
+struct Eval {
+  bool on;  // a light-sampled diffuse lane whose light is above the surface
+  V3 dir;
+  float esc_rate;
+};
+
+// Fused Heitz walk for one lane (ops/bsdf.py heitz_sample).  With
+// ev.on, f_eval accumulates the diffuse BSDF-times-cosine estimate toward
+// ev.dir at every scattering vertex (no extra draws).
 __device__ void heitz_sample(V3 base, V3 view, float roughness, float ior,
                              bool outside, int lobe, int max_order, Rng& rng,
-                             V3& weight, V3& light) {
+                             const Eval& ev, V3& weight, V3& light,
+                             V3& f_eval) {
   const float alpha = roughness * roughness;
   const bool is_diff = lobe == 0, is_metal = lobe == 1, is_trans = lobe == 2;
   light = neg(view);
@@ -179,6 +215,14 @@ __device__ void heitz_sample(V3 base, V3 view, float roughness, float ior,
     const float vdoth = dot(wo, m);
     V3 nd;
     if (is_diff) {
+      if (ev.on) {
+        const float phase_l = clamp_min(dot(ev.dir, m), 0.0f) / kPiF;
+        const float esc = expf(clamp_max(height * ev.esc_rate, 0.0f));
+        const float pe = phase_l * esc;
+        f_eval = mk(f_eval.x + pe * (energy.x * base.x),
+                    f_eval.y + pe * (energy.y * base.y),
+                    f_eval.z + pe * (energy.z * base.z));
+      }
       const V3 du = m.z < 1.0f ? normalize(cross(mk(0.0f, 0.0f, 1.0f), m))
                                : mk(1.0f, 0.0f, 0.0f);
       const V3 dv = cross(m, du);
@@ -245,9 +289,16 @@ __global__ void shade_kernel(
     float* __restrict__ o_origin, float* __restrict__ o_direction,
     float* __restrict__ o_acc, float* __restrict__ o_mask,
     bool* __restrict__ o_alive, int64_t* __restrict__ o_seed, float env,
-    float rr_threshold, int rr_bounces, int max_order, int parity) {
+    float rr_threshold, int rr_bounces, int max_order, int parity,
+    const float* __restrict__ mat, const float* __restrict__ ffm,
+    const bool* __restrict__ nmap, const float* __restrict__ light_tris,
+    const float* __restrict__ light_cdf, const float* __restrict__ prev_pdf,
+    int n_lights, float* __restrict__ o_pdf, float* __restrict__ o_so,
+    float* __restrict__ o_sd, float* __restrict__ o_tlim,
+    float* __restrict__ o_contrib, int nee_mis, float total_area) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
+  const bool nee = light_tris != nullptr;
   V3 o = mk(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
   V3 d = mk(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
   V3 a = mk(acc[3 * i], acc[3 * i + 1], acc[3 * i + 2]);
@@ -258,6 +309,12 @@ __global__ void shade_kernel(
   rng.s1 = static_cast<uint32_t>(seed[2 * i + 1]);
   rng.parity = parity != 0;
   const float t = t_in[i];
+  const float pdf = nee ? prev_pdf[i] : 0.0f;
+  float pdf_out = pdf;
+  // Shadow query of a lane without a light sample: parked.
+  V3 so = mk(kPark, kPark, kPark), sd = mk(0.0f, 0.0f, 1.0f);
+  V3 contrib = mk(0.0f, 0.0f, 0.0f);
+  float t_lim = 1.0f;
 
   if (live && t >= kInf) {  // miss: acc = mask * env (assignment)
     a = mk(mk3.x * env, mk3.y * env, mk3.z * env);
@@ -286,10 +343,16 @@ __global__ void shade_kernel(
     const float bw = (ab_ab * ac_ah - ab_ac * ab_ah) * inv_denom;
     const float bu = 1.0f - bv - bw;
 
-    const float roughness = clamp_min(os[29], 0.001f);
-    const float metallic = os[28], transmission = os[30], ior = os[31];
-    const V3 base = mk(srgb(os[21]), srgb(os[22]), srgb(os[23]));
-    const V3 em = mk(os[25], os[26], os[27]);
+    // material: the object's, or the texture prologue's overrides
+    const float ior = os[31];
+    const float* mt = mat != nullptr ? mat + kMatCols * i : nullptr;
+    const float metallic = mt ? mt[7] : os[28];
+    const float roughness = mt ? mt[8] : clamp_min(os[29], 0.001f);
+    const float transmission = mt ? mt[9] : os[30];
+    const float* bc = mt ? mt : os + 21;
+    const float* ec = mt ? mt + 4 : os + 25;
+    const V3 base = mk(srgb(bc[0]), srgb(bc[1]), srgb(bc[2]));
+    const V3 em = mk(ec[0], ec[1], ec[2]);
 
     // lobe pick (heitz/interaction_type.glsl:10-29)
     const float met_w0 = metallic;
@@ -310,20 +373,100 @@ __global__ void shade_kernel(
                               os[3] * nl.x + os[4] * nl.y + os[5] * nl.z,
                               os[6] * nl.x + os[7] * nl.y + os[8] * nl.z));
     const float ndotd = dot(n, d);
-    const V3 ff = ndotd < 0.0f ? n : neg(n);
+    V3 ff = ndotd < 0.0f ? n : neg(n);
+
+    // emission with the pre-bounce mask; under NEE + MIS a light found by
+    // a BSDF ray from a light-sampled vertex is weighted
+    // prev_pdf / (prev_pdf + p_light)
+    if (nee) {
+      const float p_light_hit =
+          t * t / (clamp_min(fabsf(ndotd), 1e-9f) * total_area);
+      const bool is_emitter = nmax(nmax(em.x, em.y), em.z) > 0.0f;
+      const float mis_w = nee_mis ? pdf / (pdf + p_light_hit) : 0.0f;
+      const float w_emit = (pdf > 0.0f && is_emitter) ? mis_w : 1.0f;
+      a = mk(a.x + mk3.x * em.x * w_emit, a.y + mk3.y * em.y * w_emit,
+             a.z + mk3.z * em.z * w_emit);
+    } else {
+      a = mk(a.x + mk3.x * em.x, a.y + mk3.y * em.y, a.z + mk3.z * em.z);
+    }
+
+    if (ffm != nullptr && nmap[i])
+      ff = mk(ffm[3 * i], ffm[3 * i + 1], ffm[3 * i + 2]);
     const V3 axis = fabsf(ff.x) > 0.1f ? mk(0.0f, 1.0f, 0.0f)
                                        : mk(1.0f, 0.0f, 0.0f);
     const V3 u = normalize(cross(axis, ff));
     const V3 v = cross(ff, u);
 
-    a = mk(a.x + mk3.x * em.x, a.y + mk3.y * em.y, a.z + mk3.z * em.z);
-
     const V3 nd = neg(d);
     const V3 view = mk(dot(nd, u), dot(nd, v), dot(nd, ff));
     const bool outside = dot(n, nd) > 0.0f;
-    V3 weight, lt;
-    heitz_sample(mk(base.x, base.y, base.z), view, roughness, ior, outside,
-                 lobe, max_order, rng, weight, lt);
+
+    // next-event estimation: a point on a light picked by area
+    const bool nee_lane = nee && lobe == 0;
+    Eval ev;
+    ev.on = false;
+    V3 le = mk(0.0f, 0.0f, 0.0f), wl = le;
+    float dist2 = 1.0f, dist = 1.0f, cos_l = 0.0f, cos_s = 0.0f;
+    float w_light = 1.0f;
+    if (nee_lane) {
+      const float r1 = rng.draw();
+      const float r2 = rng.draw();
+      const float r3 = rng.draw();
+      int lo_i = 0, hi_i = n_lights;  // first cdf value >= r1
+      while (lo_i < hi_i) {
+        const int mid = (lo_i + hi_i) >> 1;
+        if (light_cdf[mid] < r1)
+          lo_i = mid + 1;
+        else
+          hi_i = mid;
+      }
+      const float* row = light_tris + 16 * (lo_i < n_lights ? lo_i
+                                                           : n_lights - 1);
+      const V3 e1 = mk(row[3], row[4], row[5]);
+      const V3 e2 = mk(row[6], row[7], row[8]);
+      le = mk(row[9], row[10], row[11]);
+      const float su = sqrtf(r2);
+      const float lbu = 1.0f - su, lbv = r3 * su;
+      const V3 lp = mk(row[0] + lbu * e1.x + lbv * e2.x,
+                       row[1] + lbu * e1.y + lbv * e2.y,
+                       row[2] + lbu * e1.z + lbv * e2.z);
+      const V3 ldir = mk(lp.x - pw.x, lp.y - pw.y, lp.z - pw.z);
+      dist2 = clamp_min(dot(ldir, ldir), 1e-12f);
+      dist = sqrtf(dist2);
+      wl = mk(ldir.x / dist, ldir.y / dist, ldir.z / dist);
+      V3 ln = cross(e1, e2);
+      const float ln_len = clamp_min(sqrtf(dot(ln, ln)), 1e-20f);
+      ln = mk(ln.x / ln_len, ln.y / ln_len, ln.z / ln_len);
+      cos_l = fabsf(dot(ln, neg(wl)));  // two-sided emitter
+      cos_s = dot(ff, wl);
+      const float p_light = dist2 / (clamp_min(cos_l, 1e-9f) * total_area);
+      const float p_bsdf_l = clamp_min(cos_s, 0.0f) / kPiF;
+      w_light = nee_mis ? p_light / (p_light + p_bsdf_l) : 1.0f;
+      ev.on = cos_s > 0.0f;
+      ev.dir = mk(dot(wl, u), dot(wl, v), cos_s);
+      const float alpha = roughness * roughness;
+      const float sx = ev.dir.x * alpha, sy = ev.dir.y * alpha;
+      const float proj_l = clamp_min(
+          0.5f * (sqrtf(sx * sx + sy * sy + cos_s * cos_s) - cos_s), 1e-7f);
+      ev.esc_rate = proj_l / clamp_min(cos_s, 1e-7f);
+    }
+
+    V3 weight, lt, f_eval = mk(0.0f, 0.0f, 0.0f);
+    heitz_sample(base, view, roughness, ior, outside, lobe, max_order, rng,
+                 ev, weight, lt, f_eval);
+    float new_pdf = 0.0f;
+    if (nee_lane) {
+      // f_eval carries the surface cosine; the light side remains.
+      if (cos_s > 0.0f) {
+        const float g = cos_l * total_area / dist2 * w_light;
+        contrib = mk(mk3.x * le.x * f_eval.x * g, mk3.y * le.y * f_eval.y * g,
+                     mk3.z * le.z * f_eval.z * g);
+      }
+      so = pw;
+      sd = wl;
+      t_lim = dist * kTLimScale;
+      new_pdf = clamp_min(lt.z, 0.0f) / kPiF;
+    }
     mk3 = mk(mk3.x * weight.x, mk3.y * weight.y, mk3.z * weight.z);
     o = pw;
     d = mk(lt.x * u.x + lt.y * v.x + lt.z * ff.x,
@@ -340,6 +483,7 @@ __global__ void shade_kernel(
         mk3 = mk(mk3.x / q, mk3.y / q, mk3.z / q);
       }
     }
+    if (live) pdf_out = new_pdf;
   }
   o_origin[3 * i] = o.x;
   o_origin[3 * i + 1] = o.y;
@@ -356,6 +500,19 @@ __global__ void shade_kernel(
   o_alive[i] = live;
   o_seed[2 * i] = static_cast<int64_t>(rng.s0);
   o_seed[2 * i + 1] = static_cast<int64_t>(rng.s1);
+  if (nee) {
+    o_pdf[i] = pdf_out;
+    o_so[3 * i] = so.x;
+    o_so[3 * i + 1] = so.y;
+    o_so[3 * i + 2] = so.z;
+    o_sd[3 * i] = sd.x;
+    o_sd[3 * i + 1] = sd.y;
+    o_sd[3 * i + 2] = sd.z;
+    o_tlim[i] = t_lim;
+    o_contrib[3 * i] = contrib.x;
+    o_contrib[3 * i + 1] = contrib.y;
+    o_contrib[3 * i + 2] = contrib.z;
+  }
 }
 
 }  // namespace
@@ -368,7 +525,12 @@ extern "C" int lpt_shade(const void* tri_shade, const void* origin,
                          void* o_direction, void* o_acc, void* o_mask,
                          void* o_alive, void* o_seed, float env,
                          float rr_threshold, int rr_bounces, int max_order,
-                         int parity, void* stream) {
+                         int parity, const void* mat, const void* ffm,
+                         const void* nmap, const void* light_tris,
+                         const void* light_cdf, const void* prev_pdf,
+                         int n_lights, void* o_pdf, void* o_so, void* o_sd,
+                         void* o_tlim, void* o_contrib, int nee_mis,
+                         float total_area, void* stream) {
   const int threads = 128;
   const int blocks = (R + threads - 1) / threads;
   shade_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -380,6 +542,13 @@ extern "C" int lpt_shade(const void* tri_shade, const void* origin,
       static_cast<float*>(o_origin), static_cast<float*>(o_direction),
       static_cast<float*>(o_acc), static_cast<float*>(o_mask),
       static_cast<bool*>(o_alive), static_cast<int64_t*>(o_seed), env,
-      rr_threshold, rr_bounces, max_order, parity);
+      rr_threshold, rr_bounces, max_order, parity,
+      static_cast<const float*>(mat), static_cast<const float*>(ffm),
+      static_cast<const bool*>(nmap), static_cast<const float*>(light_tris),
+      static_cast<const float*>(light_cdf),
+      static_cast<const float*>(prev_pdf), n_lights,
+      static_cast<float*>(o_pdf), static_cast<float*>(o_so),
+      static_cast<float*>(o_sd), static_cast<float*>(o_tlim),
+      static_cast<float*>(o_contrib), nee_mis, total_area);
   return static_cast<int>(cudaGetLastError());
 }

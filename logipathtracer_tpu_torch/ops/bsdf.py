@@ -127,13 +127,22 @@ def _concentric_disk(r1, r2):
 
 def heitz_sample(base_color, view_dir, roughness, transmission, ior,
                  outside, lobe, seed, active, max_order: int = 16,
-                 rand=rand_parity_masked):
+                 rand=rand_parity_masked, eval_dir=None, eval_mask=None):
     """Fused Heitz random walk for all three lobes.
 
     base_color [..., 3]; view_dir [..., 3] tangent space; roughness,
     transmission, ior [...]; outside, active [...] bool; lobe [...]
     int32; seed [..., 2] int64.
-    Returns (weight [..., 3], light_dir [..., 3] tangent space, seed').
+
+    ``eval_dir`` [..., 3] (tangent space, toward a light sample) and
+    ``eval_mask`` [...] bool: the walk also estimates the diffuse lobe's
+    BSDF times cosine toward it (the NEE hook): at every scattering
+    vertex it adds energy * base * phase(-> eval_dir) * P_escape, with
+    the escape probability of the walk's own free-path model.  No extra
+    draws.
+
+    Returns (weight [..., 3], light_dir [..., 3] tangent space, seed'),
+    and f_eval [..., 3] as a fourth value when ``eval_dir`` is given.
     """
     alpha = roughness * roughness
     is_diff = active & (lobe == LOBE_DIFFUSE)
@@ -147,6 +156,17 @@ def heitz_sample(base_color, view_dir, roughness, transmission, ior,
     ior_in = torch.where(outside, ior, 1.0)
     walk_outside = torch.ones_like(outside)
     walking = active
+
+    if eval_dir is not None:
+        f_eval = torch.zeros_like(base_color)
+        # From height h < 0 a segment toward w leaves the microsurface
+        # with P = exp(h * proj(w) / w.z) (the sample_ggx_height model).
+        sx = eval_dir[..., 0] * alpha
+        sy = eval_dir[..., 1] * alpha
+        sz = eval_dir[..., 2]
+        proj_l = torch.clamp(
+            0.5 * (torch.sqrt(sx * sx + sy * sy + sz * sz) - sz), min=1e-7)
+        esc_rate = proj_l / torch.clamp(sz, min=1e-7)
 
     for _ in range(max_order):
         if not bool(walking.any()):
@@ -195,6 +215,15 @@ def heitz_sample(base_color, view_dir, roughness, transmission, ior,
         walk_outside = torch.where(t_mask & ~reflect_choice,
                                    ~walk_outside, walk_outside)
 
+        if eval_dir is not None:
+            # Diffuse phase toward the light through this vertex's
+            # micro-normal, times the escape probability from its height.
+            phase_l = torch.clamp(dot3(eval_dir, micro), min=0.0) / PI
+            esc = torch.exp(torch.clamp(height * esc_rate, max=0.0))
+            em = cont & is_diff & eval_mask & (eval_dir[..., 2] > 0.0)
+            f_eval = f_eval + torch.where(em, phase_l * esc, 0.0)[
+                ..., None] * (energy * base_color)
+
         new_dir = torch.where(
             is_diff[..., None], diff_dir,
             torch.where(is_trans[..., None], trans_dir, refl_c))
@@ -209,4 +238,6 @@ def heitz_sample(base_color, view_dir, roughness, transmission, ior,
     energy = torch.where(d_ex[..., None], 0.0, energy)
     light_dir = torch.where(d_ex[..., None], _unit(light_dir, 2), light_dir)
     weight = torch.where(is_trans[..., None], base_color, energy)
+    if eval_dir is not None:
+        return weight, light_dir, seed, f_eval
     return weight, light_dir, seed

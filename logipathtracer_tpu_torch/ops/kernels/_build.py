@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -38,6 +39,7 @@ EXTRA_FLAGS = {
 BUILD_SECONDS: dict[str, float] = {}
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -54,6 +56,8 @@ def _nvcc() -> str:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
@@ -75,6 +79,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(so)
         _LIBS[name] = lib
         return lib
+
+
+def load_all(names) -> list:
+    """Build and load several sources at once: one nvcc per source, all
+    started together."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as ex:
+        return list(ex.map(load, names))
 
 
 def check(code: int, what: str):

@@ -16,6 +16,14 @@ closer than the best, lowest slot winning ties.  Miss: t = INF,
 tri = obj = -1.  Exact divides throughout (IEEE 1/0 = inf for
 axis-aligned directions), as in the JAX interpret twin.
 
+Shadow queries (next-event estimation) set ``has_tmax``: the best t
+starts at min(rays8[6], BIG), so only hits closer than t_max count, and
+the prepass culls clusters beyond it.  With ``any_hit`` as well, a
+lane's first accepted hit blocks it for good: its best t is parked at
+-BIG, every later slab test fails, and its t comes out -BIG.  In that
+mode tri/obj are not closest-hit values; only the visibility predicate
+t < t_max is part of the contract.
+
 On the card: one thread per ray, a block of 256 rays inside one
 worklist tile; the block stages each fired cluster's 9 x S triangle
 floats (9 KB at S = 256) in shared memory, but only when some ray of
@@ -32,6 +40,7 @@ were XLA code in the JAX package.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -45,22 +54,28 @@ BIG = 1e30
 
 launches = 0
 plain_calls = 0
+# Kernel launches by mode: "closest", "tmax", "any_hit".
+mode_launches = collections.Counter()
 
 SOURCE = "logipathtracer_tpu_torch/csrc/compact_intersect.cu"
 REPLACES = "logipathtracer_tpu/ops/pallas/compact_intersect.py:801"
 
 
-def pack_rays8(origin, direction, tile: int):
+def pack_rays8(origin, direction, tile: int, t_max=None):
     """Tile-padded [8, Rp] component-major ray block (traverse.py
-    _pack_rays8): rows o.xyz, d.xyz, t_max (unused), pad.  Padding rays
-    sit at the origin looking down +z, exactly as in the JAX package
-    (they join their tile's worklist)."""
+    _pack_rays8): rows o.xyz, d.xyz, t_max, pad.  Padding rays sit at the
+    origin looking down +z, exactly as in the JAX package (they join
+    their tile's worklist).  Row 6 holds ``t_max`` on the real lanes and
+    INF on the padding when it is given, 0 otherwise."""
     r = origin.shape[0]
     rp = ((r + tile - 1) // tile) * tile
     rays8 = torch.zeros((8, rp), dtype=torch.float32, device=origin.device)
     rays8[5] = 1.0
     rays8[0:3, :r] = origin.T
     rays8[3:6, :r] = direction.T
+    if t_max is not None:
+        rays8[6] = INF
+        rays8[6, :r] = t_max
     return rays8, r
 
 
@@ -93,15 +108,17 @@ def _slab_ok(t0, t1, best):
                          | ((t0 <= 0.0) & (t1 > 0.0)))
 
 
-def build_chunk_worklists(chunk_min, chunk_max, rays8, tile: int):
+def build_chunk_worklists(chunk_min, chunk_max, rays8, tile: int,
+                          has_tmax: bool = False):
     """Per-tile fired-chunk lists (compact_intersect.py:587-643): slab
-    every ray against every world AABB, any-reduce per ray tile, order
-    front to back.  Rays go in blocks so the [NC, block] temporaries
-    stay under ~48 MB.  Returns (wl [tiles, NC] i32, wn [tiles] i32)."""
+    every ray against every world AABB (bounded by min(t_max, BIG) with
+    ``has_tmax``), any-reduce per ray tile, order front to back.  Rays
+    go in blocks so the [NC, block] temporaries stay under ~48 MB.
+    Returns (wl [tiles, NC] i32, wn [tiles] i32)."""
     r = rays8.shape[1]
-    tiles = r // tile
     nc = chunk_min.shape[0]
     inv = 1.0 / rays8[3:6]
+    best0 = torch.clamp(rays8[6], max=BIG) if has_tmax else None
     block = tile
     while (block * 2 <= r and r % (block * 2) == 0
            and nc * block * 2 * 4 < (48 << 20)):
@@ -121,7 +138,8 @@ def build_chunk_worklists(chunk_min, chunk_max, rays8, tile: int):
         t1 = torch.minimum(torch.minimum(torch.maximum(n[0], f[0]),
                                          torch.maximum(n[1], f[1])),
                            torch.maximum(n[2], f[2]))
-        ok = _slab_ok(t0, t1, BIG)                          # [NC, block]
+        best = BIG if best0 is None else best0[sl][None]
+        ok = _slab_ok(t0, t1, best)                         # [NC, block]
         fired.append(ok.reshape(nc, block // tile, tile).any(dim=2).T)
     return _order_fired(torch.cat(fired, 0), chunk_min, chunk_max, rays8,
                         tile)
@@ -169,7 +187,9 @@ def _mt(lo, ld, trib):
 
 
 def compact_wl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
-                               cl_tris, tile: int, eps: float):
+                               cl_tris, tile: int, eps: float,
+                               has_tmax: bool = False,
+                               any_hit: bool = False):
     """Plain PyTorch version of the kernel: tiles and their worklists in
     a host loop, each visited cluster's slab and Möller–Trumbore
     vectorized over the tile's rays."""
@@ -178,7 +198,10 @@ def compact_wl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
     r = rays8.shape[1]
     dev = rays8.device
     s = cl_tris.shape[2]
-    best_t = torch.full((r,), BIG, dtype=torch.float32, device=dev)
+    if has_tmax:
+        best_t = torch.clamp(rays8[6], max=BIG).contiguous()
+    else:
+        best_t = torch.full((r,), BIG, dtype=torch.float32, device=dev)
     best_tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
     best_obj = torch.full((r,), -1, dtype=torch.int32, device=dev)
     wl_h = wl.cpu().tolist()
@@ -222,7 +245,7 @@ def compact_wl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
             slot = torch.where(t == tmin[:, None], slot_ids, s).amin(dim=1)
             upd = (tmin < BIG) & (tmin < bt[idx])
             j = idx[upd]
-            bt[j] = tmin[upd]
+            bt[j] = -BIG if any_hit else tmin[upd]
             btri[j] = (base + slot[upd]).to(torch.int32)
             bobj[j] = obj
     t_out = torch.where(best_tri >= 0, best_t, INF)
@@ -230,17 +253,20 @@ def compact_wl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
 
 
 def compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
-                         tile: int, eps: float):
+                         tile: int, eps: float, has_tmax: bool = False,
+                         any_hit: bool = False):
     """Closest hit for rays8 [8, R] (R a multiple of ``tile``) over the
     worklists wl [R/tile, C] i32 / wn [R/tile] i32.  cl_meta [C, 2] i32,
     cl_inv [O, 12] f32, cl_aabb [C, 8] f32, cl_tris [C, 9, S] f32.
+    ``has_tmax``/``any_hit``: the shadow-query modes (module docstring).
     Returns (t [R] f32, tri [R] i32, obj [R] i32).  A CPU tensor takes
     the plain version, a CUDA tensor the kernel."""
     global launches
     dev = rays8.device
     if dev.type == "cpu":
         return compact_wl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv,
-                                          cl_aabb, cl_tris, tile, eps)
+                                          cl_aabb, cl_tris, tile, eps,
+                                          has_tmax, any_hit)
     if dev.type != "cuda":
         raise ValueError(f"compact_wl_intersect: unsupported device {dev}")
     r = rays8.shape[1]
@@ -264,31 +290,39 @@ def compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
     fn = lib.lpt_compact_wl_intersect
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 4)
     fn.restype = ctypes.c_int
     _build.check(fn(_build.ptr(rays8), r, _build.ptr(wl), _build.ptr(wn),
                     c, tile, _build.ptr(cl_meta), _build.ptr(cl_inv),
                     _build.ptr(cl_aabb), _build.ptr(cl_tris), s,
-                    float(eps), threads, _build.ptr(t), _build.ptr(tri),
+                    float(eps), threads, int(bool(has_tmax)),
+                    int(bool(any_hit)), _build.ptr(t), _build.ptr(tri),
                     _build.ptr(obj), _build.stream_ptr(dev)),
                  "compact intersect kernel")
     launches += 1
+    mode_launches[("any_hit" if any_hit else "tmax") if has_tmax
+                  else "closest"] += 1
     return t, tri, obj
 
 
 def cluster_intersect_compact(cl_meta, cl_inv, cl_aabb, cl_tris, rays8,
                               obj_world, tile: int = 4096,
-                              eps: float = 1e-4, bounds=None):
+                              eps: float = 1e-4, bounds=None,
+                              has_tmax: bool = False,
+                              any_hit: bool = False):
     """Worklist prepass + K1: the port of the JAX package's
     ``cluster_intersect_compact(worklist=True)``.  ``bounds`` may carry
     precomputed ``chunk_world_bounds`` (the scene's are constant)."""
     if bounds is None:
         c0 = cl_tris.shape[0]
         bounds = chunk_world_bounds(cl_meta, cl_aabb, obj_world, c0, c0, 1)
-    wl, wn = build_chunk_worklists(bounds[0], bounds[1], rays8, tile)
+    wl, wn = build_chunk_worklists(bounds[0], bounds[1], rays8, tile,
+                                   has_tmax=has_tmax)
     return compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
-                                cl_tris, tile, eps)
+                                cl_tris, tile, eps, has_tmax=has_tmax,
+                                any_hit=any_hit)
 
 
 def hits_agree(ref, got, rtol: float = 2e-6, atol: float = 1e-6):

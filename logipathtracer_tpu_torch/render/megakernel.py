@@ -1,5 +1,6 @@
-"""Shading step, ray sort key and backend selection (the parts of the
-JAX package's ``render/megakernel.py`` the wavefront renderer uses).
+"""Shading step with its texture prologue and NEE shadow tail, ray sort
+key and backend selection (the parts of the JAX package's
+``render/megakernel.py`` the wavefront renderer uses).
 
 The megakernel renderer itself (``trace_rays``, ``render_rows``,
 ``render_sample``) is not ported yet (ROADMAP Queue 1: megakernel and
@@ -12,7 +13,12 @@ from __future__ import annotations
 import torch
 
 from logipathtracer_tpu_torch.config import RenderConfig
+from logipathtracer_tpu_torch.ops.intersect import (barycentric, dot3,
+                                                    transform_dir,
+                                                    transform_point)
 from logipathtracer_tpu_torch.ops.kernels import shade as shade_kernel
+from logipathtracer_tpu_torch.ops.texture import (sample_atlas,
+                                                  sample_atlas_lod)
 from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
 
 # Residency budgets of the JAX package's sweep kernels.  The port keeps
@@ -120,28 +126,119 @@ def ray_sort_key(scene, origin, direction):
 
 def resolve_shade_mode(cfg: RenderConfig, scene=None) -> str:
     """Always 'kernel' (kernel K2 on CUDA tensors, its plain version on
-    CPU ones) for what the slice covers; raises for what it does not.
-    ``cfg.shade`` chooses between TPU implementations and is ignored."""
-    if cfg.nee:
-        raise NotImplementedError(
-            "next-event estimation is not ported (ROADMAP Queue 1: NEE; "
-            "Queue 2: K2 nee variant)")
+    CPU ones), for textured and untextured scenes, with or without NEE;
+    raises for the basic BSDF.  ``cfg.shade`` chooses between TPU
+    implementations and is ignored."""
     if not cfg.use_microfacet:
         raise NotImplementedError(
             "use_microfacet=False (the basic BSDF) is not ported (ROADMAP "
             "Queue 1: basic BSDF)")
-    if scene is not None and scene.has_textures:
-        raise NotImplementedError(
-            "textured scenes are not ported (ROADMAP Queue 1: textures; "
-            "Queue 2: K2 tex variant)")
     return "kernel"
 
 
+def resolve_tex_prologue(scene, cfg: RenderConfig, origin, direction, t,
+                         obj, tri):
+    """Texture taps for the shading kernel (megakernel.py:276-387), in
+    plain torch: the per-lane gathers K2 does not do.  Material factors
+    multiply in texture order (base, emissive, metallic-roughness,
+    transmission); the roughness floor applies BEFORE the texture
+    multiply; the normal map rotates about the PRE-map tangent basis.
+    Slots no object textures (scene.tex_slots) are skipped.
+
+    Returns (mat [R, MAT_COLS] f32 — base rgba, emission, metallic,
+    roughness, transmission — and, when some object has a normal map,
+    the mapped front-face normal [R, 3] and has-normal-map [R] bool;
+    else None, None)."""
+    ts64 = scene.tri_shade[tri.clamp(min=0).long()]        # [R, 64]
+    tshade = ts64[:, 0:32]
+    oshade = ts64[:, 32:64]
+    world3 = oshade[:, 0:9].reshape(-1, 3, 3)
+    inv34 = oshade[:, 9:21].reshape(-1, 3, 4)
+    pos_loc = (transform_point(inv34, origin)
+               + t[:, None] * transform_dir(inv34, direction))
+    bary = barycentric(pos_loc, tshade[:, 15:18], tshade[:, 18:21],
+                       tshade[:, 21:24])
+    uv = (bary[:, 0:1] * tshade[:, 9:11] + bary[:, 1:2] * tshade[:, 11:13]
+          + bary[:, 2:3] * tshade[:, 13:15])
+
+    base_color = oshade[:, 21:25]
+    emission = oshade[:, 25:28]
+    metallic = oshade[:, 28]
+    roughness = torch.clamp(oshade[:, 29], min=0.001)
+    transmission = oshade[:, 30]
+
+    tex = scene.obj_tex[obj.clamp(min=0).long()]           # [R, 5]
+    if scene.mip_levels > 1:
+        scale = torch.sqrt(torch.clamp(dot3(world3[:, :, 0],
+                                            world3[:, :, 0]), min=1e-20))
+        density_w = tshade[:, 24] / scale
+
+    def tap(slot):
+        tid = tex[:, slot]
+        if scene.mip_levels > 1:
+            base = scene.tex_mip_base[tid.clamp(min=0).long()]
+            e0 = scene.tex_table[base.long()]
+            dim = torch.maximum(e0[:, 2], e0[:, 3]).to(torch.float32)
+            footprint = cfg.mip_spread * t * density_w * dim
+            lod = torch.log2(torch.clamp(footprint, min=1.0))
+            s = sample_atlas_lod(
+                scene.tex_atlas, scene.tex_table, scene.tex_mip_base,
+                scene.tex_mip_count, tid, uv, lod,
+                nearest_aware=scene.has_nearest, quad=scene.tex_quad)
+        else:
+            s = sample_atlas(scene.tex_atlas, scene.tex_table, tid, uv,
+                             nearest_aware=scene.has_nearest,
+                             quad=scene.tex_quad)
+        return tid >= 0, s
+
+    used = scene.tex_slots
+    if used[0]:
+        has_c, c = tap(0)
+        base_color = torch.where(has_c[:, None], base_color * c, base_color)
+    if used[1]:
+        has_e, e = tap(1)
+        emission = torch.where(has_e[:, None], emission * e[:, :3],
+                               emission)
+    if used[2]:
+        has_mr, mr = tap(2)
+        metallic = torch.where(has_mr, metallic * mr[:, 2], metallic)
+        roughness = torch.where(has_mr, roughness * mr[:, 1], roughness)
+    if used[3]:
+        has_t, tt = tap(3)
+        transmission = torch.where(has_t, transmission * tt[:, 0],
+                                   transmission)
+    mat = torch.cat([base_color, emission, metallic[:, None],
+                     roughness[:, None], transmission[:, None]], dim=1)
+    if not used[4]:
+        return mat.contiguous(), None, None
+
+    # Normal map about the pre-map basis (megakernel.py:353-381).
+    n_loc = (bary[:, 0:1] * tshade[:, 0:3] + bary[:, 1:2] * tshade[:, 3:6]
+             + bary[:, 2:3] * tshade[:, 6:9])
+    n = shade_kernel.normalize(transform_dir(world3, n_loc))
+    ff = torch.where((dot3(n, direction) < 0.0)[:, None], n, -n)
+    u, v = shade_kernel.tangent_basis(ff)
+    has_n, nmap = tap(4)
+    tn = shade_kernel.normalize(nmap[:, :3] * 2.0 - 1.0)
+    ff_mapped = shade_kernel.normalize(tn[:, 0:1] * u + tn[:, 1:2] * v
+                                       + tn[:, 2:3] * ff)
+    return mat.contiguous(), ff_mapped.contiguous(), has_n.contiguous()
+
+
 def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
-               alive, seed, bounce, t, obj, tri, prev_pdf=None, isect=None):
+               alive, seed, bounce, t, obj, tri, prev_pdf=None, isect=None,
+               shadow_count=None):
     """One shading iteration of the traceRay loop
     (path_tracing.comp:219-323) given the intersection results.
     ``bounce`` may be a python int or a per-lane int32 tensor.
+
+    Textured scenes first run the texture prologue.  With ``cfg.nee``,
+    lights in the scene and ``isect`` given, K2 also samples a light per
+    diffuse lane; the shadow rays then go through ``isect`` with t_max
+    and any-hit, and the pending contribution is added where the light
+    is visible (the post-kernel tail of megakernel.py:484-493).
+    ``shadow_count`` (an int64 scalar tensor) is incremented in place by
+    the number of shadow rays cast, without a host sync.
     Returns (origin, direction, acc, mask, alive, seed, prev_pdf)."""
     resolve_shade_mode(cfg, scene)
     r = origin.shape[0]
@@ -150,11 +247,31 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
     if not isinstance(bounce, torch.Tensor) or bounce.dim() == 0:
         bounce = torch.full((r,), int(bounce), dtype=torch.int32,
                             device=origin.device)
+    nee = bool(cfg.nee and scene.num_lights > 0 and isect is not None)
+    opt = {}
+    if scene.has_textures:
+        mat, ff_mapped, has_nmap = resolve_tex_prologue(
+            scene, cfg, origin, direction, t, obj, tri)
+        opt.update(mat=mat, ff_mapped=ff_mapped, has_nmap=has_nmap)
+    if nee:
+        opt.update(light_tris=scene.light_tris, light_cdf=scene.light_cdf,
+                   prev_pdf=prev_pdf.contiguous(), nee_mis=bool(cfg.nee_mis),
+                   total_light_area=float(scene.total_light_area))
     out = shade_kernel.shade(
         scene.tri_shade, origin, direction, acc, mask, alive, seed,
         bounce.to(torch.int32), t, tri.to(torch.int32),
         env=float(cfg.env_color), rr_threshold=float(cfg.rr_threshold),
         rr_bounces=int(cfg.rr_bounces), max_order=int(cfg.heitz_max_order),
-        parity=bool(cfg.parity_rng))
-    # prev_pdf carries NEE state only; it passes through unchanged here.
-    return (*out, prev_pdf)
+        parity=bool(cfg.parity_rng), **opt)
+    if not nee:
+        # prev_pdf carries NEE state only; it passes through unchanged.
+        return (*out, prev_pdf)
+    origin, direction, acc, mask, alive, seed, prev_pdf, shadow_o, \
+        shadow_d, t_lim, contrib = out
+    t_s, _, _ = isect(scene, shadow_o, shadow_d, eps=cfg.eps, t_max=t_lim,
+                      any_hit=True)
+    if shadow_count is not None:
+        shadow_count += (shadow_o[:, 0] != shade_kernel.PARK).sum()
+    visible = t_s >= t_lim
+    acc = acc + torch.where(visible[:, None], contrib, 0.0)
+    return origin, direction, acc, mask, alive, seed, prev_pdf

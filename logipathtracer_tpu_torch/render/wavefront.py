@@ -10,7 +10,10 @@ A persistent pool of P lanes.  Every iteration:
   2. regen: refill free lanes with the next (pixel, sample) work items;
   3. park dead lanes at a far origin;
   4. intersect the alive prefix (kernel K1 and its worklist prepass);
-  5. shade it (kernel K2).
+  5. shade it (kernel K2; textured scenes run the texture prologue
+     first, and with NEE the shadow rays K2 prepares go through K1 again
+     in t_max / any-hit mode — they are not counted in ``rays``, as in
+     the JAX package, but in the device counter ``shadow_rays``).
 
 The loop runs in Python.  Its host reads — the alive count after each
 flush (regen start, trace window, ray counter) and the loop tests —
@@ -76,7 +79,7 @@ def unblock_accum(accum, blocked: bool, bh: int, bw: int, rows: int, w: int):
 def wavefront_pool_state(p: int, npix: int, device="cpu"):
     """Fresh pool: every lane free, zero accumulation.  Lane state lives
     in tensors; the counters (``next_work``, ``rays``, ``it``) are
-    python ints."""
+    python ints, except ``shadow_rays`` (NEE), a device scalar."""
     dev = torch.device(device)
     direction = torch.zeros((p, 3), device=dev)
     direction[:, 2] = 1.0
@@ -94,6 +97,7 @@ def wavefront_pool_state(p: int, npix: int, device="cpu"):
         next_work=0,
         accum=torch.zeros((npix, 3), device=dev),
         rays=0,
+        shadow_rays=torch.zeros((), dtype=torch.int64, device=dev),
         it=0,
     )
 
@@ -224,7 +228,8 @@ class _Body:
                 shade_step(self.scene, cfg, sub["origin"], sub["direction"],
                            sub["acc"], sub["mask"], sub["alive"],
                            sub["seed"], sub["bounce"], t, obj, tri,
-                           prev_pdf=sub["prev_pdf"], isect=self.isect)
+                           prev_pdf=sub["prev_pdf"], isect=self.isect,
+                           shadow_count=st["shadow_rays"])
             bounce = torch.where(sub["alive"], sub["bounce"] + 1,
                                  sub["bounce"])
             st["origin"][:m] = origin

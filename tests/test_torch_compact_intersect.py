@@ -2,9 +2,11 @@
 compact_intersect.py) and its worklist prepass against the JAX
 package's compact worklist sweep in interpret mode
 (``intersect_scene_sweep(backend="compact_interpret", worklist=True)``),
-on random rays, camera rays and pools with parked lanes.  Tolerance:
-the rule of tests/test_compact.py:35-43 (t within rtol 2e-6 / atol
-1e-6; tri/obj differ only on t ties)."""
+on random rays, camera rays and pools with parked lanes, and in the
+t_max / any-hit mode of NEE shadow queries.  Tolerance: the rule of
+tests/test_compact.py:35-43 (t within rtol 2e-6 / atol 1e-6; tri/obj
+differ only on t ties); shadow queries must give the same visibility
+predicate t < t_max on every lane."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -121,6 +123,69 @@ def test_worklist_prepass_matches_jax(scenes):
         assert set(wlt[i, :n].tolist()) == set(np.asarray(wlj)[i, :n])
 
 
+@pytest.fixture(scope="module")
+def nee_scenes():
+    """The NEE box: two spheres under one area light."""
+    jscene = compile_scene(make_box_scene(spheres=2, subdiv=3,
+                                          textured=True), use_native=False)
+    assert jscene.num_lights > 0
+    return jscene, SceneSoA.from_numpy(jscene).to("cpu")
+
+
+def _shadow_rays(jscene, n, parked: bool, seed=0):
+    """Shadow queries toward random points on the lights, from random
+    points in the box and above its ceiling (which then blocks them);
+    t_max stops just short of the light as the shading step's does.
+    ``parked``: half the lanes carry the parked query of a lane without
+    a light sample."""
+    r = np.random.default_rng(seed)
+    o = r.uniform(-1.9, 1.9, (n, 3)).astype(np.float32)
+    o[:, 1] = r.uniform(-1.9, 2.8, n)
+    lt = np.asarray(jscene.light_tris)
+    row = lt[r.integers(0, lt.shape[0], n)]
+    su = np.sqrt(r.random(n)).astype(np.float32)[:, None]
+    b = r.random(n).astype(np.float32)[:, None]
+    lp = row[:, 0:3] + (1 - su) * row[:, 3:6] + b * su * row[:, 6:9]
+    ldir = lp - o
+    dist = np.linalg.norm(ldir, axis=-1).astype(np.float32)
+    d = (ldir / dist[:, None]).astype(np.float32)
+    t_max = (dist * np.float32(0.999)).astype(np.float32)
+    if parked:
+        o[n // 2:] = 1e30
+        d[n // 2:] = (0.0, 0.0, 1.0)
+        t_max[n // 2:] = 1.0
+    return o, d, t_max
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("parked", [False, True])
+def test_plain_k1_tmax_matches_jax(nee_scenes, parked, any_hit):
+    jscene, tscene = nee_scenes
+    o, d, t_max = _shadow_rays(jscene, 768, parked)
+    tj, oj, rj = intersect_scene_sweep(
+        jscene, jnp.asarray(o), jnp.asarray(d), backend="compact_interpret",
+        tile=TILE, worklist=True, t_max=jnp.asarray(t_max), any_hit=any_hit)
+    before = tci.plain_calls
+    tt, ot, rt = ttrav.intersect_scene_sweep(
+        tscene, torch.from_numpy(o), torch.from_numpy(d), tile=TILE,
+        t_max=torch.from_numpy(t_max), any_hit=any_hit)
+    assert tci.plain_calls == before + 1
+    tj, tt = np.asarray(tj), tt.numpy()
+    blocked = tt < t_max
+    np.testing.assert_array_equal(blocked, tj < t_max)
+    assert 0.02 < blocked.mean() < 0.98     # both outcomes occur
+    if parked:
+        assert not blocked[len(o) // 2:].any()
+    if any_hit:
+        # Blocked lanes are parked at -BIG in both packages.
+        np.testing.assert_array_equal(tt[blocked], tj[blocked])
+        assert (tt[blocked] == np.float32(-tci.BIG)).all()
+    else:
+        tci.hits_agree((tj, np.asarray(rj), np.asarray(oj)),
+                       (tt, rt.numpy(), ot.numpy()))
+        assert (tt[~blocked] >= 3e38).all()   # no hit before t_max: INF
+
+
 def test_unported_modes_raise(scenes):
     _, tscene = scenes
     o, d = (torch.from_numpy(x) for x in _random_rays(8, 3))
@@ -128,5 +193,3 @@ def test_unported_modes_raise(scenes):
         ttrav.intersect_scene_sweep(tscene, o, d, backend="pallas")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrav.intersect_scene_sweep(tscene, o, d, worklist=False)
-    with pytest.raises(NotImplementedError, match="NEE"):
-        ttrav.intersect_scene_sweep(tscene, o, d, t_max=torch.ones(8))

@@ -1,5 +1,6 @@
 """Kernels K1-K3 against their plain versions on the card, at small
-shapes.  Marked ``cuda``: they need an NVIDIA card with nvcc and skip
+shapes, in every mode (K1's t_max / any-hit shadow queries, K2 with
+textures and NEE), and the render on the card against the CPU.  Marked ``cuda``: they need an NVIDIA card with nvcc and skip
 elsewhere.  On the card (which has no JAX, imported by the suite's
 conftest):
 
@@ -59,6 +60,73 @@ def test_k1_matches_plain(scene, dev):
     ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
 
 
+def test_k1_any_hit_matches_plain(scene, dev):
+    """Shadow queries: the visibility predicate t < t_max agrees on every
+    lane, with and without any-hit."""
+    o, d = _rays(4096, dev)
+    r = np.random.default_rng(4)
+    t_max = torch.from_numpy(r.uniform(0.05, 4.0, 4096).astype(
+        np.float32)).to(dev)
+    tile = 1024
+    rays8, _ = ci.pack_rays8(o, d, tile, t_max=t_max)
+    wl, wn = ci.build_chunk_worklists(*scene_cluster_bounds(scene), rays8,
+                                      tile, has_tmax=True)
+    inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
+    args = (rays8, wl, wn, scene.cl_meta, inv, scene.cl_aabb, scene.cl_tris,
+            tile, 1e-4)
+    for any_hit in (False, True):
+        n0 = ci.mode_launches["any_hit" if any_hit else "tmax"]
+        got = ci.compact_wl_intersect(*args, has_tmax=True, any_hit=any_hit)
+        assert ci.mode_launches["any_hit" if any_hit else "tmax"] == n0 + 1
+        ref = ci.compact_wl_intersect_plain(*args, has_tmax=True,
+                                            any_hit=any_hit)
+        blocked = got[0] < t_max
+        assert torch.equal(blocked, ref[0] < t_max)
+        assert 0 < int(blocked.sum()) < 4096
+        if not any_hit:
+            ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
+
+
+@pytest.mark.parametrize("parity", [True, False])
+def test_k2_tex_nee_matches_plain(dev, parity):
+    """K2 with material overrides, a normal map and NEE against its plain
+    version, on a textured box's camera rays."""
+    from logipathtracer_tpu_torch import compile_scene
+    from logipathtracer_tpu_torch.config import RenderConfig
+    from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
+    from logipathtracer_tpu_torch.scene.procedural import make_box_scene
+    sc = compile_scene(make_box_scene(spheres=2, subdiv=3,
+                                      textured=True)).to(dev)
+    n = 4096
+    o, d = _rays(n, dev, seed=5)
+    o[n // 2 + n // 4:] = 0.0           # no parked tail: every lane shades
+    t, _, tri = intersect_scene_sweep(sc, o, d, tile=1024)
+    r = np.random.default_rng(6)
+    g = lambda a: torch.from_numpy(a).to(dev)
+    nm = g(r.normal(size=(n, 3)).astype(np.float32))
+    nm = nm / nm.norm(dim=-1, keepdim=True)
+    mat = g(np.concatenate([r.random((n, 7)), r.random((n, 3)) * 0.9],
+                           1).astype(np.float32))
+    args = (sc.tri_shade, o, d, g(r.random((n, 3)).astype(np.float32)),
+            g((0.2 + r.random((n, 3))).astype(np.float32)),
+            g(r.random(n) < 0.9),
+            g(r.integers(0, 2 ** 32, (n, 2), dtype=np.int64)),
+            g(r.integers(0, 8, n).astype(np.int32)), t, tri)
+    cfg = RenderConfig()
+    kw = dict(env=0.2, rr_threshold=0.5, rr_bounces=2, max_order=16,
+              parity=parity, mat=mat, ff_mapped=nm,
+              has_nmap=g(r.random(n) < 0.5), light_tris=sc.light_tris,
+              light_cdf=sc.light_cdf,
+              prev_pdf=g((r.random(n) * 0.3).astype(np.float32)),
+              nee_mis=cfg.nee_mis, total_light_area=sc.total_light_area)
+    n0 = shade.mode_launches["tex+nee"]
+    got = shade.shade(*args, **kw)
+    assert shade.mode_launches["tex+nee"] == n0 + 1 and len(got) == 11
+    ref = shade.shade_plain(*args, **kw)
+    shade.shade_agreement([x.cpu() for x in ref], [x.cpu() for x in got])
+    assert bool((got[9] != 1.0).any())   # some lanes sampled a light
+
+
 @pytest.mark.parametrize("parity", [True, False])
 def test_k2_matches_plain(scene, dev, parity):
     from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
@@ -105,16 +173,27 @@ def test_wrappers_check_inputs(scene, dev):
 
 @pytest.mark.parametrize("knob", [
     {}, dict(parity_rng=False), dict(sort_rays=False), dict(lazy_regen=2),
-    dict(pool_size=1000, compact_tile=256)])
+    dict(pool_size=1000, compact_tile=256),
+    dict(nee=True, scene="textured"),
+    dict(nee=True, parity_rng=False, scene="textured"),
+    dict(mip_levels=4, scene="nearest")])
 def test_render_card_matches_cpu(dev, knob):
     """The whole slice on the card against the CPU (plain versions),
-    including the configurations off the flagship path."""
+    including the configurations off the flagship path: NEE on the
+    textured box, and a textured box with mips and a NEAREST sampler."""
     from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
                                           compile_scene)
     from logipathtracer_tpu_torch.scene.procedural import make_box_scene
-    host = compile_scene(make_box_scene(spheres=2, subdiv=3))
+    knob = dict(knob)
+    kind = knob.pop("scene", "plain")
     cfg = RenderConfig(width=32, height=32, pool_size=1024,
                        compact_tile=256).replace(**knob)
+    gltf = make_box_scene(spheres=2, subdiv=3, textured=kind != "plain")
+    if kind == "nearest":
+        gltf.textures[0].mag_filter = 9728
+        gltf.textures[0].min_filter = 9728
+    host = compile_scene(gltf, cfg)
+    assert kind != "nearest" or (host.has_nearest and host.mip_levels > 1)
     rads = []
     for device in (dev, "cpu"):
         r = ProgressiveRenderer(host, cfg, host_seed=5, device=device)

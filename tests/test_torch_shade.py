@@ -1,8 +1,9 @@
 """The port's shading step (render/megakernel.py::shade_step, on CPU
 tensors the plain version of kernel K2) against the JAX package's
 ``shade_step`` with ``shade="shade_interpret"`` (the Pallas kernel in
-interpret mode), plus its building blocks (camera rays, BSDF pieces,
-film) against their JAX twins.
+interpret mode), also on a scene small enough for the JAX kernel's
+tri_sel form, plus its building blocks (camera rays, BSDF pieces with
+the walk's NEE eval hook, film) against their JAX twins.
 
 Tolerance: ``shade.shade_agreement`` — seeds and alive flags may differ
 on at most 0.5% of lanes (a walk that took another branch after a
@@ -107,6 +108,39 @@ def test_shade_step_scalar_bounce(hit_state):
     tshade.shade_agreement(ref, got)
 
 
+def test_shade_tri_sel_scene_matches_jax_kernel():
+    """A scene of at most 512 triangles, where the JAX kernel selects its
+    shade rows in the kernel (shade.py tri_sel, megakernel.py:420-434):
+    the port's per-lane row read computes the same step."""
+    from logipathtracer_tpu.render.megakernel import SHADE_SEL_MAX_TRIS
+    jscene = compile_scene(make_box_scene(spheres=1, subdiv=1),
+                           use_native=False)
+    assert 0 < jscene.tri_shade.shape[0] <= SHADE_SEL_MAX_TRIS
+    assert not jscene.has_textures
+    tscene = SceneSoA.from_numpy(jscene).to("cpu")
+    cam = jscene.cameras[0]
+    ys, xs = np.meshgrid(np.arange(32, dtype=np.float32),
+                         np.arange(32, dtype=np.float32), indexing="ij")
+    pix = jnp.asarray(np.stack([xs, ys], -1).reshape(-1, 2))
+    seed = jax_seed(jnp.asarray([48271, 16807], jnp.uint32), pix)
+    origin, direction, seed = jax_generate_ray(
+        jnp.asarray(cam.world_matrix), jnp.float32(cam.yfov), pix,
+        (32, 32), seed)
+    t, obj, tri = intersect_scene(jscene, origin, direction, eps=1e-4)
+    r = np.random.default_rng(5)
+    st = dict(origin=np.array(origin), direction=np.array(direction),
+              acc=np.zeros((N, 3), np.float32),
+              mask=np.ones((N, 3), np.float32), alive=r.random(N) < 0.9,
+              seed=np.array(seed).astype(np.uint32),
+              bounce=r.integers(0, 8, N).astype(np.int32), t=np.array(t),
+              obj=np.array(obj), tri=np.array(tri))
+    for parity in (True, False):
+        ref = _jax_shade(jscene, st, parity, jnp.asarray(st["bounce"]))
+        ref[5] = ref[5].astype(np.int64)
+        got = _port_shade(tscene, st, parity, torch.from_numpy(st["bounce"]))
+        tshade.shade_agreement(ref, got)
+
+
 def test_generate_ray_matches_jax(hit_state):
     jscene, _, _ = hit_state
     cam = jscene.cameras[0]
@@ -170,6 +204,44 @@ def test_bsdf_matches_jax(parity):
                                    atol=tshade.ALL_ATOL)
 
 
+@pytest.mark.parametrize("parity", [True, False])
+def test_heitz_eval_matches_jax(parity):
+    """bsdf.heitz_sample with eval_dir/eval_mask (the NEE hook)."""
+    r = np.random.default_rng(7)
+    n = 2048
+    seed = r.integers(0, 2 ** 32, (n, 2), dtype=np.uint64).astype(np.uint32)
+    base = r.random((n, 3)).astype(np.float32)
+    view = r.normal(size=(n, 3)).astype(np.float32)
+    view[:, 2] = np.abs(view[:, 2]) + 0.05
+    view /= np.linalg.norm(view, axis=-1, keepdims=True)
+    ev = r.normal(size=(n, 3)).astype(np.float32)
+    ev /= np.linalg.norm(ev, axis=-1, keepdims=True)   # some below: z < 0
+    rough = (0.05 + r.random(n)).astype(np.float32)
+    trans = (r.random(n) < 0.2).astype(np.float32)
+    ior = (1.2 + r.random(n) * 0.5).astype(np.float32)
+    outside = r.random(n) < 0.7
+    lobe = r.integers(0, 3, n).astype(np.int32)
+    active = r.random(n) < 0.9
+    emask = active & (r.random(n) < 0.8)
+    jw, jdir, js, jf = jbsdf.heitz_sample(
+        *(jnp.asarray(x) for x in (base, view, rough, trans, ior, outside,
+                                   lobe, seed, active)),
+        rand=jax_get_rand(parity), eval_dir=jnp.asarray(ev),
+        eval_mask=jnp.asarray(emask))
+    f = torch.from_numpy
+    tw, tdir, ts, tf = tbsdf.heitz_sample(
+        f(base), f(view), f(rough), f(trans), f(ior), f(outside), f(lobe),
+        f(seed.astype(np.int64)), f(active), rand=get_rand(parity),
+        eval_dir=f(ev), eval_mask=f(emask))
+    same = (ts.numpy() == np.asarray(js).astype(np.int64)).all(-1)
+    assert same.mean() >= 1.0 - tshade.MAX_DIVERGED
+    for a, b in ((jw, tw), (jdir, tdir), (jf, tf)):
+        np.testing.assert_allclose(b.numpy()[same], np.asarray(a)[same],
+                                   rtol=tshade.ALL_RTOL,
+                                   atol=tshade.ALL_ATOL)
+    assert (tf.numpy() > 0).any()      # the hook estimated something
+
+
 def test_film_matches_jax():
     r = np.random.default_rng(9)
     accum = (r.random((16, 24, 3)) * 4).astype(np.float32)
@@ -186,7 +258,7 @@ def test_film_matches_jax():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("nee", True, "NEE"), ("use_microfacet", False, "basic BSDF")])
+    ("use_microfacet", False, "basic BSDF")])
 def test_unported_shading_raises(hit_state, field, value, item):
     _, tscene, st = hit_state
     cfg = RenderConfig(width=32, height=32).replace(**{field: value})

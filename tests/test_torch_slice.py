@@ -133,8 +133,7 @@ def test_unported_configs_raise(renders):
     js = renders["jscene"]
     for kw, item in ((dict(renderer="megakernel"), "megakernel"),
                      (dict(intersect="bvh"), "BVH"),
-                     (dict(compact_worklist=False), "K7"),
-                     (dict(nee=True), "NEE")):
+                     (dict(compact_worklist=False), "K7")):
         with pytest.raises(NotImplementedError, match=item):
             ProgressiveRenderer(js, RenderConfig(**FIELDS).replace(**kw),
                                 device="cpu")
