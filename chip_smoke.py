@@ -6,7 +6,8 @@ Needs one CUDA card; fails (exit 1, no result line) without one.  From
 the root of a checkout it:
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the three CUDA kernels from logipathtracer_tpu_torch/csrc;
+  2. builds the CUDA kernels from logipathtracer_tpu_torch/csrc, one
+     nvcc per source, all started together;
   3. holds each kernel against its plain PyTorch version on the card at
      the main path's shapes (K1 on the 2^20-ray primary pool and on a
      bounce pool of the render, K2 on that 2^20-lane pool, K3 on a
@@ -28,16 +29,33 @@ the root of a checkout it:
      and K2 on a scene small enough for the TPU kernel's tri_sel form;
      (c) the NEE main path at 1024x1024, timed as in 4, which must run
      K1 at least twice per iteration, K2 and K3, and no plain version;
+     (d) the 64x64 card-vs-CPU render of 5 on this path;
+  7. the outside-class path, scenes beyond the resident budget that
+     stream cluster blocks: ``make_outside_scene()`` (394,242 triangles,
+     51 objects, 1,233 clusters of 512) with the default RenderConfig,
+     which routes it to K4 — (a) K4, K5 and K6 (cap 0 and cap > 0
+     bodies) against their plain versions on the whole 2^20-ray primary
+     pool; K4 on a bounce pool and in its t_max / any-hit mode on the
+     shadow pool of one NEE step (the same visibility on every lane), on
+     as many tiles of those pools as the plain version covers in about
+     a minute (BOUNCE_TILES, SHADOW_TILES), and timed on the whole pool
+     too; (b) the main path at 1024x1024, timed as in 4, which must run
+     K4, K2 and K3, never K1 and no plain version; (c) one 1024x1024
+     step(1) on each other route (``stream_granularity="chunk"``: K5;
+     ``stream_worklist=False``: K6 cap > 0; ``stream_compact=False``:
+     K6 cap 0; ``nee=True``: K4 any-hit), each launching its kernel;
      (d) the 64x64 card-vs-CPU render of 5 on this path.
 
 The scene is the glTF given with --scene, else the procedural box
 ``make_box_scene(spheres=10, subdiv=3)`` (12,812 triangles, 86 clusters,
 the resident class of the reference's cornell box), built from a fixed
 seed; the host seeds are fixed too.  Phase 6 always renders the
-procedural box.
+procedural box and phase 7 the procedural outside scene.
 
-Prints one JSON line of kernel results, then the card line, then as its
-last line {"ok": true, "device": {...}}.  Any failed check raises.
+Prints one JSON line of kernel results (each row names the run its
+launches were counted in and the pool size its times and error were
+measured on), then the card line, then as its last line
+{"ok": true, "device": {...}}.  Any failed check raises.
 """
 
 from __future__ import annotations
@@ -55,7 +73,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
 
-# Tolerances.  K1 and K2 use the rules kept beside their kernels
+# Tolerances.  K1, K2 and K4-K6 use the rules kept beside their kernels
 # (compact_intersect.hits_agree: t within rtol 2e-6 / atol 1e-6, tri/obj
 # differing only on t ties; shade.shade_agreement: at most 0.5% of lanes
 # with another seed or alive flag, floats close on the rest).
@@ -103,23 +121,55 @@ def _time_once(fn):
     return out, start.elapsed_time(end)
 
 
-def _counters():
-    from logipathtracer_tpu_torch.ops.kernels import (compact_intersect,
-                                                      flush, shade)
-    return {"compact_intersect": compact_intersect, "shade": shade,
-            "flush": flush}
+# Every kernel's counts: name -> (module, launches, plain calls, launches
+# by mode).  K5 sits beside K1 in compact_intersect with its own counts.
+COUNTERS = {
+    "compact_intersect": ("compact_intersect", "launches", "plain_calls",
+                          "mode_launches"),
+    "shade": ("shade", "launches", "plain_calls", "mode_launches"),
+    "flush": ("flush", "launches", "plain_calls", None),
+    "stream_cluster": ("stream_cluster", "launches", "plain_calls",
+                       "mode_launches"),
+    "worklist_chunk": ("compact_intersect", "worklist_launches",
+                       "worklist_plain_calls", "worklist_mode_launches"),
+    "octant_chunk": ("cluster_intersect", "launches", "plain_calls",
+                     "mode_launches"),
+}
+FLAGSHIP = ("compact_intersect", "shade", "flush")
+
+
+def _module(name):
+    import importlib
+    return importlib.import_module(
+        f"logipathtracer_tpu_torch.ops.kernels.{COUNTERS[name][0]}")
 
 
 def reset_counts():
-    for m in _counters().values():
-        m.launches = 0
-        m.plain_calls = 0
-        if hasattr(m, "mode_launches"):
-            m.mode_launches.clear()
+    for name, (_, launched, plain, modes) in COUNTERS.items():
+        m = _module(name)
+        setattr(m, launched, 0)
+        setattr(m, plain, 0)
+        if modes:
+            getattr(m, modes).clear()
 
 
-def read_counts():
-    return {k: (m.launches, m.plain_calls) for k, m in _counters().items()}
+def read_counts(names=tuple(COUNTERS)):
+    out = {}
+    for name in names:
+        _, launched, plain, _ = COUNTERS[name]
+        m = _module(name)
+        out[name] = (getattr(m, launched), getattr(m, plain))
+    return out
+
+
+def modes_of(name):
+    m = _module(name)
+    return dict(getattr(m, COUNTERS[name][3]))
+
+
+def assert_no_plain():
+    plain = {k: p for k, (_, p) in read_counts().items() if p}
+    assert not plain, f"main path ran plain versions: {plain}"
 
 
 def primary_pool(renderer, seed_xy=(48271, 16807)):
@@ -366,7 +416,8 @@ def nee_phase(dev, card, flagship_rate):
     wall = time.perf_counter() - t0
     rays = renderer.total_rays - rays0
     shadow = int(renderer._wf_state["shadow_rays"]) - shadow0
-    counts = read_counts()
+    counts = read_counts(FLAGSHIP)
+    assert_no_plain()
     modes = {"any_hit": ci.mode_launches["any_hit"],
              "closest": ci.mode_launches["closest"],
              "tex+nee": sk.mode_launches["tex+nee"]}
@@ -406,6 +457,250 @@ def nee_phase(dev, card, flagship_rate):
     return {"k1": k1[:3], "k2": k2[1:], "modes": modes}
 
 
+# Phase 7: K4, K5 and K6 are held against their plain versions on the
+# whole 2^20-ray primary pool.  The plain versions loop over tiles and
+# clusters on the host; on bounce and shadow rays they take far longer
+# per tile (K4 plain on 16 tiles: ~0.2 s primary, ~7.5 s bounce, ~15 s
+# shadow, H100 80GB HBM3, 700 W), so those pools are cut to the tiles
+# that finish in about a minute, spread over the pool's live tiles.
+BOUNCE_TILES = 128                      # 2^19 rays
+SHADOW_TILES = 64                       # 2^18 rays
+
+
+def sub_pool(rays8, tile, n_live, tiles):
+    """``tiles`` whole tiles of rays8, evenly spread over the tiles that
+    hold the first ``n_live`` lanes."""
+    total = rays8.shape[1] // tile
+    n = min(tiles, total)
+    live = min(total, max(-(-n_live // tile), n))
+    pick = torch.linspace(0, live - 1, n).round().long()
+    idx = (pick[:, None] * tile + torch.arange(tile)).reshape(-1)
+    return rays8[:, idx.to(rays8.device)].contiguous()
+
+
+def stream_runner(kind, scene, rays8, tile, chunk=16, **kw):
+    """(kernel call, plain call) of one streamed kernel on a packed pool,
+    with the front end the main path gives it, computed once."""
+    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
+    from logipathtracer_tpu_torch.ops.traverse import (scene_chunk_bounds,
+                                                       scene_cluster_bounds)
+    inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
+    tables = (scene.cl_meta, inv, scene.cl_aabb, scene.cl_tris)
+    has_tmax = kw.get("has_tmax", False)
+    if kind == "K4":
+        wl, wn = k4.build_cluster_worklists(*scene_cluster_bounds(scene),
+                                            rays8, tile, has_tmax=has_tmax)
+        args = (rays8, wl, wn, *tables, tile, 1e-4)
+        return (lambda: k4.stream_cl_intersect(*args, **kw),
+                lambda: k4.stream_cl_intersect_plain(*args, **kw))
+    bounds = scene_chunk_bounds(scene, chunk)
+    chunk_aabb = torch.cat(bounds, 1).contiguous()
+    if kind == "K5":
+        wl, wn = ci.build_chunk_worklists(*bounds, rays8, tile,
+                                          has_tmax=has_tmax)
+        args = (rays8, wl, wn, chunk_aabb, *tables, tile, chunk, 1e-4)
+        return (lambda: ci.worklist_chunk_intersect(*args, **kw),
+                lambda: ci.worklist_chunk_intersect_plain(*args, **kw))
+    oct_, live = k6.tile_front(rays8, tile)
+    order = k6.octant_chunk_order(*bounds)
+    args = (rays8, oct_, order, live, chunk_aabb, *tables, tile, chunk, 1e-4)
+    kw = dict(kw, cap=0 if kind == "K6[cap=0]" else 32)
+    return (lambda: k6.octant_chunk_intersect(*args, **kw),
+            lambda: k6.octant_chunk_intersect_plain(*args, **kw))
+
+
+def check_stream(kind, scene, rays8, tile, runs=10, **kw):
+    """A streamed kernel against its plain version on one packed pool
+    (hits_agree; with any_hit the visibility t < t_max on every lane).
+    Returns (max |dt|, kernel ms (median of ``runs``), plain ms (once),
+    hit or blocked fraction), all on that pool."""
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    kernel, plain = stream_runner(kind, scene, rays8, tile, **kw)
+    got = kernel()
+    ref, p_ms = _time_once(plain)
+    if kw.get("any_hit"):
+        t_max = rays8[6]
+        bad = int(((got[0] < t_max) != (ref[0] < t_max)).sum())
+        assert bad == 0, f"{kind} any-hit: visibility differs on {bad} lanes"
+        err = float((got[0] - ref[0]).abs().max())
+        live = rays8[0] < 1e29
+        frac = float((got[0] < t_max)[live].float().mean())
+    else:
+        err = ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
+        frac = float((ref[1] >= 0).float().mean())
+    return err, _median_ms(kernel, runs), p_ms, frac
+
+
+def outside_phase(dev, card):
+    """Phase 7: the outside-class path (module docstring).  Returns the
+    kernel rows (name, launches, max err, kernel ms, plain ms)."""
+    from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
+                                          compile_scene)
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    from logipathtracer_tpu_torch.ops.kernels import shade as sk
+    from logipathtracer_tpu_torch.ops.traverse import \
+        intersect_scene_cluster_wl
+    from logipathtracer_tpu_torch.render.megakernel import \
+        resolve_intersect_mode
+    from logipathtracer_tpu_torch.scene.procedural import make_outside_scene
+
+    t_phase = time.perf_counter()
+    host = compile_scene(make_outside_scene())
+    cfg = RenderConfig(width=1024, height=1024)
+    tile = cfg.stream_tile
+    assert resolve_intersect_mode(cfg, host) == "stream"
+    print(f"outside scene: {host.num_triangles} triangles, "
+          f"{host.num_objects} objects, {host.cl_tris.shape[0]} clusters of "
+          f"{host.cl_tris.shape[2]}, {host.num_lights} light triangles "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # (a) kernels against their plain versions
+    probe = ProgressiveRenderer(host, cfg, host_seed=1, device=dev)
+    scene = probe.scene
+    o, d, _ = primary_pool(probe)
+    full8, _ = ci.pack_rays8(o, d, tile)
+    res = {}
+    for kind in ("K4", "K5", "K6[cap=0]", "K6[cap>0]"):
+        res[kind] = (*check_stream(kind, scene, full8, tile), full8.shape[1])
+        err, k_ms, p_ms, frac, n = res[kind]
+        print(f"{kind} primary pool {n} rays: max|dt| {err:.3g}, hit "
+              f"{frac:.3f}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms (once)",
+              flush=True)
+    pool = bounce_pool(probe)
+    n_alive = int(pool["alive"].sum())
+    full8, _ = ci.pack_rays8(pool["origin"], pool["direction"], tile)
+    k_full = _median_ms(stream_runner("K4", scene, full8, tile)[0], 10)
+    sub8 = sub_pool(full8, tile, n_alive, BOUNCE_TILES)
+    res["K4 bounce"] = (*check_stream("K4", scene, sub8, tile), sub8.shape[1])
+    err, k_ms, p_ms, frac, n = res["K4 bounce"]
+    print(f"K4 bounce pool ({n_alive} alive): kernel {k_full:.3f} ms on "
+          f"{full8.shape[1]} rays; on {n} rays max|dt| {err:.3g}, kernel "
+          f"{k_ms:.3f} ms, plain {p_ms:.1f} ms (once)", flush=True)
+    del probe, pool, full8, sub8
+
+    nee_cfg = cfg.replace(nee=True)
+    probe = ProgressiveRenderer(host, nee_cfg, host_seed=1, device=dev)
+    scene = probe.scene
+    pool = bounce_pool(probe)
+    t, _, tri = intersect_scene_cluster_wl(scene, pool["origin"],
+                                           pool["direction"], tile=tile)
+    out = sk.shade(scene.tri_shade, pool["origin"], pool["direction"],
+                   pool["acc"], pool["mask"], pool["alive"], pool["seed"],
+                   pool["bounce"], t, tri, env=cfg.env_color,
+                   rr_threshold=cfg.rr_threshold, rr_bounces=cfg.rr_bounces,
+                   max_order=cfg.heitz_max_order, parity=cfg.parity_rng,
+                   light_tris=scene.light_tris, light_cdf=scene.light_cdf,
+                   prev_pdf=pool["prev_pdf"], nee_mis=cfg.nee_mis,
+                   total_light_area=float(scene.total_light_area))
+    n_alive = int(pool["alive"].sum())
+    shadow = dict(has_tmax=True, any_hit=True)
+    full8, _ = ci.pack_rays8(out[7], out[8], tile, t_max=out[9])
+    k_full = _median_ms(stream_runner("K4", scene, full8, tile, **shadow)[0],
+                        10)
+    sub8 = sub_pool(full8, tile, n_alive, SHADOW_TILES)
+    res["K4 any_hit"] = (*check_stream("K4", scene, sub8, tile, **shadow),
+                         sub8.shape[1])
+    err, k_ms, p_ms, frac, n = res["K4 any_hit"]
+    print(f"K4 t_max+any-hit shadow pool ({n_alive} lanes alive): kernel "
+          f"{k_full:.3f} ms on {full8.shape[1]} lanes; on {n} lanes the same "
+          f"visibility on every lane, {frac:.3f} blocked, max|dt| {err:.3g}, "
+          f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms (once)", flush=True)
+    del probe, pool, out, full8, sub8
+
+    # (b) the main path
+    renderer = ProgressiveRenderer(host, cfg, host_seed=0, device=dev)
+    reset_counts()
+    renderer.step(1)                        # warm-up
+    iters = [renderer.last_iterations]
+    torch.cuda.synchronize()
+    rays0 = renderer.total_rays
+    t0 = time.perf_counter()
+    timed = (2, 2)
+    for n_spp in timed:
+        renderer.step(n_spp)
+        iters.append(renderer.last_iterations)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rays = renderer.total_rays - rays0
+    counts = read_counts()
+    modes = modes_of("stream_cluster")
+    rad = renderer.radiance()
+    assert rad.shape == (cfg.height, cfg.width, 3) and np.isfinite(rad).all()
+    mean = float(rad.mean())
+    assert 1e-3 < mean < 10.0, f"implausible mean radiance {mean}"
+    for k in ("stream_cluster", "shade", "flush"):
+        assert counts[k][0] > 0, f"outside path never launched kernel {k}"
+    for k in ("compact_intersect", "worklist_chunk", "octant_chunk"):
+        assert counts[k][0] == 0, f"outside path launched kernel {k}"
+    assert_no_plain()
+    spp = sum(timed)
+    print(f"outside main path {cfg.width}x{cfg.height} spp {spp}: "
+          f"{spp / wall:.3f} "
+          f"samples/s, {rays / wall / 1e6:.2f} Mrays/s, iterations per "
+          f"chunk {iters[1:]}, mean radiance {mean:.6f} [{card}]",
+          flush=True)
+    print(f"outside launches: {json.dumps(counts)} K4 by mode "
+          f"{json.dumps(modes)} in {sum(iters)} iterations", flush=True)
+    main_run = f"{cfg.width}^2 main path"
+    launches = {"K4": (counts["stream_cluster"][0], main_run)}
+    del renderer
+
+    # (c) one step(1) at full width on each other route
+    for label, kw, name, mode in (
+            ("K5", dict(stream_granularity="chunk"), "worklist_chunk",
+             "closest"),
+            ("K6[cap>0]", dict(stream_worklist=False), "octant_chunk",
+             "cap/closest"),
+            ("K6[cap=0]", dict(stream_compact=False), "octant_chunk",
+             "cap0/closest"),
+            ("K4 any_hit", dict(nee=True), "stream_cluster", "any_hit")):
+        r = ProgressiveRenderer(host, cfg.replace(**kw), host_seed=2,
+                                device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        r.step(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, n_it = modes_of(name)[mode], r.last_iterations
+        assert n > 0, f"{kw}: kernel {label} never launched"
+        assert_no_plain()
+        launches[label] = (n, f"{cfg.width}^2 step(1) " + " ".join(
+            f"{k}={v}" for k, v in kw.items()))
+        rad = r.radiance()                  # drains the pool
+        assert np.isfinite(rad).all() and rad.mean() > 1e-3
+        print(f"route {json.dumps(kw)} {cfg.width}x{cfg.height} step(1): "
+              f"{label} launched {n} times in {n_it} iterations, "
+              f"{wall:.3f} s, mean radiance after the drain "
+              f"{float(rad.mean()):.6f}", flush=True)
+        del r
+
+    # (d) card vs CPU on the default route
+    small = RenderConfig(width=64, height=64, pool_size=4096)
+    img_gpu, _ = render_radiance(host, small, dev, 7, (2, 2))
+    img_cpu, _ = render_radiance(host, small, "cpu", 7, (2, 2))
+    close = np.isclose(img_gpu, img_cpu, rtol=IMG_RTOL,
+                       atol=IMG_ATOL).all(-1)
+    print(f"outside card vs CPU 64x64 2+2 spp: {close.mean():.5f} of pixels "
+          f"close", flush=True)
+    assert close.mean() >= IMG_FRAC, "outside card and CPU renders disagree"
+    print(f"phase 7: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
+    from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
+    return [(name, src, where, *launches[key], res[key])
+            for name, src, where, key in (
+                ("stream_cluster", k4.SOURCE, k4.REPLACES, "K4"),
+                ("stream_cluster[tmax+any_hit]", k4.SOURCE, k4.REPLACES,
+                 "K4 any_hit"),
+                ("worklist_chunk", ci.WORKLIST_SOURCE, ci.WORKLIST_REPLACES,
+                 "K5"),
+                ("octant_chunk[cap=0]", k6.SOURCE, k6.REPLACES, "K6[cap=0]"),
+                ("octant_chunk[cap>0]", k6.SOURCE, k6.REPLACES_CAP,
+                 "K6[cap>0]"))]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default=None,
@@ -430,7 +725,8 @@ def main(argv=None) -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load_all(("compact_intersect", "shade", "flush"))
+    _build.load_all(("compact_intersect", "shade", "flush", "stream_cluster",
+                     "stream_chunk"))
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"{json.dumps(_build.BUILD_SECONDS)}", flush=True)
 
@@ -489,13 +785,13 @@ def main(argv=None) -> int:
     wall = time.perf_counter() - t0
     rays = renderer.total_rays - rays0
     rad = renderer.radiance()
-    counts = read_counts()
+    counts = read_counts(FLAGSHIP)
     assert rad.shape == (1024, 1024, 3) and np.isfinite(rad).all()
     mean = float(rad.mean())
     assert 1e-3 < mean < 10.0, f"implausible mean radiance {mean}"
     for k, (launched, plain) in counts.items():
         assert launched > 0, f"main path never launched kernel {k}"
-        assert plain == 0, f"main path ran the plain version of {k}"
+    assert_no_plain()
     spp = sum(timed)
     print(f"main path 1024x1024 spp {spp}: {spp / wall:.3f} samples/s, "
           f"{rays / wall / 1e6:.2f} Mrays/s, iterations per chunk {iters}, "
@@ -516,26 +812,39 @@ def main(argv=None) -> int:
     # ---- 6. textured + NEE path -----------------------------------------
     nee = nee_phase(dev, card, flagship_rate)
 
+    # ---- 7. outside-class path (streamed clusters) ----------------------
+    outside = outside_phase(dev, card)
+
     from logipathtracer_tpu_torch.ops.kernels import (compact_intersect,
                                                       flush, shade)
     k1_any = "logipathtracer_tpu/ops/pallas/compact_intersect.py:243"
+    pool = 1 << 20          # rays, lanes or rows of phases 3 and 6's checks
+    main_run, nee_run = "1024^2 main path", "1024^2 NEE main path"
     rows = [
         ("compact_intersect", compact_intersect, compact_intersect.REPLACES,
-         counts["compact_intersect"][0], k1p[0], k1p[1], k1p[2]),
+         counts["compact_intersect"][0], main_run, k1p[0], k1p[1], k1p[2]),
         ("compact_intersect[tmax+any_hit]", compact_intersect, k1_any,
-         nee["modes"]["any_hit"], *nee["k1"]),
-        ("shade", shade, shade.REPLACES, counts["shade"][0], k2[1], k2[2],
-         k2[3]),
+         nee["modes"]["any_hit"], nee_run, *nee["k1"]),
+        ("shade", shade, shade.REPLACES, counts["shade"][0], main_run, k2[1],
+         k2[2], k2[3]),
         ("shade[tex+nee]", shade, shade.REPLACES, nee["modes"]["tex+nee"],
-         *nee["k2"]),
-        ("flush", flush, flush.REPLACES, counts["flush"][0], k3[0], k3[1],
-         k3[2]),
+         nee_run, *nee["k2"]),
+        ("flush", flush, flush.REPLACES, counts["flush"][0], main_run, k3[0],
+         k3[1], k3[2]),
     ]
+    rows = [(n, m.SOURCE, where, launched, run, err, k_ms, p_ms, pool)
+            for n, m, where, launched, run, err, k_ms, p_ms in rows]
+    rows += [(n, src, where, launched, run, r[0], r[1], r[2], r[4])
+             for n, src, where, launched, run, r in outside]
+    # Beside the contract's keys: "run", the run whose launches are
+    # counted, and "pool", the rays (lanes, rows) that max_abs_err, ms and
+    # plain_ms were measured on.
     print(json.dumps({"kernels": [
-        {"name": n, "route": "cuda", "source": m.SOURCE,
+        {"name": n, "route": "cuda", "source": src,
          "replaces": where, "launches": launched,
-         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
-        for n, m, where, launched, err, k_ms, p_ms in rows]}))
+         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+         "run": run, "pool": n_pool}
+        for n, src, where, launched, run, err, k_ms, p_ms, n_pool in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

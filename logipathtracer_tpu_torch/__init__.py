@@ -8,9 +8,12 @@ package imports torch and never JAX.
 
 The main path: ``load_gltf`` / a procedural scene → ``compile_scene`` →
 ``ProgressiveRenderer(scene, RenderConfig(...))`` → ``step(n)`` →
-``radiance()`` / ``image()``.  On CUDA tensors it runs three kernels
-(csrc/): the compact worklist intersect (K1), the fused shade (K2) and
-the radiance flush (K3); on CPU tensors their plain PyTorch versions.
+``radiance()`` / ``image()``.  On CUDA tensors it runs hand-written
+kernels (csrc/): the compact worklist intersect (K1) for resident-class
+scenes, or for scenes beyond the resident budget a streamed intersect —
+the frustum cluster worklists (K4, the default), the chunk worklists
+(K5) or the octant chunk sweep (K6) — then the fused shade (K2) and the
+radiance flush (K3); on CPU tensors their plain PyTorch versions.
 """
 
 from logipathtracer_tpu_torch.config import RenderConfig

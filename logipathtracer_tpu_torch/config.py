@@ -10,10 +10,15 @@ and shaders/tex_to_quad.frag:21-22).
 
 Fields that only choose a TPU mechanism in the JAX package are accepted
 and ignored here: ``pool_cm``, ``sort_variadic``, ``flush_bins``,
-``sweep_tile``, ``stream_*``, ``compact_cap``, ``shade``,
-``shade_tile``.  Every field that changes results is honoured or, where
-its path is not ported yet, raises NotImplementedError
-(render/megakernel.py, render/progressive.py).
+``sweep_tile``, ``compact_cap``, ``shade``, ``shade_tile``.  The
+``stream_*`` fields route a scene beyond the resident budget between
+kernels K4, K5 and K6 as in the JAX package (``stream_worklist``,
+``stream_granularity``, ``stream_compact``, and whether ``stream_cap``
+is 0; render/megakernel.py ``pick_intersect``), with ``stream_tile``
+rays per tile and ``stream_chunk`` clusters per chunk; the cap's block
+width itself is a TPU mechanism.  Every field that changes results is
+honoured or, where its path is not ported yet, raises
+NotImplementedError (render/megakernel.py, render/progressive.py).
 """
 
 from __future__ import annotations
@@ -70,7 +75,7 @@ class RenderConfig:
     # Execution.
     renderer: str = "auto"        # auto | wavefront (| megakernel)
     pool_size: int = 1 << 20      # wavefront ray-pool lanes
-    intersect: str = "auto"       # auto | compact (| stream, sweep, bvh)
+    intersect: str = "auto"       # auto | compact | stream (| sweep, bvh)
     sweep_tile: int = 1024
     compact_tile: int = 4096      # rays per worklist tile; also sizes
                                   # the block-major pixel layout

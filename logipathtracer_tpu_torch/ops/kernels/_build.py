@@ -32,6 +32,8 @@ BUILD_DIR = os.path.join(_PKG, "build", "kernels")
 # states the same in its header.
 EXTRA_FLAGS = {
     "compact_intersect": ["-fmad=false"],
+    "stream_cluster": ["-fmad=false"],
+    "stream_chunk": ["-fmad=false"],
     "shade": ["-fmad=false"],
     "flush": [],
 }
@@ -53,6 +55,13 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _source_mtime(src: str) -> float:
+    """The newest of the source and the shared headers it may include."""
+    headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC)
+               if f.endswith(".cuh")]
+    return max(os.path.getmtime(p) for p in [src, *headers])
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu."""
     with _LOCK:
@@ -65,7 +74,7 @@ def load(name: str) -> ctypes.CDLL:
         so = os.path.join(BUILD_DIR, f"lib{name}.so")
         os.makedirs(BUILD_DIR, exist_ok=True)
         if (not os.path.exists(so)
-                or os.path.getmtime(so) < os.path.getmtime(src)):
+                or os.path.getmtime(so) < _source_mtime(src)):
             t0 = time.perf_counter()
             tmp = so + f".{os.getpid()}.tmp"
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
@@ -92,6 +101,34 @@ def load_all(names) -> list:
 def check(code: int, what: str):
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def launch(name: str, fn: str, *args):
+    """Call the C entry point ``fn`` of csrc/<name>.cu: tensors pass as
+    device pointers, None as a null pointer, bools and ints as ``int``,
+    floats as ``float`` and a ``c_void_p`` (the stream) as it is.  Raises
+    on a non-zero return."""
+    import torch
+    types, vals = [], []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            types.append(ctypes.c_void_p)
+            vals.append(ptr(a))
+        elif a is None or isinstance(a, ctypes.c_void_p):
+            types.append(ctypes.c_void_p)
+            vals.append(ctypes.c_void_p(None) if a is None else a)
+        elif isinstance(a, (bool, int)):
+            types.append(ctypes.c_int)
+            vals.append(int(a))
+        elif isinstance(a, float):
+            types.append(ctypes.c_float)
+            vals.append(a)
+        else:
+            raise TypeError(f"{fn}: argument of type {type(a).__name__}")
+    f = getattr(load(name), fn)
+    f.argtypes = types
+    f.restype = ctypes.c_int
+    check(f(*vals), fn)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -35,13 +35,20 @@ clusters.
 
 The worklist prepass (``chunk_world_bounds``, ``build_chunk_worklists``,
 ``_order_fired``) and the ``pack_rays8`` ray pack stay plain torch: they
-were XLA code in the JAX package.
+were XLA code in the JAX package.  ``PlainSweep`` is the per-ray core
+in plain torch, shared by the plain versions of K1, K4, K5 and K6.
+
+Kernel K5 sits beside K1, as in the JAX package: ``worklist_chunk_
+intersect`` (csrc/stream_chunk.cu) replaces ``compact_intersect.py::
+cluster_intersect_worklist`` (``_worklist_compact_kernel``), the sweep
+of scenes beyond the resident budget over per-tile fired 16-cluster
+chunks, with K1's per-ray contract.  It counts its launches in
+``worklist_launches`` / ``worklist_plain_calls``.
 """
 
 from __future__ import annotations
 
 import collections
-import ctypes
 
 import torch
 
@@ -59,6 +66,14 @@ mode_launches = collections.Counter()
 
 SOURCE = "logipathtracer_tpu_torch/csrc/compact_intersect.cu"
 REPLACES = "logipathtracer_tpu/ops/pallas/compact_intersect.py:801"
+
+# Kernel K5 (the chunk worklist sweep of streamed scenes), beside K1 as
+# in the JAX package: its own counts.
+worklist_launches = 0
+worklist_plain_calls = 0
+worklist_mode_launches = collections.Counter()
+WORKLIST_SOURCE = "logipathtracer_tpu_torch/csrc/stream_chunk.cu"
+WORKLIST_REPLACES = "logipathtracer_tpu/ops/pallas/compact_intersect.py:690"
 
 
 def pack_rays8(origin, direction, tile: int, t_max=None):
@@ -112,9 +127,17 @@ def build_chunk_worklists(chunk_min, chunk_max, rays8, tile: int,
                           has_tmax: bool = False):
     """Per-tile fired-chunk lists (compact_intersect.py:587-643): slab
     every ray against every world AABB (bounded by min(t_max, BIG) with
-    ``has_tmax``), any-reduce per ray tile, order front to back.  Rays
-    go in blocks so the [NC, block] temporaries stay under ~48 MB.
+    ``has_tmax``), any-reduce per ray tile, order front to back.
     Returns (wl [tiles, NC] i32, wn [tiles] i32)."""
+    fired = fired_chunks(chunk_min, chunk_max, rays8, tile, has_tmax)
+    return _order_fired(fired, chunk_min, chunk_max, rays8, tile)
+
+
+def fired_chunks(chunk_min, chunk_max, rays8, tile: int,
+                 has_tmax: bool = False):
+    """[tiles, NC] bool: does some ray of the tile pass the world slab of
+    the chunk?  Rays go in blocks so the [NC, block] temporaries stay
+    under ~48 MB."""
     r = rays8.shape[1]
     nc = chunk_min.shape[0]
     inv = 1.0 / rays8[3:6]
@@ -141,8 +164,7 @@ def build_chunk_worklists(chunk_min, chunk_max, rays8, tile: int,
         best = BIG if best0 is None else best0[sl][None]
         ok = _slab_ok(t0, t1, best)                         # [NC, block]
         fired.append(ok.reshape(nc, block // tile, tile).any(dim=2).T)
-    return _order_fired(torch.cat(fired, 0), chunk_min, chunk_max, rays8,
-                        tile)
+    return torch.cat(fired, 0)
 
 
 def _order_fired(fired, chunk_min, chunk_max, rays8, tile: int):
@@ -186,6 +208,110 @@ def _mt(lo, ld, trib):
     return torch.where(miss, INF, t)
 
 
+def _slab_table(lo, inv, box, best):
+    """_slab_inv's decision table, vectorized over rays: lo/inv [3] lists
+    of per-ray components, box the AABB's min xyz then max xyz, best the
+    rays' running best t."""
+    n = [(box[a] - lo[a]) * inv[a] for a in range(3)]
+    f = [(box[3 + a] - lo[a]) * inv[a] for a in range(3)]
+    t0 = torch.maximum(torch.maximum(torch.minimum(n[0], f[0]),
+                                     torch.minimum(n[1], f[1])),
+                       torch.minimum(n[2], f[2]))
+    t1 = torch.minimum(torch.minimum(torch.maximum(n[0], f[0]),
+                                     torch.maximum(n[1], f[1])),
+                       torch.maximum(n[2], f[2]))
+    return (t0 <= t1) & (((t0 > 0.0) & (t0 < best))
+                         | ((t0 <= 0.0) & (t1 > 0.0) & (best > 0.0)))
+
+
+class PlainSweep:
+    """The per-ray core of the intersect kernels (csrc/closest_hit.cuh)
+    in plain PyTorch, shared by the plain versions of K1, K4, K5 and K6:
+    the running best (t, tri, obj) of every ray of an [8, R] ray block,
+    and cluster visits vectorized over the rays of one tile.
+
+    ``best0`` is the initial best t [R]; ``visit`` updates one tile's
+    slice in place."""
+
+    def __init__(self, rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps: float,
+                 best0):
+        r = rays8.shape[1]
+        dev = rays8.device
+        self.rays8 = rays8
+        self.cl_tris = cl_tris
+        self.eps = eps
+        self.best_t = best0.contiguous()
+        self.best_tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
+        self.best_obj = torch.full((r,), -1, dtype=torch.int32, device=dev)
+        self.meta = cl_meta.cpu().tolist()
+        self.inv = cl_inv.cpu().tolist()
+        self.aabb = cl_aabb.cpu().tolist()
+        self.slot_ids = torch.arange(cl_tris.shape[2], device=dev)
+
+    def chunk_gate(self, sl, box, block: int):
+        """Lanes of tile ``sl`` whose ``block``-ray block has some ray
+        passing the world slab of ``box`` (the kernels' block-wide chunk
+        test)."""
+        o = self.rays8[0:3, sl]
+        inv = 1.0 / self.rays8[3:6, sl]
+        hit = _slab_table(list(o), list(inv), box, self.best_t[sl])
+        return hit.reshape(-1, block).any(dim=1).repeat_interleave(block)
+
+    def visit(self, sl, c: int, any_hit: bool = False, gate=None,
+              subtile: int = 0):
+        """Visit cluster ``c`` with the rays of tile ``sl``: local ray,
+        slab against the running best, Möller–Trumbore where it passes,
+        t > eps strictly closer than the best, lowest slot on ties.
+        ``gate`` masks the lanes that take part.  ``subtile`` > 0: K6's
+        cap=0 rule, every ray of a ``subtile``-ray sub-tile with some
+        passing ray is tested.  ``any_hit`` parks an accepted lane's best
+        t at -BIG."""
+        o = self.rays8[0:3, sl]
+        d = self.rays8[3:6, sl]
+        bt = self.best_t[sl]
+        obj, base = self.meta[c]
+        m = self.inv[obj]
+        lo = [m[4 * a] * o[0] + m[4 * a + 1] * o[1] + m[4 * a + 2] * o[2]
+              + m[4 * a + 3] for a in range(3)]
+        ld = [m[4 * a] * d[0] + m[4 * a + 1] * d[1] + m[4 * a + 2] * d[2]
+              for a in range(3)]
+        hit = _slab_table(lo, [1.0 / x for x in ld], self.aabb[c], bt)
+        if gate is not None:
+            hit = hit & gate
+        if subtile:
+            hit = hit.reshape(-1, subtile).any(dim=1).repeat_interleave(
+                subtile)
+        idx = hit.nonzero().squeeze(1)
+        if idx.numel() == 0:
+            return
+        t = _mt([x[idx] for x in lo], [x[idx] for x in ld], self.cl_tris[c])
+        t = torch.where(t > self.eps, t, INF)
+        tmin = t.amin(dim=1)
+        slot = torch.where(t == tmin[:, None], self.slot_ids,
+                           t.shape[1]).amin(dim=1)
+        upd = tmin < bt[idx]
+        j = idx[upd]
+        bt[j] = -BIG if any_hit else tmin[upd]
+        self.best_tri[sl][j] = (base + slot[upd]).to(torch.int32)
+        self.best_obj[sl][j] = obj
+
+    def result(self, masked: bool = True):
+        """(t, tri, obj); t is INF where no hit was accepted, or the best
+        t as it stands with ``masked`` False."""
+        t = self.best_t
+        if masked:
+            t = torch.where(self.best_tri >= 0, t, INF)
+        return t, self.best_tri, self.best_obj
+
+
+def best_init(rays8, has_tmax: bool):
+    """K1's initial best t: min(t_max, BIG) with ``has_tmax``, else BIG."""
+    if has_tmax:
+        return torch.clamp(rays8[6], max=BIG)
+    return torch.full((rays8.shape[1],), BIG, dtype=torch.float32,
+                      device=rays8.device)
+
+
 def compact_wl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
                                cl_tris, tile: int, eps: float,
                                has_tmax: bool = False,
@@ -195,61 +321,43 @@ def compact_wl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
     vectorized over the tile's rays."""
     global plain_calls
     plain_calls += 1
-    r = rays8.shape[1]
-    dev = rays8.device
-    s = cl_tris.shape[2]
-    if has_tmax:
-        best_t = torch.clamp(rays8[6], max=BIG).contiguous()
-    else:
-        best_t = torch.full((r,), BIG, dtype=torch.float32, device=dev)
-    best_tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
-    best_obj = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    sweep = PlainSweep(rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps,
+                       best_init(rays8, has_tmax))
     wl_h = wl.cpu().tolist()
-    wn_h = wn.cpu().tolist()
-    meta = cl_meta.cpu().tolist()
-    inv_h = cl_inv.cpu()
-    aabb_h = cl_aabb.cpu().tolist()
-    slot_ids = torch.arange(s, device=dev)
-    for ti in range(r // tile):
+    for ti, n in enumerate(wn.cpu().tolist()):
         sl = slice(ti * tile, (ti + 1) * tile)
-        o = rays8[0:3, sl]
-        d = rays8[3:6, sl]
-        bt = best_t[sl]
-        btri = best_tri[sl]
-        bobj = best_obj[sl]
-        for k in range(wn_h[ti]):
-            c = wl_h[ti][k]
-            obj, base = meta[c]
-            m = inv_h[obj].tolist()
-            lo = [m[4 * a] * o[0] + m[4 * a + 1] * o[1]
-                  + m[4 * a + 2] * o[2] + m[4 * a + 3] for a in range(3)]
-            ld = [m[4 * a] * d[0] + m[4 * a + 1] * d[1]
-                  + m[4 * a + 2] * d[2] for a in range(3)]
-            box = aabb_h[c]
-            n = [(box[a] - lo[a]) * (1.0 / ld[a]) for a in range(3)]
-            f = [(box[3 + a] - lo[a]) * (1.0 / ld[a]) for a in range(3)]
-            t0 = torch.maximum(torch.maximum(torch.minimum(n[0], f[0]),
-                                             torch.minimum(n[1], f[1])),
-                               torch.minimum(n[2], f[2]))
-            t1 = torch.minimum(torch.minimum(torch.maximum(n[0], f[0]),
-                                             torch.maximum(n[1], f[1])),
-                               torch.maximum(n[2], f[2]))
-            hit = (t0 <= t1) & (((t0 > 0.0) & (t0 < bt))
-                                | ((t0 <= 0.0) & (t1 > 0.0) & (bt > 0.0)))
-            idx = hit.nonzero().squeeze(1)
-            if idx.numel() == 0:
-                continue
-            t = _mt([x[idx] for x in lo], [x[idx] for x in ld], cl_tris[c])
-            t = torch.where(t > eps, t, BIG)
-            tmin = t.amin(dim=1)
-            slot = torch.where(t == tmin[:, None], slot_ids, s).amin(dim=1)
-            upd = (tmin < BIG) & (tmin < bt[idx])
-            j = idx[upd]
-            bt[j] = -BIG if any_hit else tmin[upd]
-            btri[j] = (base + slot[upd]).to(torch.int32)
-            bobj[j] = obj
-    t_out = torch.where(best_tri >= 0, best_t, INF)
-    return t_out, best_tri, best_obj
+        for c in wl_h[ti][:n]:
+            sweep.visit(sl, c, any_hit=any_hit)
+    return sweep.result()
+
+
+def _block_threads(r: int, tile: int, what: str) -> int:
+    """Rays per CUDA block: 256, or 128 where the tile is not a multiple
+    of 256.  Raises unless R is a multiple of ``tile`` and ``tile`` one
+    of 128."""
+    if r % tile or tile % 128:
+        raise ValueError(f"{what}: R={r} must be a multiple of tile={tile}, "
+                         "itself a multiple of 128")
+    return 256 if tile % 256 == 0 else 128
+
+
+def require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, device, stream=False):
+    """Check the cluster tables a kernel reads: cl_meta [C, 2] i32,
+    cl_inv [O, 12] f32, cl_aabb [C, 8] f32, cl_tris [C, 9, S] f32.
+    ``stream``: the kernel copies 16-byte pieces of cl_tris (S a
+    multiple of 4, the tensor 16-byte aligned).  Returns (C, S)."""
+    c, nine, s = cl_tris.shape
+    if nine != 9:
+        raise ValueError(f"cl_tris: shape {tuple(cl_tris.shape)}, expected "
+                         "[C, 9, S]")
+    _build.require(cl_meta, "cl_meta", torch.int32, (c, 2), device)
+    _build.require(cl_inv, "cl_inv", torch.float32, (None, 12), device)
+    _build.require(cl_aabb, "cl_aabb", torch.float32, (c, 8), device)
+    _build.require(cl_tris, "cl_tris", torch.float32, (c, 9, s), device)
+    if stream and (s % 4 or cl_tris.data_ptr() % 16):
+        raise ValueError(f"cl_tris: S={s} must be a multiple of 4 and the "
+                         "tensor 16-byte aligned for cp.async")
+    return c, s
 
 
 def compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
@@ -270,41 +378,30 @@ def compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
     if dev.type != "cuda":
         raise ValueError(f"compact_wl_intersect: unsupported device {dev}")
     r = rays8.shape[1]
-    c, nine, s = cl_tris.shape
-    threads = 256 if tile % 256 == 0 else 128
-    if r % tile or tile % threads or nine != 9:
-        raise ValueError(f"compact_wl_intersect: R={r} must be a multiple "
-                         f"of tile={tile}, itself a multiple of 128")
+    threads = _block_threads(r, tile, "compact_wl_intersect")
+    c, s = require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, dev)
     tiles = r // tile
     _build.require(rays8, "rays8", torch.float32, (8, r), dev)
     _build.require(wl, "wl", torch.int32, (tiles, c), dev)
     _build.require(wn, "wn", torch.int32, (tiles,), dev)
-    _build.require(cl_meta, "cl_meta", torch.int32, (c, 2), dev)
-    _build.require(cl_inv, "cl_inv", torch.float32, (None, 12), dev)
-    _build.require(cl_aabb, "cl_aabb", torch.float32, (c, 8), dev)
-    _build.require(cl_tris, "cl_tris", torch.float32, (c, 9, s), dev)
-    t = torch.empty(r, dtype=torch.float32, device=dev)
-    tri = torch.empty(r, dtype=torch.int32, device=dev)
-    obj = torch.empty(r, dtype=torch.int32, device=dev)
-    lib = _build.load("compact_intersect")
-    fn = lib.lpt_compact_wl_intersect
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 4)
-    fn.restype = ctypes.c_int
-    _build.check(fn(_build.ptr(rays8), r, _build.ptr(wl), _build.ptr(wn),
-                    c, tile, _build.ptr(cl_meta), _build.ptr(cl_inv),
-                    _build.ptr(cl_aabb), _build.ptr(cl_tris), s,
-                    float(eps), threads, int(bool(has_tmax)),
-                    int(bool(any_hit)), _build.ptr(t), _build.ptr(tri),
-                    _build.ptr(obj), _build.stream_ptr(dev)),
-                 "compact intersect kernel")
+    t, tri, obj = _outputs(r, dev)
+    _build.launch("compact_intersect", "lpt_compact_wl_intersect",
+                  rays8, r, wl, wn, c, tile, cl_meta, cl_inv, cl_aabb,
+                  cl_tris, s, float(eps), threads, bool(has_tmax),
+                  bool(any_hit), t, tri, obj, _build.stream_ptr(dev))
     launches += 1
-    mode_launches[("any_hit" if any_hit else "tmax") if has_tmax
-                  else "closest"] += 1
+    mode_launches[_mode(has_tmax, any_hit)] += 1
     return t, tri, obj
+
+
+def _outputs(r: int, dev):
+    return (torch.empty(r, dtype=torch.float32, device=dev),
+            torch.empty(r, dtype=torch.int32, device=dev),
+            torch.empty(r, dtype=torch.int32, device=dev))
+
+
+def _mode(has_tmax: bool, any_hit: bool) -> str:
+    return ("any_hit" if any_hit else "tmax") if has_tmax else "closest"
 
 
 def cluster_intersect_compact(cl_meta, cl_inv, cl_aabb, cl_tris, rays8,
@@ -323,6 +420,111 @@ def cluster_intersect_compact(cl_meta, cl_inv, cl_aabb, cl_tris, rays8,
     return compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
                                 cl_tris, tile, eps, has_tmax=has_tmax,
                                 any_hit=any_hit)
+
+
+def padded_chunk_bounds(cl_meta, cl_aabb, obj_world, chunk: int):
+    """World AABBs of ``chunk``-cluster chunks, the cluster tables padded
+    to a chunk multiple as in the JAX package (compact_intersect.py:
+    726-742): a padded slot gets INF / -INF bounds.  Returns (min, max),
+    each [ceil(C / chunk), 3]."""
+    c = cl_meta.shape[0]
+    cp = -(-c // chunk) * chunk
+    meta = torch.cat([cl_meta, cl_meta.new_zeros((cp - c, 2))])
+    aabb = torch.cat([cl_aabb, cl_aabb.new_zeros((cp - c, 8))])
+    return chunk_world_bounds(meta, aabb, obj_world, c, cp, chunk)
+
+
+def visit_chunk_plain(sweep, sl, jc: int, box, chunk: int, num_real: int,
+                      block: int, any_hit: bool = False, subtile: int = 0):
+    """One chunk of the chunk kernels' member-cluster loop
+    (csrc/stream_chunk.cu ``visit_chunk``): the block-wide test of the
+    chunk's world box with the live best t, then each member cluster
+    c < ``num_real`` for the lanes of the blocks that passed."""
+    gate = sweep.chunk_gate(sl, box, block)
+    if not bool(gate.any()):
+        return
+    for c in range(jc * chunk, min((jc + 1) * chunk, num_real)):
+        sweep.visit(sl, c, any_hit=any_hit, gate=gate, subtile=subtile)
+
+
+def worklist_chunk_intersect_plain(rays8, wl, wn, chunk_aabb, cl_meta,
+                                   cl_inv, cl_aabb, cl_tris, tile: int,
+                                   chunk: int, eps: float,
+                                   has_tmax: bool = False,
+                                   any_hit: bool = False):
+    """Plain PyTorch version of K5: tiles, their fired chunks and the
+    chunks' member clusters in host loops, each visit vectorized over
+    the tile's rays."""
+    global worklist_plain_calls
+    worklist_plain_calls += 1
+    r = rays8.shape[1]
+    block = _block_threads(r, tile, "worklist_chunk_intersect")
+    sweep = PlainSweep(rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps,
+                       best_init(rays8, has_tmax))
+    boxes = chunk_aabb.cpu().tolist()
+    wl_h = wl.cpu().tolist()
+    for ti, n in enumerate(wn.cpu().tolist()):
+        sl = slice(ti * tile, (ti + 1) * tile)
+        for jc in wl_h[ti][:n]:
+            visit_chunk_plain(sweep, sl, jc, boxes[jc], chunk,
+                              cl_tris.shape[0], block, any_hit=any_hit)
+    return sweep.result()
+
+
+def worklist_chunk_intersect(rays8, wl, wn, chunk_aabb, cl_meta, cl_inv,
+                             cl_aabb, cl_tris, tile: int, chunk: int,
+                             eps: float, has_tmax: bool = False,
+                             any_hit: bool = False):
+    """Kernel K5: closest hit for rays8 [8, R] over the per-tile
+    fired-chunk lists wl [R/tile, NC] i32 / wn [R/tile] i32 of
+    ``chunk``-cluster chunks whose world AABBs are chunk_aabb [NC, 6]
+    (min xyz, max xyz).  The cluster tables are K1's, unpadded: member
+    clusters at or beyond C are never visited.  K1's contract, shadow
+    modes included.  A CPU tensor takes the plain version, a CUDA tensor
+    the kernel."""
+    global worklist_launches
+    dev = rays8.device
+    args = (rays8, wl, wn, chunk_aabb, cl_meta, cl_inv, cl_aabb, cl_tris,
+            tile, chunk, eps, has_tmax, any_hit)
+    if dev.type == "cpu":
+        return worklist_chunk_intersect_plain(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"worklist_chunk_intersect: unsupported device {dev}")
+    r = rays8.shape[1]
+    threads = _block_threads(r, tile, "worklist_chunk_intersect")
+    c, s = require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, dev, stream=True)
+    nc = -(-c // chunk)
+    tiles = r // tile
+    _build.require(rays8, "rays8", torch.float32, (8, r), dev)
+    _build.require(wl, "wl", torch.int32, (tiles, nc), dev)
+    _build.require(wn, "wn", torch.int32, (tiles,), dev)
+    _build.require(chunk_aabb, "chunk_aabb", torch.float32, (nc, 6), dev)
+    t, tri, obj = _outputs(r, dev)
+    _build.launch("stream_chunk", "lpt_worklist_chunk_intersect",
+                  rays8, r, wl, wn, nc, tile, chunk, c, chunk_aabb, cl_meta,
+                  cl_inv, cl_aabb, cl_tris, s, float(eps), threads,
+                  bool(has_tmax), bool(any_hit), t, tri, obj,
+                  _build.stream_ptr(dev))
+    worklist_launches += 1
+    worklist_mode_launches[_mode(has_tmax, any_hit)] += 1
+    return t, tri, obj
+
+
+def cluster_intersect_worklist(cl_meta, cl_inv, cl_aabb, cl_tris, obj_world,
+                               rays8, tile: int = 4096, chunk: int = 16,
+                               eps: float = 1e-4, has_tmax: bool = False,
+                               any_hit: bool = False, bounds=None):
+    """Chunk prepass + K5: the port of the JAX package's
+    ``cluster_intersect_worklist``.  ``bounds`` may carry precomputed
+    ``padded_chunk_bounds`` (the scene's are constant)."""
+    if bounds is None:
+        bounds = padded_chunk_bounds(cl_meta, cl_aabb, obj_world, chunk)
+    wl, wn = build_chunk_worklists(bounds[0], bounds[1], rays8, tile,
+                                   has_tmax=has_tmax)
+    chunk_aabb = torch.cat(bounds, dim=1).contiguous()
+    return worklist_chunk_intersect(rays8, wl, wn, chunk_aabb, cl_meta,
+                                    cl_inv, cl_aabb, cl_tris, tile, chunk,
+                                    eps, has_tmax=has_tmax, any_hit=any_hit)
 
 
 def hits_agree(ref, got, rtol: float = 2e-6, atol: float = 1e-6):

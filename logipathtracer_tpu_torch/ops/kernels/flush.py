@@ -22,7 +22,6 @@ design spends no effort on that; the launch costs more than the bytes.
 
 from __future__ import annotations
 
-import ctypes
 
 import torch
 
@@ -73,14 +72,8 @@ def flush_sorted(accum, pix, acc):
     _build.require(accum, "accum", torch.float32, (None, 3), dev)
     _build.require(pix, "pix", torch.int32, (p,), dev)
     _build.require(acc, "acc", torch.float32, (p, 3), dev)
-    lib = _build.load("flush")
-    fn = lib.lpt_flush_sorted
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     if p:
-        _build.check(fn(_build.ptr(accum), _build.ptr(pix), _build.ptr(acc),
-                        p, accum.shape[0], _build.stream_ptr(dev)),
-                     "flush kernel")
+        _build.launch("flush", "lpt_flush_sorted", accum, pix, acc, p,
+                      accum.shape[0], _build.stream_ptr(dev))
         launches += 1
     return accum

@@ -50,7 +50,6 @@ override rows are small beside it.
 from __future__ import annotations
 
 import collections
-import ctypes
 
 import torch
 
@@ -304,34 +303,13 @@ def shade(tri_shade, origin, direction, acc, mask, alive, seed, bounce, t,
             torch.empty_like(alive), torch.empty_like(seed))
     if r == 0:
         return outs + nee_outs
-    lib = _build.load("shade")
-    fn = lib.lpt_shade
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 6
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    p = _build.ptr
-
-    def opt_ptr(x):
-        return ctypes.c_void_p(None) if x is None else p(x)
-
-    nee_ptrs = ([p(o) for o in nee_outs] if nee
-                else [ctypes.c_void_p(None)] * 5)
-    _build.check(fn(p(tri_shade), p(origin), p(direction), p(acc), p(mask),
-                    p(alive), p(seed), p(bounce), p(t), p(tri), r,
-                    *(p(o) for o in outs),
-                    float(env), float(rr_threshold), int(rr_bounces),
-                    int(max_order), int(bool(parity)),
-                    opt_ptr(mat), opt_ptr(ff_mapped), opt_ptr(has_nmap),
-                    opt_ptr(light_tris), opt_ptr(light_cdf),
-                    opt_ptr(prev_pdf if nee else None), n_lights,
-                    *nee_ptrs, int(bool(nee_mis)), float(total_light_area),
-                    _build.stream_ptr(dev)),
-                 "shade kernel")
+    _build.launch("shade", "lpt_shade", tri_shade, origin, direction, acc,
+                  mask, alive, seed, bounce, t, tri, r, *outs, float(env),
+                  float(rr_threshold), int(rr_bounces), int(max_order),
+                  bool(parity), mat, ff_mapped, has_nmap, light_tris,
+                  light_cdf, prev_pdf if nee else None, n_lights,
+                  *(nee_outs if nee else (None,) * 5), bool(nee_mis),
+                  float(total_light_area), _build.stream_ptr(dev))
     launches += 1
     mode_launches["+".join(m for m, on in (("tex", mat is not None),
                                            ("nee", nee)) if on)

@@ -19,7 +19,9 @@ from logipathtracer_tpu_torch.ops.intersect import (barycentric, dot3,
 from logipathtracer_tpu_torch.ops.kernels import shade as shade_kernel
 from logipathtracer_tpu_torch.ops.texture import (sample_atlas,
                                                   sample_atlas_lod)
-from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
+from logipathtracer_tpu_torch.ops.traverse import (
+    intersect_scene_cluster_wl, intersect_scene_stream, intersect_scene_sweep,
+    intersect_scene_worklist)
 
 # Residency budgets of the JAX package's sweep kernels.  The port keeps
 # its predicate so both packages compile the same clusters
@@ -49,34 +51,68 @@ def resident_sweep_fits(c: int, lanes: int, num_objects: int,
 
 
 def resolve_intersect_mode(cfg: RenderConfig, scene=None) -> str:
-    """'compact' for resident-class scenes; scenes beyond the budget
-    resolve to 'stream', which is not ported."""
+    """The intersect mode a config resolves to for a scene: 'compact' for
+    resident-class scenes; a scene beyond the resident budget resolves to
+    'stream' (megakernel.py:105-114), whatever the JAX package's
+    TPU-only ``_stream_fits`` budget would say: its BVH fallback for
+    scenes that miss that budget exists only for the TPU's scalar
+    memory.  'stream' and 'stream_interpret' stand as given."""
     mode = cfg.intersect
     if mode in ("auto", "compact_interpret"):
         mode = "compact"
-    if mode == "compact" and scene is not None:
+    if mode in ("compact", "sweep") and scene is not None:
         c, _, lanes = scene.cl_tris.shape
-        if not resident_sweep_fits(c, lanes, scene.num_objects, cfg):
+        if not resident_sweep_fits(c, lanes, scene.num_objects, cfg,
+                                   mode=mode):
             mode = "stream"
     return mode
 
 
 def pick_intersect(cfg: RenderConfig, scene=None):
-    """The intersect closure for the resolved mode: the compact worklist
-    sweep (kernel K1 on CUDA tensors, its plain version on CPU ones)."""
+    """The intersect closure for the resolved mode, routed as in the JAX
+    package (megakernel.py:147-185): 'compact' is the compact worklist
+    sweep (K1); 'stream' with ``stream_worklist`` and a cap > 0 (the
+    ``stream_cap`` of a ``stream_compact`` config, else 0) is the
+    frustum cluster worklist sweep (K4) for ``stream_granularity=
+    "cluster"`` and the chunk worklist sweep (K5) otherwise; any other
+    'stream' or 'stream_interpret' config is the octant chunk sweep (K6)
+    with that cap.  Each runs its kernel on CUDA tensors and its plain
+    version on CPU ones.  Every closure takes ``t_max`` and ``any_hit``,
+    so the NEE shadow rays go through the same kernel as the path rays."""
     mode = resolve_intersect_mode(cfg, scene)
     if mode in ("stream", "stream_interpret"):
-        raise NotImplementedError(
-            "scenes beyond the resident budget stream clusters (kernel K4 "
-            "and its frustum prepass), which is not ported (ROADMAP Queue 1: "
-            "frustum and stream prepasses; Queue 2: K4, K5)")
+        cap = cfg.stream_cap if cfg.stream_compact else 0
+        if mode == "stream" and cfg.stream_worklist and cap > 0:
+            if cfg.stream_granularity == "cluster":
+                def isect(s, o, d, eps, t_max=None, any_hit=False):
+                    return intersect_scene_cluster_wl(
+                        s, o, d, eps=eps, tile=cfg.stream_tile, t_max=t_max,
+                        cap=cap, any_hit=any_hit)
+                return isect
+
+            def isect(s, o, d, eps, t_max=None, any_hit=False):
+                return intersect_scene_worklist(
+                    s, o, d, eps=eps, tile=cfg.stream_tile,
+                    chunk=cfg.stream_chunk, t_max=t_max, cap=cap,
+                    any_hit=any_hit)
+            return isect
+
+        def isect(s, o, d, eps, t_max=None, any_hit=False):
+            return intersect_scene_stream(
+                s, o, d, eps=eps, tile=cfg.stream_tile,
+                chunk=cfg.stream_chunk, t_max=t_max, cap=cap,
+                any_hit=any_hit)
+        return isect
     if mode == "bvh":
         raise NotImplementedError(
             "the BVH stack walk is not ported (ROADMAP Queue 1: megakernel "
             "and BVH walk)")
-    if mode != "compact":
+    if mode in ("sweep", "sweep_interpret", "sweep_jnp"):
         raise NotImplementedError(
-            f"intersect mode {mode!r} is not ported (ROADMAP Queue 2: K6-K8)")
+            f"intersect mode {mode!r}, the dense resident sweep (kernel K8), "
+            "is not ported (ROADMAP Queue 2: K8)")
+    if mode != "compact":
+        raise ValueError(f"unknown intersect mode {mode!r}")
     if not cfg.compact_worklist:
         raise NotImplementedError(
             "compact_worklist=False (kernel K7) is not ported (ROADMAP "
@@ -89,7 +125,7 @@ def pick_intersect(cfg: RenderConfig, scene=None):
 
 
 def intersect_tile(cfg: RenderConfig, scene=None) -> int:
-    """Rays per worklist tile of the resolved intersect mode — what the
+    """Rays per kernel tile of the resolved intersect mode — what the
     pixel blocking is sized to."""
     mode = resolve_intersect_mode(cfg, scene)
     if mode == "compact":

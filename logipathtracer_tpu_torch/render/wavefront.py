@@ -9,11 +9,14 @@ A persistent pool of P lanes.  Every iteration:
      into the accumulator (kernel K3);
   2. regen: refill free lanes with the next (pixel, sample) work items;
   3. park dead lanes at a far origin;
-  4. intersect the alive prefix (kernel K1 and its worklist prepass);
+  4. intersect the alive prefix (kernel K1 and its worklist prepass for
+     a resident-class scene; K4, K5 or K6 and theirs for a scene beyond
+     the resident budget, render/megakernel.py ``pick_intersect``);
   5. shade it (kernel K2; textured scenes run the texture prologue
-     first, and with NEE the shadow rays K2 prepares go through K1 again
-     in t_max / any-hit mode — they are not counted in ``rays``, as in
-     the JAX package, but in the device counter ``shadow_rays``).
+     first, and with NEE the shadow rays K2 prepares go through the
+     same intersect kernel again in t_max / any-hit mode — they are not
+     counted in ``rays``, as in the JAX package, but in the device
+     counter ``shadow_rays``).
 
 The loop runs in Python.  Its host reads — the alive count after each
 flush (regen start, trace window, ray counter) and the loop tests —

@@ -1,6 +1,7 @@
-"""Kernels K1-K3 against their plain versions on the card, at small
-shapes, in every mode (K1's t_max / any-hit shadow queries, K2 with
-textures and NEE), and the render on the card against the CPU.  Marked ``cuda``: they need an NVIDIA card with nvcc and skip
+"""Kernels K1-K6 against their plain versions on the card, at small
+shapes, in every mode (the intersect kernels' t_max / any-hit shadow
+queries, K6's cap 0 and cap > 0 bodies, K2 with textures and NEE), and
+the render on the card against the CPU.  Marked ``cuda``: they need an NVIDIA card with nvcc and skip
 elsewhere.  On the card (which has no JAX, imported by the suite's
 conftest):
 
@@ -197,6 +198,119 @@ def test_render_card_matches_cpu(dev, knob):
     rads = []
     for device in (dev, "cpu"):
         r = ProgressiveRenderer(host, cfg, host_seed=5, device=device)
+        r.step(2)
+        r.step(1)
+        rads.append((r.radiance(), r.total_rays))
+    (a, ra), (b, rb) = rads
+    close = np.isclose(a, b, rtol=1e-4, atol=1e-6).all(-1)
+    assert close.mean() >= 0.995
+    assert ra == rb
+
+
+_OUTSIDE = {}
+
+
+def _outside_host():
+    """The small outside-class scene of the streamed path (113 clusters
+    of 512 triangles), compiled once."""
+    if "scene" not in _OUTSIDE:
+        from logipathtracer_tpu_torch import RenderConfig, compile_scene
+        from logipathtracer_tpu_torch.scene.procedural import \
+            make_outside_scene
+        _OUTSIDE["scene"] = compile_scene(
+            make_outside_scene(objects=8, n_materials=8, tri_budget=8000),
+            RenderConfig(cluster_size=512))
+    return _OUTSIDE["scene"]
+
+
+@pytest.fixture
+def outside(dev):
+    return _outside_host().to(dev)
+
+
+def _outside_rays(n, dev, seed=8):
+    r = np.random.default_rng(seed)
+    o = np.stack([r.uniform(-30, 30, n), r.uniform(0.5, 6.0, n),
+                  r.uniform(-30, 30, n)], 1).astype(np.float32)
+    d = r.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    axes = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32)
+    d[n // 2:n // 2 + n // 8] = axes[r.integers(0, 6, n // 8)]
+    o[n - n // 4 - 100:] = 1e30         # a part-parked tile, then parked
+    d[n - n // 4 - 100:] = 1.0
+    t_max = r.uniform(0.5, 40.0, n).astype(np.float32)
+    return (torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+            torch.from_numpy(t_max).to(dev))
+
+
+def _stream_call(kernel, scene, rays8, tile, plain, **kw):
+    """One streamed kernel or its plain version on a packed pool, with
+    the front end the main path gives it."""
+    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
+    from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
+    from logipathtracer_tpu_torch.ops.traverse import scene_chunk_bounds
+    inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
+    tables = (scene.cl_meta, inv, scene.cl_aabb, scene.cl_tris)
+    has_tmax = kw.get("has_tmax", False)
+    if kernel == "k4":
+        wl, wn = k4.build_cluster_worklists(*scene_cluster_bounds(scene),
+                                            rays8, tile, has_tmax=has_tmax)
+        fn = k4.stream_cl_intersect_plain if plain else k4.stream_cl_intersect
+        return fn(rays8, wl, wn, *tables, tile, 1e-4, **kw)
+    bounds = scene_chunk_bounds(scene, 16)
+    chunk_aabb = torch.cat(bounds, 1).contiguous()
+    if kernel == "k5":
+        wl, wn = ci.build_chunk_worklists(*bounds, rays8, tile,
+                                          has_tmax=has_tmax)
+        fn = (ci.worklist_chunk_intersect_plain if plain
+              else ci.worklist_chunk_intersect)
+        return fn(rays8, wl, wn, chunk_aabb, *tables, tile, 16, 1e-4, **kw)
+    oct_, live = k6.tile_front(rays8, tile)
+    order = k6.octant_chunk_order(*bounds)
+    fn = (k6.octant_chunk_intersect_plain if plain
+          else k6.octant_chunk_intersect)
+    return fn(rays8, oct_, order, live, chunk_aabb, *tables, tile, 16, 1e-4,
+              cap=0 if kernel == "k6_cap0" else 32, **kw)
+
+
+@pytest.mark.parametrize("kernel", ["k4", "k5", "k6", "k6_cap0"])
+def test_stream_kernels_match_plain(outside, dev, kernel):
+    """K4, K5 and K6 (both bodies) against their plain versions: closest
+    hits under hits_agree, and the shadow query's visibility on every
+    lane."""
+    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
+    from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
+    o, d, t_max = _outside_rays(4096, dev)
+    tile = 1024
+    counts = lambda: (k4.launches, ci.worklist_launches, k6.launches)
+    rays8, _ = ci.pack_rays8(o, d, tile)
+    n0 = sum(counts())
+    got = _stream_call(kernel, outside, rays8, tile, plain=False)
+    assert sum(counts()) == n0 + 1
+    ref = _stream_call(kernel, outside, rays8, tile, plain=True)
+    ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
+    assert float((got[1] >= 0).float().mean()) > 0.2
+    rays8, _ = ci.pack_rays8(o, d, tile, t_max=t_max)
+    kw = dict(has_tmax=True, any_hit=True)
+    got = _stream_call(kernel, outside, rays8, tile, plain=False, **kw)
+    ref = _stream_call(kernel, outside, rays8, tile, plain=True, **kw)
+    blocked = got[0] < t_max
+    assert torch.equal(blocked, ref[0] < t_max)
+    assert 0 < int(blocked.sum()) < 4096
+
+
+@pytest.mark.parametrize("route", [
+    {}, dict(stream_granularity="chunk"), dict(stream_worklist=False),
+    dict(stream_compact=False), dict(nee=True)])
+def test_stream_render_card_matches_cpu(dev, route):
+    """The streamed path on the card against the CPU, in each routing."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    scene = _outside_host()
+    cfg = RenderConfig(width=32, height=32, pool_size=1024, stream_tile=1024,
+                       intersect="stream", **route)
+    rads = []
+    for device in (dev, "cpu"):
+        r = ProgressiveRenderer(scene, cfg, host_seed=5, device=device)
         r.step(2)
         r.step(1)
         rads.append((r.radiance(), r.total_rays))

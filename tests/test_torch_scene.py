@@ -25,7 +25,12 @@ from logipathtracer_tpu_torch.scene.types import SceneSoA
 SCENES = {
     "box": lambda m: m.make_box_scene(spheres=2, subdiv=3),
     "outside": lambda m: m.make_outside_scene(objects=8, tri_budget=20_000),
+    # The streamed-path tests' scene: 113 clusters of 512 triangles.
+    "outside512": lambda m: m.make_outside_scene(objects=8, n_materials=8,
+                                                 tri_budget=8000),
 }
+# Compile options per scene (both packages' RenderConfig field names).
+OPTIONS = {"outside512": dict(cluster_size=512)}
 
 
 def _assert_same_scene(a, b):
@@ -53,9 +58,14 @@ def _assert_same_scene(a, b):
 def test_compile_scene_bit_identical(name, use_native):
     if use_native and not (jax_native() and torch_native()):
         pytest.skip("native BVH builder does not compile here")
-    ref = jax_compile(SCENES[name](jproc), use_native=use_native)
-    got = compile_scene(SCENES[name](tproc), use_native=use_native)
+    opt = OPTIONS.get(name, {})
+    ref = jax_compile(SCENES[name](jproc), JaxConfig(**opt),
+                      use_native=use_native)
+    got = compile_scene(SCENES[name](tproc), RenderConfig(**opt),
+                        use_native=use_native)
     _assert_same_scene(ref, got)
+    if opt:
+        assert got.cl_tris.shape[2] == opt["cluster_size"]
 
 
 def test_render_config_field_parity():

@@ -131,12 +131,22 @@ def test_camera_moves_match_jax(renders):
 
 def test_unported_configs_raise(renders):
     js = renders["jscene"]
-    for kw, item in ((dict(renderer="megakernel"), "megakernel"),
-                     (dict(intersect="bvh"), "BVH"),
-                     (dict(compact_worklist=False), "K7")):
+    for kw, item in ((dict(renderer="megakernel"),
+                      "ROADMAP Queue 1: megakernel"),
+                     (dict(intersect="bvh"), "ROADMAP Queue 1: megakernel "
+                      "and BVH walk"),
+                     (dict(compact_worklist=False), "ROADMAP Queue 2: K7"),
+                     (dict(intersect="sweep"), "ROADMAP Queue 2: K8")):
         with pytest.raises(NotImplementedError, match=item):
             ProgressiveRenderer(js, RenderConfig(**FIELDS).replace(**kw),
                                 device="cpu")
+    # The streamed intersect is ported: every routing of it constructs.
+    for kw in (dict(intersect="stream"), dict(intersect="stream_interpret"),
+               dict(intersect="stream", stream_granularity="chunk"),
+               dict(intersect="stream", stream_worklist=False),
+               dict(intersect="stream", stream_compact=False)):
+        ProgressiveRenderer(js, RenderConfig(**FIELDS).replace(**kw),
+                            device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device"):
         ProgressiveRenderer(js, RenderConfig(**FIELDS),
                             device=["cpu", "cpu"])
