@@ -38,13 +38,29 @@ the root of a checkout it:
      pool; K4 on a bounce pool and in its t_max / any-hit mode on the
      shadow pool of one NEE step (the same visibility on every lane), on
      as many tiles of those pools as the plain version covers in about
-     a minute (BOUNCE_TILES, SHADOW_TILES), and timed on the whole pool
+     15 s (BOUNCE_TILES, SHADOW_TILES), and timed on the whole pool
      too; (b) the main path at 1024x1024, timed as in 4, which must run
      K4, K2 and K3, never K1 and no plain version; (c) one 1024x1024
      step(1) on each other route (``stream_granularity="chunk"``: K5;
      ``stream_worklist=False``: K6 cap > 0; ``stream_compact=False``:
      K6 cap 0; ``nee=True``: K4 any-hit), each launching its kernel;
-     (d) the 64x64 card-vs-CPU render of 5 on this path.
+     (d) the 64x64 card-vs-CPU render of 5 on this path;
+  8. the lockstep megakernel renderer (``renderer="megakernel"``) on the
+     flagship box — (a) K7 (``compact_worklist=False``) and K8
+     (``intersect="sweep"``) against their plain versions on the
+     megakernel's 2^20-ray primary pool (camera rays in each route's
+     block-major order, sorted by coherence key) and on its bounce pool
+     after one bounce; K7 in its t_max / any-hit mode and K8 in its t_max
+     mode on that bounce's NEE shadow pool (and K7's plain version
+     once more before and after its check, without the count pass, to
+     show what that pass costs); (b) the megakernel main path
+     at 1024x1024 through K1 and K2, timed as in 4; (c) one 1024x1024
+     step(1) on each other route (K7, K7 any-hit with NEE, K8, K8 t_max
+     with NEE), each launching its kernel; (d) the BVH walk at 512x512,
+     one step(1); (e) beside phase 4, in the same call: the flagship
+     wavefront with ``compact_worklist=False`` (K7, no per-ray prepass),
+     timed the same way; (f) the 64x64 card-vs-CPU render of 5 on the
+     megakernel through K8 and through K7.
 
 The scene is the glTF given with --scene, else the procedural box
 ``make_box_scene(spheres=10, subdiv=3)`` (12,812 triangles, 86 clusters,
@@ -56,11 +72,26 @@ Prints one JSON line of kernel results (each row names the run its
 launches were counted in and the pool size its times and error were
 measured on), then the card line, then as its last line
 {"ok": true, "device": {...}}.  Any failed check raises.
+
+Each kernel row carries its bound: the least time an H100 SXM could take
+for the row's work on the row's pool, the larger of the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s
+and its operations over 67 TFLOP/s (fp32 without tensor cores; NVIDIA's
+data sheet).  The intersect kernels' operations come from a count pass
+over the plain version's run on the same pool (``counted``): SLAB_OPS
+per slab test it made and MT_OPS per ray-triangle test its rays' own
+slab passes imply — S per pass, less, with any_hit, the tests after the
+first accepted triangle (``any_hit_saved``).  K3 moves 4 bytes of pixel
+id per row, 12 of radiance per retired row and a read and a write of
+each pixel it flushes.  ``library_ms`` is the time of one PyTorch call
+that computes the same function (``index_add_`` for K3), null where no
+such call exists.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -78,6 +109,18 @@ import torch  # noqa: E402
 # differing only on t ties; shade.shade_agreement: at most 0.5% of lanes
 # with another seed or alive flag, floats close on the rest).
 K3_RTOL, K3_ATOL = 1e-6, 1e-6           # f32 reassociation
+
+# Bounds (module docstring).  Operation counts, a divide or a compare
+# counted as one: a slab test is 64, the local ray (33), three
+# reciprocals (3) and the slab table (28: 12 for the six plane
+# distances, 10 for t0 and t1, 6 compares); a ray-triangle test is
+# Möller–Trumbore with its acceptance (52).  K2 is given a floor of 200 per alive lane (hit
+# point, barycentrics, normal, frame, one BSDF sample, Russian roulette;
+# the Heitz walk's further orders are not counted); K3 one add per
+# retired channel.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+SLAB_OPS, MT_OPS, K2_OPS = 64, 52, 200
 IMG_RTOL, IMG_ATOL, IMG_FRAC = 1e-4, 1e-6, 0.995  # test_wavefront.py:36-37
 
 
@@ -121,8 +164,112 @@ def _time_once(fn):
     return out, start.elapsed_time(end)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def bound(ops: float, n_bytes: float):
+    """(bound ms, "bytes" or "operations"): the larger of the two
+    times."""
+    t_ops = ops / PEAK_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+@contextlib.contextmanager
+def counted():
+    """The count pass: the plain intersect versions run in the block with
+    every cluster visit's lanes observed (``PlainSweep.lanes``).  The
+    dict it yields holds, after the block, "slab": the slab tests made
+    (each visit's lanes, within its gate), and "own": the lanes whose own
+    slab test passed.  The sums stay on the device until the block ends:
+    no host read per visit."""
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    plain = ci.PlainSweep
+    slab, gated, own = [0], [], []
+
+    class Counting(plain):
+        def lanes(self, sl, c, gate=None):
+            lo, ld, hit = super().lanes(sl, c, gate)
+            if gate is None:
+                slab[0] += hit.numel()
+            else:
+                gated.append(gate.sum())
+            own.append(hit.sum())
+            return lo, ld, hit
+
+    work = {}
+    ci.PlainSweep = Counting
+    try:
+        yield work
+    finally:
+        ci.PlainSweep = plain
+    work["slab"] = slab[0] + (int(torch.stack(gated).sum()) if gated else 0)
+    work["own"] = int(torch.stack(own).sum()) if own else 0
+
+
+def plain_work(plain):
+    """(result, ms, work) of one plain intersect call, timed, with its
+    count pass."""
+    with counted() as work:
+        out, ms = _time_once(plain)
+    return out, ms, work
+
+
+def scene_tables(scene):
+    """(cl_meta, cl_inv, cl_aabb, cl_tris): the intersect kernels' scene
+    inputs, cl_inv the objects' 3x4 inverse rows."""
+    inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
+    return scene.cl_meta, inv, scene.cl_aabb, scene.cl_tris
+
+
+def any_hit_saved(rays8, tri, obj, tables, eps):
+    """Triangle tests that any-hit lanes skip: the kernels stop at the
+    first accepted slot j of the cluster that blocks a lane
+    (closest_hit.cuh closest_in_cluster), so that visit makes j + 1
+    tests, not S.  Summed over the lanes the plain result blocks (tri >=
+    0).  The blocking cluster is the one of the lane's object with the
+    largest triangle base <= tri; the best t at that visit is still the
+    initial one, min(t_max, BIG)."""
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    cl_meta, cl_inv, cl_aabb, cl_tris = tables
+    s = cl_tris.shape[2]
+    lanes = (tri >= 0).nonzero().squeeze(1)
+    if lanes.numel() == 0:
+        return 0
+    meta = cl_meta.long()
+    cl = torch.cat([
+        torch.where((meta[None, :, 0] == obj[part, None].long())
+                    & (meta[None, :, 1] <= tri[part, None].long()),
+                    meta[None, :, 1], -1).argmax(dim=1)
+        for part in lanes.split(1 << 15)])
+    best0 = ci.best_init(rays8, True)
+    sweep = ci.PlainSweep(rays8[:, lanes], cl_meta, cl_inv, cl_aabb, cl_tris,
+                          eps, best0[lanes])
+    saved = 0
+    for c in cl.unique().cpu().tolist():
+        at = (cl == c).nonzero().squeeze(1)
+        lo, ld, _ = sweep.lanes(at, c)
+        t = ci._mt(lo, ld, cl_tris[c])
+        ok = (t > eps) & (t < sweep.best_t[at, None])
+        assert bool(ok.any(dim=1).all()), "a blocked lane without a hit"
+        saved += int((s - 1 - ok.int().argmax(dim=1)).sum())
+    return saved
+
+
+def isect_bound(work, scene, inputs, r: int, saved: int = 0):
+    """Bound of an intersect kernel on an R-ray pool: the count pass's
+    operations (``saved`` triangle tests fewer), its inputs read once and
+    (t, tri, obj) written once."""
+    s = scene.cl_tris.shape[2]
+    ops = work["slab"] * SLAB_OPS + (work["own"] * s - saved) * MT_OPS
+    return bound(ops, nbytes(*inputs) + 12 * r)
+
+
 # Every kernel's counts: name -> (module, launches, plain calls, launches
-# by mode).  K5 sits beside K1 in compact_intersect with its own counts.
+# by mode).  K5 sits beside K1 in compact_intersect with its own counts,
+# K7 too, and K8 beside K6 in cluster_intersect.
 COUNTERS = {
     "compact_intersect": ("compact_intersect", "launches", "plain_calls",
                           "mode_launches"),
@@ -134,6 +281,10 @@ COUNTERS = {
                        "worklist_plain_calls", "worklist_mode_launches"),
     "octant_chunk": ("cluster_intersect", "launches", "plain_calls",
                      "mode_launches"),
+    "compact_order": ("compact_intersect", "order_launches",
+                      "order_plain_calls", "order_mode_launches"),
+    "dense_sweep": ("cluster_intersect", "sweep_launches",
+                    "sweep_plain_calls", "sweep_mode_launches"),
 }
 FLAGSHIP = ("compact_intersect", "shade", "flush")
 
@@ -214,7 +365,7 @@ def bounce_pool(renderer):
 
 def check_k1(scene, origin, direction, tile, eps, runs=(10, 3)):
     """K1 against its plain version on one pool; returns
-    (max_abs_err, kernel_ms, plain_ms, hit fraction)."""
+    (max_abs_err, kernel_ms, plain_ms, hit fraction, bound)."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
     rays8, _ = ci.pack_rays8(origin, direction, tile)
@@ -224,19 +375,20 @@ def check_k1(scene, origin, direction, tile, eps, runs=(10, 3)):
     args = (rays8, wl, wn, scene.cl_meta, inv, scene.cl_aabb,
             scene.cl_tris, tile, eps)
     got = ci.compact_wl_intersect(*args)
-    ref = ci.compact_wl_intersect_plain(*args)
-    torch.cuda.synchronize()
+    ref, _, work = plain_work(lambda: ci.compact_wl_intersect_plain(*args))
     err = ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
     hit_frac = float((ref[0] < ci.BIG).float().mean())
     k_ms = _median_ms(lambda: ci.compact_wl_intersect(*args), runs[0])
     p_ms = _median_ms(lambda: ci.compact_wl_intersect_plain(*args), runs[1])
-    return err, k_ms, p_ms, hit_frac
+    b = isect_bound(work, scene, args[:7], rays8.shape[1])
+    return err, k_ms, p_ms, hit_frac, b
 
 
 def check_k2(scene, cfg, pool, t, tri, parity, runs=(10, 3), opt=None):
     """K2 against its plain version on one pool; ``opt`` adds the
     texture / NEE inputs.  runs[1] == 1 times the plain version once,
-    on the very call that is compared."""
+    on the very call that is compared.  Returns (diverged, max err,
+    kernel ms, plain ms, bound)."""
     from logipathtracer_tpu_torch.ops.kernels import shade as sk
     args = (scene.tri_shade, pool["origin"], pool["direction"], pool["acc"],
             pool["mask"], pool["alive"], pool["seed"], pool["bounce"], t,
@@ -251,7 +403,9 @@ def check_k2(scene, cfg, pool, t, tri, parity, runs=(10, 3), opt=None):
     k_ms = _median_ms(lambda: sk.shade(*args, **kw), runs[0])
     p_ms = (p_once if runs[1] <= 1 else
             _median_ms(lambda: sk.shade_plain(*args, **kw), runs[1]))
-    return diverged, err, k_ms, p_ms
+    b = bound(K2_OPS * int(pool["alive"].sum()),
+              nbytes(*args, *(opt or {}).values(), *got))
+    return diverged, err, k_ms, p_ms, b
 
 
 def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
@@ -259,7 +413,7 @@ def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
     shadow pool: the visibility predicate t < t_max must agree on every
     lane.  The plain version runs once, timed.  Returns (max |dt|,
     kernel ms, plain ms, blocked fraction of the lanes with a light
-    sample, lanes with a light sample)."""
+    sample, lanes with a light sample, bound)."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels.shade import PARK
     from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
@@ -271,8 +425,9 @@ def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
             scene.cl_tris, tile, eps)
     kw = dict(has_tmax=True, any_hit=True)
     got = ci.compact_wl_intersect(*args, **kw)
-    ref, p_ms = _time_once(lambda: ci.compact_wl_intersect_plain(*args,
-                                                                 **kw))
+    ref, p_ms, work = plain_work(
+        lambda: ci.compact_wl_intersect_plain(*args, **kw))
+    saved = any_hit_saved(rays8, ref[1], ref[2], scene_tables(scene), eps)
     blocked_k = got[0][:r] < t_lim
     blocked_p = ref[0][:r] < t_lim
     bad = int((blocked_k != blocked_p).sum())
@@ -282,7 +437,8 @@ def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
     n_shadow = int(shadow.sum())
     frac = float(blocked_k[shadow].float().mean()) if n_shadow else 0.0
     k_ms = _median_ms(lambda: ci.compact_wl_intersect(*args, **kw), runs)
-    return err, k_ms, p_ms, frac, n_shadow
+    b = isect_bound(work, scene, args[:7], rays8.shape[1], saved)
+    return err, k_ms, p_ms, frac, n_shadow, b
 
 
 def make_tail(npix, rows, retired, dev, seed=0):
@@ -296,6 +452,9 @@ def make_tail(npix, rows, retired, dev, seed=0):
 
 
 def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3)):
+    """K3 against its plain version; returns (max err, kernel ms, plain
+    ms, bound, ms of ``index_add_`` of the retired rows into the same
+    accumulator)."""
     from logipathtracer_tpu_torch.ops.kernels import flush
     pix, acc = make_tail(npix, rows, retired, dev)
     base = torch.rand((npix, 3), generator=torch.Generator().manual_seed(1))
@@ -312,7 +471,12 @@ def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3)):
     k_ms = _median_ms(lambda: flush.flush_sorted(work, pix, acc), runs[0])
     p_ms = _median_ms(lambda: flush.flush_sorted_plain(work, pix, acc),
                       runs[1])
-    return err, k_ms, p_ms
+    tail = slice(rows - retired, rows)
+    pix_r, acc_r = pix[tail].contiguous(), acc[tail].contiguous()
+    lib_ms = _median_ms(lambda: work.index_add_(0, pix_r, acc_r), runs[0])
+    flushed = int(torch.unique(pix_r).numel())
+    b = bound(3 * retired, 4 * rows + 12 * retired + 24 * flushed)
+    return err, k_ms, p_ms, b, lib_ms
 
 
 def render_radiance(scene, cfg, dev, host_seed, chunks):
@@ -366,7 +530,8 @@ def nee_phase(dev, card, flagship_rate):
     print(f"K1 t_max+any-hit shadow pool {t_lim.shape[0]} lanes "
           f"({k1[4]} shadow rays, {k1[3]:.3f} blocked): same visibility "
           f"on every lane, max|dt| {k1[0]:.3g}, kernel {k1[1]:.3f} ms, "
-          f"plain {k1[2]:.1f} ms (once)", flush=True)
+          f"plain {k1[2]:.1f} ms (once), bound {k1[5][0]:.4f} ms "
+          f"({k1[5][1]})", flush=True)
     k2 = check_k2(scene, cfg, pool, t, tri, parity=True, runs=(10, 1),
                   opt=opt)
     print(f"K2 tex+nee parity {t.shape[0]} lanes: diverged {k2[0]:.5f}, "
@@ -454,17 +619,17 @@ def nee_phase(dev, card, flagship_rate):
     print(f"NEE card vs CPU 64x64 2+2 spp: {close.mean():.5f} of pixels "
           f"close", flush=True)
     assert close.mean() >= IMG_FRAC, "NEE card and CPU renders disagree"
-    return {"k1": k1[:3], "k2": k2[1:], "modes": modes}
+    return {"k1": (*k1[:3], k1[5]), "k2": k2[1:], "modes": modes}
 
 
 # Phase 7: K4, K5 and K6 are held against their plain versions on the
 # whole 2^20-ray primary pool.  The plain versions loop over tiles and
 # clusters on the host; on bounce and shadow rays they take far longer
-# per tile (K4 plain on 16 tiles: ~0.2 s primary, ~7.5 s bounce, ~15 s
-# shadow, H100 80GB HBM3, 700 W), so those pools are cut to the tiles
-# that finish in about a minute, spread over the pool's live tiles.
-BOUNCE_TILES = 128                      # 2^19 rays
-SHADOW_TILES = 64                       # 2^18 rays
+# per tile (K4 plain: 55 s on 128 bounce tiles, 59 s on 64 shadow tiles,
+# H100 80GB HBM3, 700 W), so those pools are cut to the tiles that
+# finish in about 15 s, spread over the pool's live tiles.
+BOUNCE_TILES = 32                       # 2^17 rays
+SHADOW_TILES = 16                       # 2^16 rays
 
 
 def sub_pool(rays8, tile, n_live, tiles):
@@ -478,23 +643,32 @@ def sub_pool(rays8, tile, n_live, tiles):
     return rays8[:, idx.to(rays8.device)].contiguous()
 
 
-def stream_runner(kind, scene, rays8, tile, chunk=16, **kw):
-    """(kernel call, plain call) of one streamed kernel on a packed pool,
-    with the front end the main path gives it, computed once."""
+def runner(kind, scene, rays8, tile, chunk=16, **kw):
+    """(kernel call, plain call, inputs) of one intersect kernel of the
+    streamed (K4, K5, K6) or order (K7, K8) kind on a packed pool, with
+    the front end the main path gives it, computed once."""
     from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
     from logipathtracer_tpu_torch.ops.traverse import (scene_chunk_bounds,
                                                        scene_cluster_bounds)
-    inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
-    tables = (scene.cl_meta, inv, scene.cl_aabb, scene.cl_tris)
+    tables = scene_tables(scene)
     has_tmax = kw.get("has_tmax", False)
+    if kind in ("K7", "K8"):
+        args = (rays8, ci.tile_octants(rays8, tile), scene.cl_order, *tables,
+                tile, 1e-4)
+        kernel, plain = ((ci.compact_order_intersect,
+                          ci.compact_order_intersect_plain) if kind == "K7"
+                         else (k6.dense_sweep_intersect,
+                               k6.dense_sweep_intersect_plain))
+        return (lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
+                args[:7])
     if kind == "K4":
         wl, wn = k4.build_cluster_worklists(*scene_cluster_bounds(scene),
                                             rays8, tile, has_tmax=has_tmax)
         args = (rays8, wl, wn, *tables, tile, 1e-4)
         return (lambda: k4.stream_cl_intersect(*args, **kw),
-                lambda: k4.stream_cl_intersect_plain(*args, **kw))
+                lambda: k4.stream_cl_intersect_plain(*args, **kw), args[:7])
     bounds = scene_chunk_bounds(scene, chunk)
     chunk_aabb = torch.cat(bounds, 1).contiguous()
     if kind == "K5":
@@ -502,25 +676,29 @@ def stream_runner(kind, scene, rays8, tile, chunk=16, **kw):
                                           has_tmax=has_tmax)
         args = (rays8, wl, wn, chunk_aabb, *tables, tile, chunk, 1e-4)
         return (lambda: ci.worklist_chunk_intersect(*args, **kw),
-                lambda: ci.worklist_chunk_intersect_plain(*args, **kw))
+                lambda: ci.worklist_chunk_intersect_plain(*args, **kw),
+                args[:8])
     oct_, live = k6.tile_front(rays8, tile)
     order = k6.octant_chunk_order(*bounds)
     args = (rays8, oct_, order, live, chunk_aabb, *tables, tile, chunk, 1e-4)
     kw = dict(kw, cap=0 if kind == "K6[cap=0]" else 32)
     return (lambda: k6.octant_chunk_intersect(*args, **kw),
-            lambda: k6.octant_chunk_intersect_plain(*args, **kw))
+            lambda: k6.octant_chunk_intersect_plain(*args, **kw), args[:9])
 
 
-def check_stream(kind, scene, rays8, tile, runs=10, **kw):
-    """A streamed kernel against its plain version on one packed pool
+def check_isect(kind, scene, rays8, tile, runs=10, **kw):
+    """An intersect kernel against its plain version on one packed pool
     (hits_agree; with any_hit the visibility t < t_max on every lane).
     Returns (max |dt|, kernel ms (median of ``runs``), plain ms (once),
-    hit or blocked fraction), all on that pool."""
+    hit or blocked fraction, bound), all on that pool."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    kernel, plain = stream_runner(kind, scene, rays8, tile, **kw)
+    kernel, plain, inputs = runner(kind, scene, rays8, tile, **kw)
     got = kernel()
-    ref, p_ms = _time_once(plain)
+    ref, p_ms, work = plain_work(plain)
+    saved = 0
     if kw.get("any_hit"):
+        saved = any_hit_saved(rays8, ref[1], ref[2], scene_tables(scene),
+                              1e-4)
         t_max = rays8[6]
         bad = int(((got[0] < t_max) != (ref[0] < t_max)).sum())
         assert bad == 0, f"{kind} any-hit: visibility differs on {bad} lanes"
@@ -530,7 +708,8 @@ def check_stream(kind, scene, rays8, tile, runs=10, **kw):
     else:
         err = ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
         frac = float((ref[1] >= 0).float().mean())
-    return err, _median_ms(kernel, runs), p_ms, frac
+    b = isect_bound(work, scene, inputs, rays8.shape[1], saved)
+    return err, _median_ms(kernel, runs), p_ms, frac, b
 
 
 def outside_phase(dev, card):
@@ -563,21 +742,22 @@ def outside_phase(dev, card):
     full8, _ = ci.pack_rays8(o, d, tile)
     res = {}
     for kind in ("K4", "K5", "K6[cap=0]", "K6[cap>0]"):
-        res[kind] = (*check_stream(kind, scene, full8, tile), full8.shape[1])
-        err, k_ms, p_ms, frac, n = res[kind]
+        res[kind] = (*check_isect(kind, scene, full8, tile), full8.shape[1])
+        err, k_ms, p_ms, frac, b, n = res[kind]
         print(f"{kind} primary pool {n} rays: max|dt| {err:.3g}, hit "
-              f"{frac:.3f}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms (once)",
-              flush=True)
+              f"{frac:.3f}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms (once), "
+              f"bound {b[0]:.4f} ms ({b[1]})", flush=True)
     pool = bounce_pool(probe)
     n_alive = int(pool["alive"].sum())
     full8, _ = ci.pack_rays8(pool["origin"], pool["direction"], tile)
-    k_full = _median_ms(stream_runner("K4", scene, full8, tile)[0], 10)
+    k_full = _median_ms(runner("K4", scene, full8, tile)[0], 10)
     sub8 = sub_pool(full8, tile, n_alive, BOUNCE_TILES)
-    res["K4 bounce"] = (*check_stream("K4", scene, sub8, tile), sub8.shape[1])
-    err, k_ms, p_ms, frac, n = res["K4 bounce"]
+    res["K4 bounce"] = (*check_isect("K4", scene, sub8, tile), sub8.shape[1])
+    err, k_ms, p_ms, frac, b, n = res["K4 bounce"]
     print(f"K4 bounce pool ({n_alive} alive): kernel {k_full:.3f} ms on "
           f"{full8.shape[1]} rays; on {n} rays max|dt| {err:.3g}, kernel "
-          f"{k_ms:.3f} ms, plain {p_ms:.1f} ms (once)", flush=True)
+          f"{k_ms:.3f} ms, plain {p_ms:.1f} ms (once), bound {b[0]:.4f} ms "
+          f"({b[1]})", flush=True)
     del probe, pool, full8, sub8
 
     nee_cfg = cfg.replace(nee=True)
@@ -597,16 +777,16 @@ def outside_phase(dev, card):
     n_alive = int(pool["alive"].sum())
     shadow = dict(has_tmax=True, any_hit=True)
     full8, _ = ci.pack_rays8(out[7], out[8], tile, t_max=out[9])
-    k_full = _median_ms(stream_runner("K4", scene, full8, tile, **shadow)[0],
-                        10)
+    k_full = _median_ms(runner("K4", scene, full8, tile, **shadow)[0], 10)
     sub8 = sub_pool(full8, tile, n_alive, SHADOW_TILES)
-    res["K4 any_hit"] = (*check_stream("K4", scene, sub8, tile, **shadow),
+    res["K4 any_hit"] = (*check_isect("K4", scene, sub8, tile, **shadow),
                          sub8.shape[1])
-    err, k_ms, p_ms, frac, n = res["K4 any_hit"]
+    err, k_ms, p_ms, frac, b, n = res["K4 any_hit"]
     print(f"K4 t_max+any-hit shadow pool ({n_alive} lanes alive): kernel "
           f"{k_full:.3f} ms on {full8.shape[1]} lanes; on {n} lanes the same "
           f"visibility on every lane, {frac:.3f} blocked, max|dt| {err:.3g}, "
-          f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms (once)", flush=True)
+          f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms (once), bound "
+          f"{b[0]:.4f} ms ({b[1]})", flush=True)
     del probe, pool, out, full8, sub8
 
     # (b) the main path
@@ -701,6 +881,225 @@ def outside_phase(dev, card):
                  "K6[cap>0]"))]
 
 
+def timed_steps(renderer, timed=(2, 2)):
+    """A warm-up step(1), then the timed steps: returns (samples/s,
+    Mrays/s, iterations per timed step, radiance)."""
+    renderer.step(1)
+    torch.cuda.synchronize()
+    rays0 = renderer.total_rays
+    t0 = time.perf_counter()
+    iters = []
+    for n in timed:
+        renderer.step(n)
+        iters.append(renderer.last_iterations)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rays = renderer.total_rays - rays0
+    return sum(timed) / wall, rays / wall / 1e6, iters, renderer.radiance()
+
+
+def wavefront_k7(host_scene, cfg, dev, card, flagship_rate):
+    """Phase 8e: the flagship wavefront with compact_worklist=False (K7,
+    no per-ray prepass), timed as phase 4 in the same call."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer
+    renderer = ProgressiveRenderer(host_scene,
+                                   cfg.replace(compact_worklist=False),
+                                   host_seed=0, device=dev)
+    reset_counts()
+    sps, mrays, iters, rad = timed_steps(renderer)
+    counts = read_counts()
+    assert np.isfinite(rad).all() and 1e-3 < float(rad.mean()) < 10.0
+    assert counts["compact_order"][0] > 0, "K7 never launched"
+    assert counts["compact_intersect"][0] == 0, "K1 launched on the K7 route"
+    assert_no_plain()
+    print(f"wavefront 1024x1024 compact_worklist=False (K7): {sps:.3f} "
+          f"samples/s, {mrays:.2f} Mrays/s, iterations per chunk {iters}, "
+          f"mean radiance {float(rad.mean()):.6f}; K1 with its prepass in "
+          f"phase 4: {flagship_rate[0]:.3f} samples/s, "
+          f"{flagship_rate[1]:.2f} Mrays/s [{card}]", flush=True)
+    print(f"K7 wavefront launches: {counts['compact_order'][0]} "
+          f"(5 samples)", flush=True)
+    return sps, mrays
+
+
+def megakernel_pools(renderer, seed_xy=(48271, 16807)):
+    """The megakernel's intersect inputs at the renderer's size: the
+    primary pool (every pixel's camera ray in the route's block-major
+    order, sorted by coherence key as sorted_intersect sorts them), the
+    pool of the second bounce (dead lanes parked, sorted) and that
+    bounce's NEE shadow pool (shadow rays in pixel order, through the
+    unsorted closure as trace_rays casts them).  Each is (origin,
+    direction[, t_max])."""
+    from logipathtracer_tpu_torch.ops.kernels import shade as sk
+    from logipathtracer_tpu_torch.render import megakernel as mk
+    cfg, dev, scene = renderer.config, renderer.device, renderer.scene
+    pix, _ = mk.block_pixels(cfg, scene, 0, cfg.render_height, dev)
+    cam = torch.from_numpy(renderer.camera_world).to(dev)
+    o, d, seed = mk.camera_rays(cfg, cam, renderer.fov_y,
+                                torch.tensor(seed_xy, device=dev), pix)
+    o, d = o.contiguous(), d.contiguous()
+
+    def in_key_order(o, d):
+        _, perm = torch.sort(mk.ray_sort_key(scene, o, d), stable=True)
+        return o[perm].contiguous(), d[perm].contiguous()
+
+    isect = mk.pick_intersect(cfg, scene)
+    n = o.shape[0]
+    t, obj, tri = mk.sorted_intersect(isect, scene, o, d, cfg.eps)
+    o1, d1, acc, mask, alive, seed, prev = mk.shade_step(
+        scene, cfg, o, d, torch.zeros_like(o), torch.ones_like(o),
+        torch.ones(n, dtype=torch.bool, device=dev), seed, 0, t, obj, tri)
+    oi = torch.where(alive[:, None], o1, 1e30)
+    di = torch.where(alive[:, None], d1, 1.0)
+    t, obj, tri = mk.sorted_intersect(isect, scene, oi, di, cfg.eps)
+    out = sk.shade(scene.tri_shade, o1, d1, acc, mask, alive, seed,
+                   torch.ones(n, dtype=torch.int32, device=dev), t, tri,
+                   env=cfg.env_color, rr_threshold=cfg.rr_threshold,
+                   rr_bounces=cfg.rr_bounces, max_order=cfg.heitz_max_order,
+                   parity=cfg.parity_rng, light_tris=scene.light_tris,
+                   light_cdf=scene.light_cdf, prev_pdf=prev,
+                   nee_mis=cfg.nee_mis,
+                   total_light_area=float(scene.total_light_area))
+    return (in_key_order(o, d), in_key_order(oi, di),
+            (out[7].contiguous(), out[8].contiguous(), out[9].contiguous()),
+            int(alive.sum()))
+
+
+def megakernel_phase(dev, card):
+    """Phase 8: the megakernel renderer (module docstring).  Returns the
+    K7 and K8 kernel rows (name, source, replaces, launches, run, result
+    of check_isect and pool)."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k8
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+
+    t_phase = time.perf_counter()
+    host = load_scene(None)
+    cfg = RenderConfig(width=1024, height=1024, renderer="megakernel")
+
+    # (a) K7 and K8 against their plain versions on the megakernel's pools
+    res = {}
+    for kind, route in (("K7", dict(compact_worklist=False)),
+                        ("K8", dict(intersect="sweep"))):
+        rcfg = cfg.replace(**route)
+        tile = rcfg.compact_tile if kind == "K7" else rcfg.sweep_tile
+        probe = ProgressiveRenderer(host, rcfg, host_seed=1, device=dev)
+        primary, bounce, shadow, n_alive = megakernel_pools(probe)
+        for pool, (o, d, *t_max) in (("primary", primary),
+                                     ("bounce", bounce),
+                                     ("shadow", shadow)):
+            kw = {}
+            if t_max:
+                kw = (dict(has_tmax=True, any_hit=True) if kind == "K7"
+                      else dict(has_tmax=True))
+            rays8, _ = ci.pack_rays8(o, d, tile, t_max=t_max[0] if t_max
+                                     else None)
+            # What the count pass costs the plain time: K7's plain version
+            # alone on the primary pool, before and after the counted call.
+            bare = (runner(kind, probe.scene, rays8, tile)[1]
+                    if (kind, pool) == ("K7", "primary") else None)
+            bare_ms = [_time_once(bare)[1]] if bare else []
+            r = check_isect(kind, probe.scene, rays8, tile, **kw)
+            if bare:
+                bare_ms.append(_time_once(bare)[1])
+                print(f"K7 plain on the primary pool without the count "
+                      f"pass: {bare_ms[0]:.1f} ms before, {bare_ms[1]:.1f} "
+                      f"after, {r[2]:.1f} with it", flush=True)
+            res[kind, pool] = (*r, rays8.shape[1])
+            what = ("blocked" if t_max else "hit")
+            print(f"{kind} megakernel {pool} pool {rays8.shape[1]} rays"
+                  + (f" ({n_alive} alive)" if pool == "bounce" else "")
+                  + (f" {json.dumps(kw)}" if kw else "")
+                  + f": max|dt| {r[0]:.3g}, {what} {r[3]:.3f}, kernel "
+                  f"{r[1]:.3f} ms, plain {r[2]:.1f} ms (once), bound "
+                  f"{r[4][0]:.4f} ms ({r[4][1]})", flush=True)
+        del probe, primary, bounce, shadow
+
+    # (b) the megakernel main path through K1 and K2
+    renderer = ProgressiveRenderer(host, cfg, host_seed=0, device=dev)
+    reset_counts()
+    sps, mrays, _, rad = timed_steps(renderer)
+    counts = read_counts()
+    assert rad.shape == (1024, 1024, 3) and np.isfinite(rad).all()
+    mean = float(rad.mean())
+    assert 1e-3 < mean < 10.0, f"implausible mean radiance {mean}"
+    for k in ("compact_intersect", "shade"):
+        assert counts[k][0] > 0, f"megakernel never launched kernel {k}"
+    for k in ("flush", "compact_order", "dense_sweep"):
+        assert counts[k][0] == 0, f"megakernel launched kernel {k}"
+    assert_no_plain()
+    print(f"megakernel main path 1024x1024 spp 4: {sps:.3f} samples/s, "
+          f"{mrays:.2f} Mrays/s, mean radiance {mean:.6f} [{card}]",
+          flush=True)
+    print(f"megakernel launches (5 samples): {json.dumps(counts)}",
+          flush=True)
+    del renderer
+
+    # (c) one step(1) at full width on each other route, (d) the BVH walk
+    launches = {}
+    for label, kw, name, mode in (
+            ("K7", dict(compact_worklist=False), "compact_order", "closest"),
+            ("K7 any_hit", dict(compact_worklist=False, nee=True),
+             "compact_order", "any_hit"),
+            ("K8", dict(intersect="sweep"), "dense_sweep", "closest"),
+            ("K8 tmax", dict(intersect="sweep", nee=True), "dense_sweep",
+             "tmax"),
+            ("BVH", dict(intersect="bvh", width=512, height=512), "shade",
+             "base")):
+        rcfg = cfg.replace(**kw)
+        r = ProgressiveRenderer(host, rcfg, host_seed=2, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        r.step(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = modes_of(name)[mode]
+        assert n > 0, f"{kw}: {label} never launched {name}"
+        counts = read_counts()
+        assert counts["compact_intersect"][0] == 0, f"{kw}: K1 launched"
+        if label == "BVH":
+            assert counts["compact_order"][0] == counts["dense_sweep"][0] \
+                == 0, "the BVH route launched an intersect kernel"
+        assert_no_plain()
+        rad = r.radiance()
+        assert np.isfinite(rad).all() and rad.mean() > 1e-3
+        launches[label] = (n, f"{rcfg.width}^2 megakernel step(1) " + " ".join(
+            f"{k}={v}" for k, v in kw.items() if k not in ("width", "height")))
+        print(f"megakernel route {json.dumps(kw)} {rcfg.width}x"
+              f"{rcfg.height} step(1): {label} launched {name} {n} times "
+              f"({mode}), {wall:.3f} s, {1e-6 * r.total_rays / wall:.2f} "
+              f"Mrays/s, mean radiance {float(rad.mean()):.6f}", flush=True)
+        del r
+
+    # (f) card vs CPU on the megakernel through K8 and through K7
+    for label, kw in (("K8", dict(intersect="sweep")),
+                      ("K7", dict(compact_worklist=False))):
+        small = RenderConfig(width=64, height=64, renderer="megakernel", **kw)
+        img_gpu, rg = render_radiance(host, small, dev, 7, (2, 2))
+        img_cpu, rc = render_radiance(host, small, "cpu", 7, (2, 2))
+        close = np.isclose(img_gpu, img_cpu, rtol=IMG_RTOL,
+                           atol=IMG_ATOL).all(-1)
+        print(f"megakernel {label} card vs CPU 64x64 2+2 spp: "
+              f"{close.mean():.5f} of pixels close, rays "
+              f"{rg.total_rays:.0f} / {rc.total_rays:.0f}", flush=True)
+        assert close.mean() >= IMG_FRAC, f"megakernel {label}: card and " \
+            "CPU renders disagree"
+        assert rg.total_rays == rc.total_rays
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    rows = [(name, src, where, *launches[key], res[kind, pool])
+            for name, src, where, key, kind, pool in (
+                ("compact_order", ci.ORDER_SOURCE, ci.ORDER_REPLACES, "K7",
+                 "K7", "primary"),
+                ("compact_order[tmax+any_hit]", ci.ORDER_SOURCE,
+                 ci.ORDER_REPLACES, "K7 any_hit", "K7", "shadow"),
+                ("dense_sweep", k8.SWEEP_SOURCE, k8.SWEEP_REPLACES, "K8",
+                 "K8", "primary"),
+                ("dense_sweep[tmax]", k8.SWEEP_SOURCE, k8.SWEEP_REPLACES,
+                 "K8 tmax", "K8", "shadow"))]
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default=None,
@@ -726,7 +1125,7 @@ def main(argv=None) -> int:
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
     _build.load_all(("compact_intersect", "shade", "flush", "stream_cluster",
-                     "stream_chunk"))
+                     "stream_chunk", "cluster_sweep"))
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"{json.dumps(_build.BUILD_SECONDS)}", flush=True)
 
@@ -745,13 +1144,13 @@ def main(argv=None) -> int:
     o, d, _ = primary_pool(probe)
     k1p = check_k1(scene, o, d, tile, cfg.eps)
     print(f"K1 primary pool {o.shape[0]} rays: max|dt| {k1p[0]:.3g}, "
-          f"hit {k1p[3]:.3f}, kernel {k1p[1]:.3f} ms, plain {k1p[2]:.1f} ms",
-          flush=True)
+          f"hit {k1p[3]:.3f}, kernel {k1p[1]:.3f} ms, plain {k1p[2]:.1f} ms, "
+          f"bound {k1p[4][0]:.4f} ms ({k1p[4][1]})", flush=True)
     pool = bounce_pool(probe)
     k1b = check_k1(scene, pool["origin"], pool["direction"], tile, cfg.eps)
     print(f"K1 bounce pool ({int(pool['alive'].sum())} alive): max|dt| "
-          f"{k1b[0]:.3g}, kernel {k1b[1]:.3f} ms, plain {k1b[2]:.1f} ms",
-          flush=True)
+          f"{k1b[0]:.3g}, kernel {k1b[1]:.3f} ms, plain {k1b[2]:.1f} ms, "
+          f"bound {k1b[4][0]:.4f} ms ({k1b[4][1]})", flush=True)
     from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
     t, _, tri = intersect_scene_sweep(scene, pool["origin"],
                                       pool["direction"], eps=cfg.eps,
@@ -766,25 +1165,14 @@ def main(argv=None) -> int:
     k3 = check_k3(dev)
     print(f"K3 2^18 retired of 2^20 rows into 1024^2: max|d| {k3[0]:.3g}, "
           f"bit-identical repeat, kernel {k3[1]:.3f} ms, plain "
-          f"{k3[2]:.3f} ms", flush=True)
+          f"{k3[2]:.3f} ms, index_add_ {k3[4]:.3f} ms, bound "
+          f"{k3[3][0]:.4f} ms ({k3[3][1]})", flush=True)
     del probe, pool
 
     # ---- 4. the main path ----------------------------------------------
     renderer = ProgressiveRenderer(host_scene, cfg, host_seed=0, device=dev)
     reset_counts()
-    renderer.step(1)                        # warm-up
-    torch.cuda.synchronize()
-    rays0 = renderer.total_rays
-    t0 = time.perf_counter()
-    timed = (2, 2)
-    iters = []
-    for n in timed:
-        renderer.step(n)
-        iters.append(renderer.last_iterations)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rays = renderer.total_rays - rays0
-    rad = renderer.radiance()
+    sps, mrays, iters, rad = timed_steps(renderer)
     counts = read_counts(FLAGSHIP)
     assert rad.shape == (1024, 1024, 3) and np.isfinite(rad).all()
     mean = float(rad.mean())
@@ -792,11 +1180,15 @@ def main(argv=None) -> int:
     for k, (launched, plain) in counts.items():
         assert launched > 0, f"main path never launched kernel {k}"
     assert_no_plain()
-    spp = sum(timed)
-    print(f"main path 1024x1024 spp {spp}: {spp / wall:.3f} samples/s, "
-          f"{rays / wall / 1e6:.2f} Mrays/s, iterations per chunk {iters}, "
+    print(f"main path 1024x1024 spp 4: {sps:.3f} samples/s, "
+          f"{mrays:.2f} Mrays/s, iterations per chunk {iters}, "
           f"mean radiance {mean:.6f} [{card}]", flush=True)
     print(f"launches: {json.dumps(counts)}", flush=True)
+    flagship_rate = (sps, mrays)
+    del renderer
+
+    # ---- 8e. beside it: the flagship wavefront through K7 ----------------
+    wavefront_k7(host_scene, cfg, dev, card, flagship_rate)
 
     # ---- 5. card vs CPU image ------------------------------------------
     small = RenderConfig(width=64, height=64, pool_size=4096)
@@ -807,7 +1199,6 @@ def main(argv=None) -> int:
     print(f"card vs CPU 64x64 2+2 spp: {close.mean():.5f} of pixels close",
           flush=True)
     assert close.mean() >= IMG_FRAC, "card and CPU renders disagree"
-    flagship_rate = (spp / wall, rays / wall / 1e6)
 
     # ---- 6. textured + NEE path -----------------------------------------
     nee = nee_phase(dev, card, flagship_rate)
@@ -815,36 +1206,43 @@ def main(argv=None) -> int:
     # ---- 7. outside-class path (streamed clusters) ----------------------
     outside = outside_phase(dev, card)
 
+    # ---- 8. the megakernel renderer (K7, K8, the BVH walk) ---------------
+    order_rows = megakernel_phase(dev, card)
+
     from logipathtracer_tpu_torch.ops.kernels import (compact_intersect,
                                                       flush, shade)
     k1_any = "logipathtracer_tpu/ops/pallas/compact_intersect.py:243"
     pool = 1 << 20          # rays, lanes or rows of phases 3 and 6's checks
     main_run, nee_run = "1024^2 main path", "1024^2 NEE main path"
+
+    def row(name, src, where, launched, run, n_pool, err, k_ms, p_ms, b,
+            lib_ms=None):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": where, "launches": launched, "max_abs_err": err,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": lib_ms, "run": run,
+                "pool": n_pool}
+
     rows = [
-        ("compact_intersect", compact_intersect, compact_intersect.REPLACES,
-         counts["compact_intersect"][0], main_run, k1p[0], k1p[1], k1p[2]),
-        ("compact_intersect[tmax+any_hit]", compact_intersect, k1_any,
-         nee["modes"]["any_hit"], nee_run, *nee["k1"]),
-        ("shade", shade, shade.REPLACES, counts["shade"][0], main_run, k2[1],
-         k2[2], k2[3]),
-        ("shade[tex+nee]", shade, shade.REPLACES, nee["modes"]["tex+nee"],
-         nee_run, *nee["k2"]),
-        ("flush", flush, flush.REPLACES, counts["flush"][0], main_run, k3[0],
-         k3[1], k3[2]),
+        row("compact_intersect", compact_intersect.SOURCE,
+            compact_intersect.REPLACES, counts["compact_intersect"][0],
+            main_run, pool, *k1p[:3], k1p[4]),
+        row("compact_intersect[tmax+any_hit]", compact_intersect.SOURCE,
+            k1_any, nee["modes"]["any_hit"], nee_run, pool, *nee["k1"]),
+        row("shade", shade.SOURCE, shade.REPLACES, counts["shade"][0],
+            main_run, pool, *k2[1:]),
+        row("shade[tex+nee]", shade.SOURCE, shade.REPLACES,
+            nee["modes"]["tex+nee"], nee_run, pool, *nee["k2"]),
+        row("flush", flush.SOURCE, flush.REPLACES, counts["flush"][0],
+            main_run, pool, *k3[:3], k3[3], k3[4]),
     ]
-    rows = [(n, m.SOURCE, where, launched, run, err, k_ms, p_ms, pool)
-            for n, m, where, launched, run, err, k_ms, p_ms in rows]
-    rows += [(n, src, where, launched, run, r[0], r[1], r[2], r[4])
-             for n, src, where, launched, run, r in outside]
+    # r: check_isect's (max |dt|, ms, plain ms, fraction, bound, pool)
+    rows += [row(n, src, where, launched, run, r[5], *r[:3], r[4])
+             for n, src, where, launched, run, r in outside + order_rows]
     # Beside the contract's keys: "run", the run whose launches are
-    # counted, and "pool", the rays (lanes, rows) that max_abs_err, ms and
-    # plain_ms were measured on.
-    print(json.dumps({"kernels": [
-        {"name": n, "route": "cuda", "source": src,
-         "replaces": where, "launches": launched,
-         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-         "run": run, "pool": n_pool}
-        for n, src, where, launched, run, err, k_ms, p_ms, n_pool in rows]}))
+    # counted, and "pool", the rays (lanes, rows) that max_abs_err, ms,
+    # plain_ms and the bound were measured on.
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,12 +8,18 @@ package imports torch and never JAX.
 
 The main path: ``load_gltf`` / a procedural scene → ``compile_scene`` →
 ``ProgressiveRenderer(scene, RenderConfig(...))`` → ``step(n)`` →
-``radiance()`` / ``image()``.  On CUDA tensors it runs hand-written
-kernels (csrc/): the compact worklist intersect (K1) for resident-class
-scenes, or for scenes beyond the resident budget a streamed intersect —
-the frustum cluster worklists (K4, the default), the chunk worklists
-(K5) or the octant chunk sweep (K6) — then the fused shade (K2) and the
-radiance flush (K3); on CPU tensors their plain PyTorch versions.
+``radiance()`` / ``image()``, through the pooled wavefront renderer or,
+with ``renderer="megakernel"``, the lockstep megakernel
+(``render_sample`` renders one frame).  On CUDA tensors it runs
+hand-written kernels (csrc/): for resident-class scenes the compact
+worklist intersect (K1, the default), the compact sweep over every
+cluster in octant order (K7, ``compact_worklist=False``) or the dense
+sweep (K8, ``intersect="sweep"``); for scenes beyond the resident
+budget a streamed intersect — the frustum cluster worklists (K4, the
+default), the chunk worklists (K5) or the octant chunk sweep (K6); then
+the fused shade (K2) and, in the wavefront, the radiance flush (K3).
+``intersect="bvh"`` walks the BVH in plain torch.  On CPU tensors every
+kernel's plain PyTorch version runs.
 """
 
 from logipathtracer_tpu_torch.config import RenderConfig
@@ -27,10 +33,13 @@ def __getattr__(name):
         from logipathtracer_tpu_torch.render.progressive import \
             ProgressiveRenderer
         return ProgressiveRenderer
+    if name == "render_sample":
+        from logipathtracer_tpu_torch.render.megakernel import render_sample
+        return render_sample
     raise AttributeError(name)
 
 
 __version__ = "0.1.0"
 
 __all__ = ["RenderConfig", "load_gltf", "compile_scene",
-           "ProgressiveRenderer", "__version__"]
+           "ProgressiveRenderer", "render_sample", "__version__"]

@@ -10,15 +10,19 @@ and shaders/tex_to_quad.frag:21-22).
 
 Fields that only choose a TPU mechanism in the JAX package are accepted
 and ignored here: ``pool_cm``, ``sort_variadic``, ``flush_bins``,
-``sweep_tile``, ``compact_cap``, ``shade``, ``shade_tile``.  The
-``stream_*`` fields route a scene beyond the resident budget between
-kernels K4, K5 and K6 as in the JAX package (``stream_worklist``,
-``stream_granularity``, ``stream_compact``, and whether ``stream_cap``
-is 0; render/megakernel.py ``pick_intersect``), with ``stream_tile``
-rays per tile and ``stream_chunk`` clusters per chunk; the cap's block
-width itself is a TPU mechanism.  Every field that changes results is
-honoured or, where its path is not ported yet, raises
-NotImplementedError (render/megakernel.py, render/progressive.py).
+``compact_cap``, ``shade``, ``shade_tile``.  ``intersect`` routes a
+resident-class scene between K1 / K7 (``compact_worklist``), K8
+(``"sweep"``, with ``sweep_tile`` rays per tile), the jnp twin and the
+BVH walk; the ``stream_*`` fields route a scene beyond the resident
+budget between kernels K4, K5 and K6 as in the JAX package
+(``stream_worklist``, ``stream_granularity``, ``stream_compact``, and
+whether ``stream_cap`` is 0; render/megakernel.py ``pick_intersect``),
+with ``stream_tile`` rays per tile and ``stream_chunk`` clusters per
+chunk; the cap's block width itself is a TPU mechanism.  ``renderer``
+chooses the wavefront (``"auto"``, ``"wavefront"``) or the megakernel.
+Every field that changes results is honoured or, where its path is not
+ported yet, raises NotImplementedError (render/megakernel.py,
+render/progressive.py).
 """
 
 from __future__ import annotations
@@ -73,9 +77,11 @@ class RenderConfig:
                                   # (256 resident class, 512 streamed)
 
     # Execution.
-    renderer: str = "auto"        # auto | wavefront (| megakernel)
+    renderer: str = "auto"        # auto (= wavefront) | wavefront |
+                                  # megakernel
     pool_size: int = 1 << 20      # wavefront ray-pool lanes
-    intersect: str = "auto"       # auto | compact | stream (| sweep, bvh)
+    intersect: str = "auto"       # auto | compact | sweep | sweep_jnp |
+                                  # bvh | stream
     sweep_tile: int = 1024
     compact_tile: int = 4096      # rays per worklist tile; also sizes
                                   # the block-major pixel layout

@@ -1,9 +1,11 @@
 // The per-ray closest-hit core shared by the intersect kernels K1
 // (compact_intersect.cu), K4 (stream_cluster.cu), K5 and K6
-// (stream_chunk.cu).  They compute one function with different cluster
-// visit orders; this header holds the function, the one cluster-visit
-// loop they all run (visit_clusters) and the per-tile cluster-list
-// kernel that K1 and K4 instantiate (cluster_list_kernel).
+// (stream_chunk.cu), K7 and K8 (cluster_sweep.cu).  They compute one
+// function with different cluster visit orders; this header holds the
+// function, the one cluster-visit loop they all run (visit_clusters),
+// the per-tile cluster-list kernel that K1 and K4 instantiate
+// (cluster_list_kernel) and the per-octant order kernel of K7 and K8
+// (cluster_order_kernel).
 //
 // Per ray and visited cluster: transform the ray into the cluster
 // object's space; slab-test the cluster AABB against the running best t
@@ -225,6 +227,50 @@ __global__ void cluster_list_kernel(const float* __restrict__ rays8, int R,
                                  ring, tris, S, meta, inv, aabb, w, eps,
                                  any_hit != 0, best, btri, bobj);
   t_out[r] = btri >= 0 ? best : kInf;
+  tri_out[r] = btri;
+  obj_out[r] = bobj;
+}
+
+// Closest hit visiting every cluster in a per-octant order (K7 with
+// kSubtile false, K8 with kSubtile true; gate before load): one thread
+// per ray, a block holds blockDim.x consecutive rays of one `tile`-ray
+// tile and visits all C clusters order[oct[ti], :].  oct [tiles] is the
+// direction octant of each tile's first ray, computed on the host side:
+// the octant belongs to the whole tile, not to the block.
+// kSubtile false (K7): K1's contract — best t from min(rays8[6], kBig)
+// with has_tmax, else kBig; any-hit parking; miss t = kInf.
+// kSubtile true (K8, 128-thread blocks = the TPU kernel's 128-ray
+// sub-tiles): best t from rays8[6] unclamped with has_tmax, else kInf;
+// every ray of the block runs the triangle test once some ray passes the
+// slab; any_hit ignored; t is the best as it stands without has_tmax,
+// kInf where no hit was accepted with it.
+template <bool kSubtile>
+__global__ void cluster_order_kernel(const float* __restrict__ rays8, int R,
+                                     const int* __restrict__ oct,
+                                     const int* __restrict__ order, int C,
+                                     int tile, const int* __restrict__ meta,
+                                     const float* __restrict__ inv,
+                                     const float* __restrict__ aabb,
+                                     const float* __restrict__ tris, int S,
+                                     float eps, int has_tmax, int any_hit,
+                                     float* __restrict__ t_out,
+                                     int* __restrict__ tri_out,
+                                     int* __restrict__ obj_out) {
+  extern __shared__ __align__(16) float ring[];
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ti = (blockIdx.x * blockDim.x) / tile;
+  const Ray w = load_ray(rays8, R, r);
+  float best;
+  if (kSubtile)
+    best = has_tmax ? rays8[6 * R + r] : kInf;
+  else
+    best = has_tmax ? nmin(rays8[6 * R + r], kBig) : kBig;
+  int btri = -1, bobj = -1;
+  const int* ord = order + static_cast<size_t>(oct[ti]) * C;
+  visit_clusters<0, kSubtile>([ord](int k) { return ord[k]; }, C, ring,
+                              tris, S, meta, inv, aabb, w, eps, any_hit != 0,
+                              best, btri, bobj);
+  t_out[r] = (kSubtile && !has_tmax) || btri >= 0 ? best : kInf;
   tri_out[r] = btri;
   obj_out[r] = bobj;
 }

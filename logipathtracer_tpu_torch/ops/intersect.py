@@ -1,7 +1,7 @@
-"""Ray-primitive helpers the shading step needs (the JAX package's
-``ops/intersect.py``): barycentric recovery and the affine transforms,
-written elementwise so every sum has one fixed order (no matmul, which
-on the card could also run in TF32)."""
+"""Ray-primitive helpers (the JAX package's ``ops/intersect.py``): the
+slab and Möller–Trumbore tests of the BVH walk, barycentric recovery
+and the affine transforms, written elementwise so every sum has one
+fixed order (no matmul, which on the card could also run in TF32)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,35 @@ def cross3(a, b):
     return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
                         a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def ray_aabb_test(origin, inv_dir, box_min, box_max, best_t):
+    """The slab test (rayAABBIntersectTest; the JAX package's
+    ``ray_aabb_test``): false
+    when t0 > t1; else t0 < best where t0 > 0; else t1 > 0.  min/max
+    propagate NaN, as jnp's do."""
+    near = (box_min - origin) * inv_dir
+    far = (box_max - origin) * inv_dir
+    t0 = torch.minimum(near, far).amax(dim=-1)
+    t1 = torch.maximum(near, far).amin(dim=-1)
+    return torch.where(t0 > t1, False,
+                       torch.where(t0 > 0.0, t0 < best_t, t1 > 0.0))
+
+
+def ray_triangle(origin, direction, v0, v1, v2):
+    """Möller–Trumbore (the JAX package's ``ray_triangle``): t, INF on a
+    barycentric miss; no backface cull, no determinant epsilon."""
+    edge1 = v1 - v0
+    edge2 = v2 - v0
+    pvec = cross3(direction, edge2)
+    det = 1.0 / dot3(edge1, pvec)
+    tvec = origin - v0
+    u = dot3(tvec, pvec) * det
+    qvec = cross3(tvec, edge1)
+    v = dot3(direction, qvec) * det
+    t = dot3(edge2, qvec) * det
+    miss = (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0)
+    return torch.where(miss, INF, t)
 
 
 def barycentric(point, v0, v1, v2):

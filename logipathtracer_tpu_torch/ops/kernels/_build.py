@@ -34,6 +34,7 @@ EXTRA_FLAGS = {
     "compact_intersect": ["-fmad=false"],
     "stream_cluster": ["-fmad=false"],
     "stream_chunk": ["-fmad=false"],
+    "cluster_sweep": ["-fmad=false"],
     "shade": ["-fmad=false"],
     "flush": [],
 }

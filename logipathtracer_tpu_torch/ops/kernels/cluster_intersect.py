@@ -29,6 +29,16 @@ cap = 0, else 256), not over the whole tile as on the TPU; the plain
 version takes it the same way.  The two differ only where a ray misses
 a chunk's world box but passes a member cluster's local box, which
 rounding alone can cause.
+
+Kernel K8 sits here too, as in the JAX package: ``dense_sweep_intersect``
+(csrc/cluster_sweep.cu) replaces ``cluster_intersect_pallas``
+(``_kernel`` → ``_mt_subtile_update``), the dense resident sweep of
+``intersect="sweep"``: every cluster in ``cl_order[octant of the tile's
+first ray]``, with the cap = 0 body's per-ray contract above (no chunks,
+no tile skipped).  It counts its launches in ``sweep_launches`` /
+``sweep_plain_calls``.  ``cluster_intersect_jnp`` is the port of the JAX
+package's jnp twin (``intersect="sweep_jnp"``): plain torch, every
+cluster in index order, every ray tested, no slab.
 """
 
 from __future__ import annotations
@@ -54,6 +64,14 @@ SOURCE = "logipathtracer_tpu_torch/csrc/stream_chunk.cu"
 REPLACES = "logipathtracer_tpu/ops/pallas/cluster_intersect.py:478"
 REPLACES_CAP = "logipathtracer_tpu/ops/pallas/compact_intersect.py:400"
 
+# Kernel K8 (the dense resident sweep): its counts, by mode "closest" /
+# "tmax".
+sweep_launches = 0
+sweep_plain_calls = 0
+sweep_mode_launches = collections.Counter()
+SWEEP_SOURCE = "logipathtracer_tpu_torch/csrc/cluster_sweep.cu"
+SWEEP_REPLACES = "logipathtracer_tpu/ops/pallas/cluster_intersect.py:265"
+
 
 def octant_chunk_order(chunk_min, chunk_max):
     """[8, NC] i32 per-octant front-to-back chunk order
@@ -75,11 +93,8 @@ def tile_front(rays8, tile: int):
     """(oct [tiles] i32, live [tiles] i32): each tile's direction octant
     from its first ray (cluster_intersect.py:531-534) and whether some
     origin x of the tile is below the 1e29 park (:539-540)."""
-    d0 = rays8[3:6, ::tile]
-    oct_ = ((d0[0] > 0).to(torch.int32) * 4 + (d0[1] > 0).to(torch.int32) * 2
-            + (d0[2] > 0).to(torch.int32))
     live = (rays8[0].reshape(-1, tile).amin(dim=1) < 1e29).to(torch.int32)
-    return oct_.contiguous(), live.contiguous()
+    return ci.tile_octants(rays8, tile), live.contiguous()
 
 
 def _threads(r: int, tile: int, cap: int) -> int:
@@ -98,13 +113,8 @@ def octant_chunk_intersect_plain(rays8, oct_, order, live, chunk_aabb,
     plain_calls += 1
     r = rays8.shape[1]
     block = _threads(r, tile, cap)
-    if cap:
-        best0 = ci.best_init(rays8, has_tmax)
-    elif has_tmax:
-        best0 = rays8[6].clone()
-    else:
-        best0 = torch.full((r,), INF, dtype=torch.float32,
-                           device=rays8.device)
+    best0 = (ci.best_init(rays8, has_tmax) if cap
+             else _sweep_best0(rays8, has_tmax))
     sweep = ci.PlainSweep(rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps,
                           best0)
     boxes = chunk_aabb.cpu().tolist()
@@ -183,3 +193,102 @@ def cluster_intersect_stream(cl_meta, cl_inv, cl_aabb, cl_tris, obj_world,
                                   cl_meta, cl_inv, cl_aabb, cl_tris, tile,
                                   chunk, eps, cap=cap, has_tmax=has_tmax,
                                   any_hit=any_hit)
+
+
+def _sweep_best0(rays8, has_tmax: bool):
+    """The cap = 0 body's initial best t: rays8[6] unclamped with
+    ``has_tmax``, else INF."""
+    if has_tmax:
+        return rays8[6].clone()
+    return torch.full((rays8.shape[1],), INF, dtype=torch.float32,
+                      device=rays8.device)
+
+
+def dense_sweep_intersect_plain(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
+                                cl_tris, tile: int, eps: float,
+                                has_tmax: bool = False):
+    """Plain PyTorch version of K8 (``compact_intersect.order_sweep_plain``
+    with the cap = 0 body's contract and 128-ray sub-tiles)."""
+    global sweep_plain_calls
+    sweep_plain_calls += 1
+    return ci.order_sweep_plain(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
+                                cl_tris, tile, eps,
+                                _sweep_best0(rays8, has_tmax),
+                                subtile=SUBTILE, masked=has_tmax)
+
+
+def dense_sweep_intersect(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
+                          cl_tris, tile: int, eps: float,
+                          has_tmax: bool = False):
+    """Kernel K8: closest hit for rays8 [8, R] (R a multiple of ``tile``,
+    itself of 128) visiting every cluster in order[oct_[tile]] with the
+    cap = 0 body's contract (module docstring).  A CPU tensor takes the
+    plain version, a CUDA tensor the kernel."""
+    global sweep_launches
+    dev = rays8.device
+    if dev.type == "cpu":
+        return dense_sweep_intersect_plain(rays8, oct_, order, cl_meta, cl_inv,
+                                           cl_aabb, cl_tris, tile, eps,
+                                           has_tmax)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_sweep_intersect: unsupported device {dev}")
+    ci._block_threads(rays8.shape[1], tile, "dense_sweep_intersect")
+    t, tri, obj = ci.launch_order(rays8, oct_, order, cl_meta, cl_inv,
+                                  cl_aabb, cl_tris, tile, eps, SUBTILE, True,
+                                  has_tmax, False)
+    sweep_launches += 1
+    sweep_mode_launches[ci._mode(has_tmax, False)] += 1
+    return t, tri, obj
+
+
+def cluster_intersect_pallas(cl_meta, cl_inv, cl_order, cl_aabb, cl_tris,
+                             rays8, tile: int = 1024, eps: float = 1e-4,
+                             has_tmax: bool = False):
+    """Tile octants + K8: the port of the JAX package's
+    ``cluster_intersect_pallas`` (same arguments; ``interpret`` has no
+    counterpart).  Returns (t [R], tri [R] i32, obj [R] i32)."""
+    return dense_sweep_intersect(rays8, ci.tile_octants(rays8, tile),
+                                 cl_order, cl_meta, cl_inv, cl_aabb, cl_tris,
+                                 tile, eps, has_tmax=has_tmax)
+
+
+def cluster_intersect_jnp(cl_meta, cl_inv, cl_aabb, cl_tris, rays8,
+                          eps: float = 1e-4, t_max=None):
+    """The JAX package's jnp twin of the sweep (cluster_intersect.py:
+    608-655) in plain torch: every cluster in index order against every
+    ray, no slab test; accept t > eps strictly closer than the best,
+    lowest slot on ties.  Best t starts at INF or ``t_max`` [R]; with
+    ``t_max`` the result t is INF where no hit was accepted.  Rays go
+    ``ci.MT_RAYS`` at a time."""
+    r = rays8.shape[1]
+    dev = rays8.device
+    m = cl_inv
+    o, d = rays8[0:3], rays8[3:6]
+    lo = [m[:, 4 * a, None] * o[0] + m[:, 4 * a + 1, None] * o[1]
+          + m[:, 4 * a + 2, None] * o[2] + m[:, 4 * a + 3, None]
+          for a in range(3)]                               # 3 x [O, R]
+    ld = [m[:, 4 * a, None] * d[0] + m[:, 4 * a + 1, None] * d[1]
+          + m[:, 4 * a + 2, None] * d[2] for a in range(3)]
+    best_t = (torch.full((r,), INF, dtype=torch.float32, device=dev)
+              if t_max is None else t_max.clone())
+    best_tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    best_obj = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    s = cl_tris.shape[2]
+    slot_ids = torch.arange(s, device=dev)
+    for c, (obj, base) in enumerate(cl_meta.cpu().tolist()):
+        for part in torch.arange(r, device=dev).split(ci.MT_RAYS):
+            t = ci._mt([x[obj, part] for x in lo], [x[obj, part] for x in ld],
+                       cl_tris[c])
+            ok = (t > eps) & (t < best_t[part, None])
+            t = torch.where(ok, t, INF)
+            tmin = t.amin(dim=1)
+            is_min = (t == tmin[:, None]) & (tmin[:, None] < INF)
+            slot = torch.where(is_min, slot_ids, s).amin(dim=1)
+            upd = tmin < best_t[part]
+            j = part[upd]
+            best_t[j] = tmin[upd]
+            best_tri[j] = (base + slot[upd]).to(torch.int32)
+            best_obj[j] = obj
+    if t_max is not None:
+        best_t = torch.where(best_tri >= 0, best_t, INF)
+    return best_t, best_tri, best_obj

@@ -36,7 +36,7 @@ clusters.
 The worklist prepass (``chunk_world_bounds``, ``build_chunk_worklists``,
 ``_order_fired``) and the ``pack_rays8`` ray pack stay plain torch: they
 were XLA code in the JAX package.  ``PlainSweep`` is the per-ray core
-in plain torch, shared by the plain versions of K1, K4, K5 and K6.
+in plain torch, shared by the plain versions of K1 and K4-K8.
 
 Kernel K5 sits beside K1, as in the JAX package: ``worklist_chunk_
 intersect`` (csrc/stream_chunk.cu) replaces ``compact_intersect.py::
@@ -44,6 +44,12 @@ cluster_intersect_worklist`` (``_worklist_compact_kernel``), the sweep
 of scenes beyond the resident budget over per-tile fired 16-cluster
 chunks, with K1's per-ray contract.  It counts its launches in
 ``worklist_launches`` / ``worklist_plain_calls``.
+
+So does kernel K7: ``compact_order_intersect`` (csrc/cluster_sweep.cu)
+replaces ``cluster_intersect_compact(worklist=False)`` (``_compact_kernel``
+→ ``_compact_loop``), K1's contract with every cluster visited in
+``cl_order[octant of the tile's first ray]`` and no prepass.  It counts
+its launches in ``order_launches`` / ``order_plain_calls``.
 """
 
 from __future__ import annotations
@@ -74,6 +80,17 @@ worklist_plain_calls = 0
 worklist_mode_launches = collections.Counter()
 WORKLIST_SOURCE = "logipathtracer_tpu_torch/csrc/stream_chunk.cu"
 WORKLIST_REPLACES = "logipathtracer_tpu/ops/pallas/compact_intersect.py:690"
+
+# Kernel K7 (every cluster in per-octant order, no prepass): its counts.
+order_launches = 0
+order_plain_calls = 0
+order_mode_launches = collections.Counter()
+ORDER_SOURCE = "logipathtracer_tpu_torch/csrc/cluster_sweep.cu"
+ORDER_REPLACES = "logipathtracer_tpu/ops/pallas/compact_intersect.py:889"
+
+# Rays per vectorized Möller–Trumbore step of a plain visit: bounds the
+# [n, S] temporaries (~64 MB each at S = 256).
+MT_RAYS = 1 << 16
 
 
 def pack_rays8(origin, direction, tile: int, t_max=None):
@@ -226,7 +243,7 @@ def _slab_table(lo, inv, box, best):
 
 class PlainSweep:
     """The per-ray core of the intersect kernels (csrc/closest_hit.cuh)
-    in plain PyTorch, shared by the plain versions of K1, K4, K5 and K6:
+    in plain PyTorch, shared by the plain versions of K1 and K4-K8:
     the running best (t, tri, obj) of every ray of an [8, R] ray block,
     and cluster visits vectorized over the rays of one tile.
 
@@ -257,6 +274,21 @@ class PlainSweep:
         hit = _slab_table(list(o), list(inv), box, self.best_t[sl])
         return hit.reshape(-1, block).any(dim=1).repeat_interleave(block)
 
+    def lanes(self, sl, c: int, gate=None):
+        """The rays of tile ``sl`` in cluster ``c``'s object space (lo,
+        ld: lists of components) and the lanes whose own slab test of the
+        cluster passes against the running best, within ``gate``."""
+        o = self.rays8[0:3, sl]
+        d = self.rays8[3:6, sl]
+        m = self.inv[self.meta[c][0]]
+        lo = [m[4 * a] * o[0] + m[4 * a + 1] * o[1] + m[4 * a + 2] * o[2]
+              + m[4 * a + 3] for a in range(3)]
+        ld = [m[4 * a] * d[0] + m[4 * a + 1] * d[1] + m[4 * a + 2] * d[2]
+              for a in range(3)]
+        hit = _slab_table(lo, [1.0 / x for x in ld], self.aabb[c],
+                          self.best_t[sl])
+        return lo, ld, hit if gate is None else hit & gate
+
     def visit(self, sl, c: int, any_hit: bool = False, gate=None,
               subtile: int = 0):
         """Visit cluster ``c`` with the rays of tile ``sl``: local ray,
@@ -266,34 +298,25 @@ class PlainSweep:
         cap=0 rule, every ray of a ``subtile``-ray sub-tile with some
         passing ray is tested.  ``any_hit`` parks an accepted lane's best
         t at -BIG."""
-        o = self.rays8[0:3, sl]
-        d = self.rays8[3:6, sl]
+        lo, ld, hit = self.lanes(sl, c, gate)
         bt = self.best_t[sl]
         obj, base = self.meta[c]
-        m = self.inv[obj]
-        lo = [m[4 * a] * o[0] + m[4 * a + 1] * o[1] + m[4 * a + 2] * o[2]
-              + m[4 * a + 3] for a in range(3)]
-        ld = [m[4 * a] * d[0] + m[4 * a + 1] * d[1] + m[4 * a + 2] * d[2]
-              for a in range(3)]
-        hit = _slab_table(lo, [1.0 / x for x in ld], self.aabb[c], bt)
-        if gate is not None:
-            hit = hit & gate
         if subtile:
             hit = hit.reshape(-1, subtile).any(dim=1).repeat_interleave(
                 subtile)
         idx = hit.nonzero().squeeze(1)
-        if idx.numel() == 0:
-            return
-        t = _mt([x[idx] for x in lo], [x[idx] for x in ld], self.cl_tris[c])
-        t = torch.where(t > self.eps, t, INF)
-        tmin = t.amin(dim=1)
-        slot = torch.where(t == tmin[:, None], self.slot_ids,
-                           t.shape[1]).amin(dim=1)
-        upd = tmin < bt[idx]
-        j = idx[upd]
-        bt[j] = -BIG if any_hit else tmin[upd]
-        self.best_tri[sl][j] = (base + slot[upd]).to(torch.int32)
-        self.best_obj[sl][j] = obj
+        for part in idx.split(MT_RAYS):
+            t = _mt([x[part] for x in lo], [x[part] for x in ld],
+                    self.cl_tris[c])
+            t = torch.where(t > self.eps, t, INF)
+            tmin = t.amin(dim=1)
+            slot = torch.where(t == tmin[:, None], self.slot_ids,
+                               t.shape[1]).amin(dim=1)
+            upd = tmin < bt[part]
+            j = part[upd]
+            bt[j] = -BIG if any_hit else tmin[upd]
+            self.best_tri[sl][j] = (base + slot[upd]).to(torch.int32)
+            self.best_obj[sl][j] = obj
 
     def result(self, masked: bool = True):
         """(t, tri, obj); t is INF where no hit was accepted, or the best
@@ -404,14 +427,114 @@ def _mode(has_tmax: bool, any_hit: bool) -> str:
     return ("any_hit" if any_hit else "tmax") if has_tmax else "closest"
 
 
+def tile_octants(rays8, tile: int):
+    """[tiles] i32: the direction octant of each ``tile``-ray tile's
+    first ray (compact_intersect.py:375-377, cluster_intersect.py:
+    225-227): 4 * (dx > 0) + 2 * (dy > 0) + (dz > 0)."""
+    d0 = rays8[3:6, ::tile]
+    return ((d0[0] > 0).to(torch.int32) * 4 + (d0[1] > 0).to(torch.int32) * 2
+            + (d0[2] > 0).to(torch.int32)).contiguous()
+
+
+def order_sweep_plain(rays8, oct_, order, cl_meta, cl_inv, cl_aabb, cl_tris,
+                      tile: int, eps: float, best0, any_hit: bool = False,
+                      subtile: int = 0, masked: bool = True):
+    """The plain core of K7 and K8: every tile visits all C clusters in
+    order[oct_[tile]].  Tiles are batched by octant — one vectorized
+    visit per (octant, cluster), 8·C visits in all, not tiles·C — which
+    gives the same result, since a visit updates each ray from its own
+    state only (and, with ``subtile``, from its own 128-ray sub-tile,
+    which never straddles two tiles)."""
+    r = rays8.shape[1]
+    dev = rays8.device
+    t = torch.empty(r, dtype=torch.float32, device=dev)
+    tri = torch.empty(r, dtype=torch.int32, device=dev)
+    obj = torch.empty(r, dtype=torch.int32, device=dev)
+    ray_oct = oct_.repeat_interleave(tile)
+    order_h = order.cpu().tolist()
+    for oc in sorted(set(oct_.cpu().tolist())):
+        idx = (ray_oct == oc).nonzero().squeeze(1)
+        sweep = PlainSweep(rays8[:, idx], cl_meta, cl_inv, cl_aabb, cl_tris,
+                           eps, best0[idx])
+        for c in order_h[oc]:
+            sweep.visit(slice(None), c, any_hit=any_hit, subtile=subtile)
+        t[idx], tri[idx], obj[idx] = sweep.result(masked)
+    return t, tri, obj
+
+
+def compact_order_intersect_plain(rays8, oct_, order, cl_meta, cl_inv,
+                                  cl_aabb, cl_tris, tile: int, eps: float,
+                                  has_tmax: bool = False,
+                                  any_hit: bool = False):
+    """Plain PyTorch version of K7 (``order_sweep_plain`` with K1's
+    contract)."""
+    global order_plain_calls
+    order_plain_calls += 1
+    return order_sweep_plain(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
+                             cl_tris, tile, eps, best_init(rays8, has_tmax),
+                             any_hit=any_hit)
+
+
+def compact_order_intersect(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
+                            cl_tris, tile: int, eps: float,
+                            has_tmax: bool = False, any_hit: bool = False):
+    """Kernel K7: closest hit for rays8 [8, R] (R a multiple of ``tile``)
+    visiting every cluster in order[oct_[tile]] (order [8, C] i32, oct_
+    [R/tile] i32 from ``tile_octants``).  K1's contract, shadow modes
+    included.  A CPU tensor takes the plain version, a CUDA tensor the
+    kernel."""
+    global order_launches
+    dev = rays8.device
+    args = (rays8, oct_, order, cl_meta, cl_inv, cl_aabb, cl_tris, tile, eps,
+            has_tmax, any_hit)
+    if dev.type == "cpu":
+        return compact_order_intersect_plain(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"compact_order_intersect: unsupported device {dev}")
+    r = rays8.shape[1]
+    threads = _block_threads(r, tile, "compact_order_intersect")
+    t, tri, obj = launch_order(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
+                               cl_tris, tile, eps, threads, False, has_tmax,
+                               any_hit)
+    order_launches += 1
+    order_mode_launches[_mode(has_tmax, any_hit)] += 1
+    return t, tri, obj
+
+
+def launch_order(rays8, oct_, order, cl_meta, cl_inv, cl_aabb, cl_tris,
+                 tile: int, eps: float, threads: int, subtile: bool,
+                 has_tmax: bool, any_hit: bool):
+    """Check the inputs of K7 / K8 (csrc/cluster_sweep.cu) and launch one
+    of them on the current stream."""
+    dev = rays8.device
+    r = rays8.shape[1]
+    c, s = require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, dev)
+    _build.require(rays8, "rays8", torch.float32, (8, r), dev)
+    _build.require(oct_, "oct", torch.int32, (r // tile,), dev)
+    _build.require(order, "order", torch.int32, (8, c), dev)
+    t, tri, obj = _outputs(r, dev)
+    _build.launch("cluster_sweep", "lpt_cluster_order_intersect", rays8, r,
+                  oct_, order, c, tile, cl_meta, cl_inv, cl_aabb, cl_tris, s,
+                  float(eps), threads, bool(subtile), bool(has_tmax),
+                  bool(any_hit), t, tri, obj, _build.stream_ptr(dev))
+    return t, tri, obj
+
+
 def cluster_intersect_compact(cl_meta, cl_inv, cl_aabb, cl_tris, rays8,
                               obj_world, tile: int = 4096,
                               eps: float = 1e-4, bounds=None,
                               has_tmax: bool = False,
-                              any_hit: bool = False):
-    """Worklist prepass + K1: the port of the JAX package's
-    ``cluster_intersect_compact(worklist=True)``.  ``bounds`` may carry
-    precomputed ``chunk_world_bounds`` (the scene's are constant)."""
+                              any_hit: bool = False, worklist: bool = True,
+                              cl_order=None):
+    """The port of the JAX package's ``cluster_intersect_compact``:
+    with ``worklist`` the worklist prepass + K1 (``bounds`` may carry
+    precomputed ``chunk_world_bounds``, the scene's are constant);
+    without, K7 over the per-octant cluster order ``cl_order`` [8, C]."""
+    if not worklist:
+        return compact_order_intersect(rays8, tile_octants(rays8, tile),
+                                       cl_order, cl_meta, cl_inv, cl_aabb,
+                                       cl_tris, tile, eps, has_tmax=has_tmax,
+                                       any_hit=any_hit)
     if bounds is None:
         c0 = cl_tris.shape[0]
         bounds = chunk_world_bounds(cl_meta, cl_aabb, obj_world, c0, c0, 1)

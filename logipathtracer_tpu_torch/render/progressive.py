@@ -5,7 +5,11 @@ sample counting and throughput, and checkpoint/resume in the same
 ``.npz`` format — a checkpoint written by the JAX package restores here.
 
 Rendering goes through the pooled wavefront (render/wavefront.py) with
-the pool carried over between ``step()`` calls; reads drain it first.
+the pool carried over between ``step()`` calls — reads drain it first —
+or, with ``renderer="megakernel"``, through one ``accumulate_sample``
+(render/megakernel.py) per sample, with nothing left in flight.
+``renderer="auto"`` is the wavefront (the JAX package takes it on a TPU
+only).
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 
 from logipathtracer_tpu_torch.config import RenderConfig
 from logipathtracer_tpu_torch.film.image import tonemap
-from logipathtracer_tpu_torch.render.megakernel import (pick_intersect,
+from logipathtracer_tpu_torch.render.megakernel import (accumulate_sample,
+                                                        pick_intersect,
                                                         resolve_shade_mode)
 from logipathtracer_tpu_torch.render.wavefront import (pix_layout,
                                                        unblock_accum,
@@ -46,7 +51,13 @@ def _rot(axis: int, angle: float) -> np.ndarray:
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first CUDA card.  Without one it raises: rendering on the CPU
+    is the caller's choice (``device="cpu"``), never a quiet fallback."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card found: the renderer runs on the card; pass "
+            'device="cpu" to render on the CPU')
+    return torch.device("cuda")
 
 
 class ProgressiveRenderer:
@@ -55,12 +66,15 @@ class ProgressiveRenderer:
 
     ``scene``: this package's SceneSoA (host or device) or any object
     with the SoA attributes (e.g. the JAX package's compiled scene).
-    ``device``: where to render (default: the first CUDA card, else the
-    CPU).  One device: multi-device rendering is a ROADMAP item."""
+    ``device``: where to render (default: the first CUDA card; without
+    one the constructor raises).  One device: multi-device rendering is a
+    ROADMAP item.  ``accumulate_fn`` replaces the megakernel's
+    ``accumulate_sample`` (same arguments and results), as in the JAX
+    package."""
 
     def __init__(self, scene, config: RenderConfig,
                  camera: CameraState | None = None, host_seed: int = 0,
-                 device=None):
+                 device=None, accumulate_fn=None):
         if isinstance(device, (list, tuple)):
             if len(device) != 1:
                 raise NotImplementedError(
@@ -69,10 +83,8 @@ class ProgressiveRenderer:
             device = device[0]
         self.device = torch.device(device) if device is not None \
             else default_device()
-        if config.renderer not in ("auto", "wavefront"):
-            raise NotImplementedError(
-                f"renderer={config.renderer!r}: the megakernel renderer is "
-                "not ported (ROADMAP Queue 1: megakernel and BVH walk)")
+        if config.renderer not in ("auto", "wavefront", "megakernel"):
+            raise ValueError(f"unknown renderer {config.renderer!r}")
         if not isinstance(scene, SceneSoA):
             scene = SceneSoA.from_numpy(scene)
         if camera is None:
@@ -86,6 +98,7 @@ class ProgressiveRenderer:
         # Commit the scene to the device once.
         self.scene = scene.to(self.device)
         self.config = config
+        self._accumulate = accumulate_fn or accumulate_sample
         self.camera_world = np.asarray(camera.world_matrix,
                                        np.float32).copy()
         self.fov_y = float(camera.yfov)
@@ -150,19 +163,60 @@ class ProgressiveRenderer:
         self.total_rays = rays_now
         self.last_iterations = int(st["it"])
 
+    def _reset_counts(self):
+        """The reset protocol (src/RendererPT.cpp:575-581)."""
+        self.sample_count = 0
+        self.total_rays = 0.0
+        self._session_samples = 0
+        self._session_rays = 0.0
+        self._elapsed = 0.0
+
     def _step(self, samples: int, sync: bool):
+        cam = torch.from_numpy(self.camera_world).to(self.device)
+        if self.config.renderer == "megakernel":
+            self._step_megakernel(samples, cam, sync)
+        else:
+            self._step_wavefront(samples, cam, sync)
+        if self.sample_count % 10 < samples:
+            log.info("samples: %d  samples/s: %.3f  Mrays/s: %.2f",
+                     self.sample_count, self.samples_per_sec(),
+                     self.mrays_per_sec())
+        return self
+
+    def _step_megakernel(self, samples: int, cam, sync: bool):
+        """One ``accumulate_sample`` per sample, each with its own host
+        seed pair (integers(1, 2**31, 2), as the JAX package draws them);
+        the first after a reset replaces the accumulator.  The ray counts
+        stay on the device until the one host read at the end."""
+        rays = torch.zeros((), dtype=torch.int64, device=self.device)
+        t0 = time.perf_counter()
+        for _ in range(samples):
+            if self._dirty:
+                self._reset_counts()
+            seed = torch.from_numpy(self._host_rng.integers(
+                1, 2 ** 31, 2, dtype=np.int64)).to(self.device)
+            self.accum, n = self._accumulate(self.scene, self.config, cam,
+                                             self.fov_y, seed, self.accum,
+                                             self._dirty)
+            rays += n
+            self.sample_count += 1
+            self._session_samples += 1
+            self._dirty = False
+        if sync:
+            self._sync()
+        self._elapsed += time.perf_counter() - t0
+        n = float(rays)
+        self.total_rays += n
+        self._session_rays += n
+
+    def _step_wavefront(self, samples: int, cam, sync: bool):
         cfg = self.config
         if self._dirty:
-            self.sample_count = 0
-            self.total_rays = 0.0
-            self._session_samples = 0
-            self._session_rays = 0.0
-            self._elapsed = 0.0
+            self._reset_counts()
             self.accum = torch.zeros_like(self.accum)
             self._wf_state = None
         seeds = torch.from_numpy(self._host_rng.integers(
             1, 2 ** 31, (samples, 2), dtype=np.int64)).to(self.device)
-        cam = torch.from_numpy(self.camera_world).to(self.device)
         npix = cfg.render_width * cfg.render_height
         pool = min(cfg.pool_size, npix)
         t0 = time.perf_counter()
@@ -181,11 +235,6 @@ class ProgressiveRenderer:
         self.sample_count += samples
         self._session_samples += samples
         self._dirty = False
-        if self.sample_count % 10 < samples:
-            log.info("samples: %d  samples/s: %.3f  Mrays/s: %.2f",
-                     self.sample_count, self.samples_per_sec(),
-                     self.mrays_per_sec())
-        return self
 
     def _drain_pool(self, timed: bool = True):
         """Complete all in-flight paths and fold the pool's block-major

@@ -1,17 +1,27 @@
-"""Where an iteration of the wavefront loop spends its time.
+"""Where an iteration of the wavefront loop, or a sample of the
+megakernel, spends its time.
 
     python -m logipathtracer_tpu_torch.tools.stages [--scene outside|box]
         [--nee] [--textured] [--res 1024] [--device cuda] [--prepass]
+        [--renderer wavefront|megakernel] [--intersect MODE]
+        [--no-worklist] [--set FIELD=VALUE ...]
 
 Renders the scene (``make_outside_scene()`` or ``make_box_scene(
 spheres=10, subdiv=3)``, procedural, from fixed seeds) with the default
-RenderConfig at ``--res``, and prints one JSON line for each part:
+RenderConfig at ``--res`` (``--renderer``, ``--intersect`` and
+``--no-worklist``, i.e. ``compact_worklist=False``, choose the route;
+``--set`` any other RenderConfig field, its value read as JSON, e.g.
+``--set stream_worklist=false``), and prints one JSON line for each
+part:
 
   stages:   a warm-up step(1), then two step(2) chunks with every stage
-            of the loop wrapped in device-synchronised timers (the syncs
-            add a little): seconds and calls per stage over the chunks'
-            iterations; "rest" is the iteration total less the stages
-            (ray parking, counts, the host read);
+            wrapped in device-synchronised timers (the syncs add a
+            little): seconds and calls per stage over the chunks'
+            iterations; an "iteration" of the megakernel is one sample's
+            ``trace_rays`` (max_depth lockstep bounces); "rest" is the
+            iteration total less the stages (ray parking, counts, the
+            host read; in the megakernel the sort, gathers and camera
+            rays);
   busy:     (CUDA only) the device busy share: the kernel time of one
             profiled step(2) (torch.profiler, device rows) over the median
             wall of three uninstrumented step(2) chunks of the same
@@ -59,6 +69,8 @@ def _shadow(kw):
 # (module or class, attribute, stage label given the call's kwargs)
 STAGES = (
     (wavefront._Body, "__call__", lambda kw: "iteration total"),
+    (megakernel, "trace_rays", lambda kw: "iteration total"),
+    (megakernel, "ray_sort_key", lambda kw: "sort key"),
     (wavefront._Body, "_sort_and_flush",
      lambda kw: "sort + gather + K3 flush"),
     (wavefront._Body, "_regen", lambda kw: "regen"),
@@ -68,6 +80,8 @@ STAGES = (
     (k4, "build_cluster_worklists",
      lambda kw: "frustum prepass" + _shadow(kw)),
     (ci, "compact_wl_intersect", lambda kw: "K1 kernel" + _shadow(kw)),
+    (ci, "compact_order_intersect", lambda kw: "K7 kernel" + _shadow(kw)),
+    (k6, "dense_sweep_intersect", lambda kw: "K8 kernel" + _shadow(kw)),
     (k4, "stream_cl_intersect", lambda kw: "K4 kernel" + _shadow(kw)),
     (ci, "worklist_chunk_intersect", lambda kw: "K5 kernel" + _shadow(kw)),
     (k6, "octant_chunk_intersect", lambda kw: "K6 kernel" + _shadow(kw)),
@@ -129,8 +143,9 @@ def stage_split(renderer, chunks=(2, 2)):
     t0 = time.perf_counter()
     with stage_timers(dev, seconds):
         for n in chunks:
+            before = seconds.get("iteration total", [0.0, 0])[1]
             renderer.step(n)
-            iters.append(renderer.last_iterations)
+            iters.append(seconds["iteration total"][1] - before)
     _sync(dev)
     wall = time.perf_counter() - t0
     total = seconds.get("iteration total", [0.0, 0])
@@ -225,10 +240,25 @@ def main(argv=None) -> int:
     ap.add_argument("--textured", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--prepass", action="store_true")
+    ap.add_argument("--renderer", choices=("wavefront", "megakernel"),
+                    default="wavefront")
+    ap.add_argument("--intersect", default="auto")
+    ap.add_argument("--no-worklist", action="store_true")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="FIELD=VALUE")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
+    fields = {}
+    for item in args.set:
+        key, _, value = item.partition("=")
+        try:
+            fields[key] = json.loads(value)
+        except json.JSONDecodeError:
+            fields[key] = value
     r = make_renderer(args.scene, args.res, dev, nee=args.nee,
-                      textured=args.textured)
+                      textured=args.textured, renderer=args.renderer,
+                      intersect=args.intersect,
+                      compact_worklist=not args.no_worklist, **fields)
     print(json.dumps({"stages": stage_split(r)}), flush=True)
     if dev.type == "cuda":
         print(json.dumps({"busy": busy_share(r)}), flush=True)

@@ -187,9 +187,25 @@ def test_plain_k1_tmax_matches_jax(nee_scenes, parked, any_hit):
 
 
 def test_unported_modes_raise(scenes):
+    """Every sweep backend is ported: "compact" without worklists runs K7,
+    "pallas" and "interpret" K8, "jnp" the jnp twin; an unknown backend
+    raises."""
+    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as tk8
     _, tscene = scenes
     o, d = (torch.from_numpy(x) for x in _random_rays(8, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrav.intersect_scene_sweep(tscene, o, d, backend="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrav.intersect_scene_sweep(tscene, o, d, worklist=False)
+    counts = lambda: (tci.plain_calls, tci.order_plain_calls,
+                      tk8.sweep_plain_calls)
+    for kw, moved in ((dict(worklist=False), 1),
+                      (dict(backend="compact_interpret", worklist=False), 1),
+                      (dict(backend="pallas"), 2),
+                      (dict(backend="interpret"), 2),
+                      (dict(backend="jnp"), None)):
+        before = counts()
+        t, obj, tri = ttrav.intersect_scene_sweep(tscene, o, d, tile=TILE,
+                                                  **kw)
+        assert t.shape == obj.shape == tri.shape == (8,)
+        after = counts()
+        assert [a - b for a, b in zip(after, before)] == [
+            int(i == moved) for i in range(3)]
+    with pytest.raises(ValueError, match="unknown sweep backend"):
+        ttrav.intersect_scene_sweep(tscene, o, d, backend="bvh")

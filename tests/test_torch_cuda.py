@@ -1,8 +1,9 @@
-"""Kernels K1-K6 against their plain versions on the card, at small
+"""Kernels K1-K8 against their plain versions on the card, at small
 shapes, in every mode (the intersect kernels' t_max / any-hit shadow
-queries, K6's cap 0 and cap > 0 bodies, K2 with textures and NEE), and
-the render on the card against the CPU.  Marked ``cuda``: they need an NVIDIA card with nvcc and skip
-elsewhere.  On the card (which has no JAX, imported by the suite's
+queries, K6's cap 0 and cap > 0 bodies, K8's sub-tile body, K2 with
+textures and NEE), and the render on the card against the CPU, the
+wavefront and the megakernel on each route.  Marked ``cuda``: they need
+an NVIDIA card with nvcc and skip elsewhere.  On the card (which has no JAX, imported by the suite's
 conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -311,6 +312,81 @@ def test_stream_render_card_matches_cpu(dev, route):
     rads = []
     for device in (dev, "cpu"):
         r = ProgressiveRenderer(scene, cfg, host_seed=5, device=device)
+        r.step(2)
+        r.step(1)
+        rads.append((r.radiance(), r.total_rays))
+    (a, ra), (b, rb) = rads
+    close = np.isclose(a, b, rtol=1e-4, atol=1e-6).all(-1)
+    assert close.mean() >= 0.995
+    assert ra == rb
+
+
+def _order_call(kernel, scene, rays8, tile, plain, **kw):
+    """K7 or K8 (or its plain version) on a packed pool, with the tile
+    octants the main path gives it."""
+    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k8
+    inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
+    args = (rays8, ci.tile_octants(rays8, tile), scene.cl_order,
+            scene.cl_meta, inv, scene.cl_aabb, scene.cl_tris, tile, 1e-4)
+    if kernel == "k7":
+        fn = ci.compact_order_intersect_plain if plain else \
+            ci.compact_order_intersect
+    else:
+        fn = k8.dense_sweep_intersect_plain if plain else \
+            k8.dense_sweep_intersect
+    return fn(*args, **kw)
+
+
+@pytest.mark.parametrize("kernel,tile", [("k7", 4096), ("k8", 1024)])
+def test_k7_k8_match_plain(scene, dev, kernel, tile):
+    """K7 and K8 against their plain versions: closest hits under
+    hits_agree (with a tile whose first ray is parked), and the t_max
+    query's visibility on every lane (K7 also with any-hit)."""
+    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k8
+    o, d = _rays(8192, dev, seed=9)
+    o[tile:tile + 50] = 1e30                  # a tile led by parked lanes
+    d[tile:tile + 50] = 1.0
+    counts = lambda: (ci.order_launches, k8.sweep_launches)
+    rays8, _ = ci.pack_rays8(o, d, tile)
+    n0 = counts()
+    got = _order_call(kernel, scene, rays8, tile, plain=False)
+    assert counts() == (n0[0] + (kernel == "k7"), n0[1] + (kernel == "k8"))
+    ref = _order_call(kernel, scene, rays8, tile, plain=True)
+    ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
+    assert float((got[1] >= 0).float().mean()) > 0.2
+    t_max = torch.from_numpy(np.random.default_rng(4).uniform(
+        0.05, 4.0, 8192).astype(np.float32)).to(dev)
+    rays8, _ = ci.pack_rays8(o, d, tile, t_max=t_max)
+    for kw in ([dict(has_tmax=True), dict(has_tmax=True, any_hit=True)]
+               if kernel == "k7" else [dict(has_tmax=True)]):
+        got = _order_call(kernel, scene, rays8, tile, plain=False, **kw)
+        ref = _order_call(kernel, scene, rays8, tile, plain=True, **kw)
+        blocked = got[0] < t_max
+        assert torch.equal(blocked, ref[0] < t_max)
+        assert 0 < int(blocked.sum()) < 8192
+        if not kw.get("any_hit"):
+            ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
+
+
+@pytest.mark.parametrize("route", [
+    {}, dict(compact_worklist=False), dict(intersect="sweep"),
+    dict(intersect="sweep", nee=True, scene="textured"),
+    dict(intersect="bvh")])
+def test_megakernel_card_matches_cpu(dev, route):
+    """The megakernel on the card against the CPU (plain versions) on
+    each resident route: K1, K7, K8, K8 with NEE, the BVH walk."""
+    from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
+                                          compile_scene)
+    from logipathtracer_tpu_torch.scene.procedural import make_box_scene
+    route = dict(route)
+    kind = route.pop("scene", "plain")
+    cfg = RenderConfig(width=32, height=32, renderer="megakernel",
+                       compact_tile=256, sweep_tile=256, **route)
+    host = compile_scene(make_box_scene(spheres=2, subdiv=3,
+                                        textured=kind != "plain"), cfg)
+    rads = []
+    for device in (dev, "cpu"):
+        r = ProgressiveRenderer(host, cfg, host_seed=5, device=device)
         r.step(2)
         r.step(1)
         rads.append((r.radiance(), r.total_rays))

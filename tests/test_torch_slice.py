@@ -131,17 +131,16 @@ def test_camera_moves_match_jax(renders):
 
 def test_unported_configs_raise(renders):
     js = renders["jscene"]
-    for kw, item in ((dict(renderer="megakernel"),
-                      "ROADMAP Queue 1: megakernel"),
-                     (dict(intersect="bvh"), "ROADMAP Queue 1: megakernel "
-                      "and BVH walk"),
-                     (dict(compact_worklist=False), "ROADMAP Queue 2: K7"),
-                     (dict(intersect="sweep"), "ROADMAP Queue 2: K8")):
-        with pytest.raises(NotImplementedError, match=item):
-            ProgressiveRenderer(js, RenderConfig(**FIELDS).replace(**kw),
-                                device="cpu")
-    # The streamed intersect is ported: every routing of it constructs.
-    for kw in (dict(intersect="stream"), dict(intersect="stream_interpret"),
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: basic"):
+        ProgressiveRenderer(js, RenderConfig(**FIELDS).replace(
+            use_microfacet=False), device="cpu")
+    # The megakernel, the BVH walk, K7 and K8 are ported: each constructs,
+    # and so does every routing of the streamed intersect.
+    for kw in (dict(renderer="megakernel"), dict(intersect="bvh"),
+               dict(compact_worklist=False), dict(intersect="sweep"),
+               dict(intersect="sweep_jnp"),
+               dict(renderer="megakernel", intersect="sweep", nee=True),
+               dict(intersect="stream"), dict(intersect="stream_interpret"),
                dict(intersect="stream", stream_granularity="chunk"),
                dict(intersect="stream", stream_worklist=False),
                dict(intersect="stream", stream_compact=False)):
