@@ -9,26 +9,34 @@ the root of a checkout it:
   2. builds the CUDA kernels from logipathtracer_tpu_torch/csrc, one
      nvcc per source, all started together;
   3. holds each kernel against its plain PyTorch version on the card at
-     the main path's shapes (K1 on the 2^20-ray primary pool and on a
-     bounce pool of the render, K2 on that 2^20-lane pool, K3 on a
-     2^18-row sorted retired tail into a 1024^2 accumulator), with
-     median times of both;
+     the main path's shapes (K1's worklist kernel and K1 on the
+     2^20-ray primary pool and on a bounce pool of the render — the
+     worklists equal, K1 bit-equal, each timed apart and beside the
+     route K1 took before its redesign: the plain worklist prepass on
+     the card and the one-thread-per-ray visit, ``per_ray_k1``; K2 on
+     that 2^20-lane pool; K3 on a 2^18-row sorted retired tail into a
+     1024^2 accumulator, with ``index_add_``, each by event time and by
+     device time), with median times of both;
   4. drives the flagship main path — ProgressiveRenderer at 1024x1024,
      max_depth 10, Heitz, parity RNG, 2^20-lane wavefront pool — and
-     checks that it ran through all three kernels and never through a
-     plain version;
+     checks that it ran through all four kernels (K1's worklist kernel,
+     K1, K2, K3) and never through a plain version; then the same steps
+     through the earlier route (``per_ray_route``), timed the same way,
+     with the same mean radiance and ray count;
   5. renders 64x64 at 2+2 spp on the card and on the CPU with the same
      seed and requires >= 99.5% of pixels to agree (rtol 1e-4,
      atol 1e-6);
   6. the textured + next-event-estimation path: the same box with the
      checker texture (``textured=True``) and RenderConfig(nee=True) —
-     (a) after one step(1) at 1024x1024, K1 in its t_max / any-hit mode
-     against its plain version on the 2^20-lane shadow pool (the same
-     visibility on every lane); (b) K2 with textures and NEE against its
+     (a) after one step(1) at 1024x1024, the worklist kernel with t_max
+     and K1 in its t_max / any-hit mode against their plain versions on
+     the 2^20-lane shadow pool (the same worklists; the same t, so the
+     same visibility, on every lane); (b) K2 with textures and NEE against its
      plain version on that pool, with parity and with Threefry draws,
      and K2 on a scene small enough for the TPU kernel's tri_sel form;
      (c) the NEE main path at 1024x1024, timed as in 4, which must run
-     K1 at least twice per iteration, K2 and K3, and no plain version;
+     the worklist kernel and K1 at least twice per iteration, K2 and K3,
+     and no plain version, and beside it the earlier route;
      (d) the 64x64 card-vs-CPU render of 5 on this path;
   7. the outside-class path, scenes beyond the resident budget that
      stream cluster blocks: ``make_outside_scene()`` (394,242 triangles,
@@ -54,13 +62,14 @@ the root of a checkout it:
      mode on that bounce's NEE shadow pool (and K7's plain version
      once more before and after its check, without the count pass, to
      show what that pass costs); (b) the megakernel main path
-     at 1024x1024 through K1 and K2, timed as in 4; (c) one 1024x1024
+     at 1024x1024 through the worklist kernel, K1 and K2, timed as in 4,
+     and beside it the earlier route; (c) one 1024x1024
      step(1) on each other route (K7, K7 any-hit with NEE, K8, K8 t_max
      with NEE), each launching its kernel; (d) the BVH walk at 512x512,
      one step(1); (e) beside phase 4, in the same call: the flagship
      wavefront with ``compact_worklist=False`` (K7, no per-ray prepass),
      timed the same way; (f) the 64x64 card-vs-CPU render of 5 on the
-     megakernel through K8 and through K7.
+     megakernel through K1, K8 and K7.
 
 The scene is the glTF given with --scene, else the procedural box
 ``make_box_scene(spheres=10, subdiv=3)`` (12,812 triangles, 86 clusters,
@@ -81,11 +90,16 @@ data sheet).  The intersect kernels' operations come from a count pass
 over the plain version's run on the same pool (``counted``): SLAB_OPS
 per slab test it made and MT_OPS per ray-triangle test its rays' own
 slab passes imply — S per pass, less, with any_hit, the tests after the
-first accepted triangle (``any_hit_saved``).  K3 moves 4 bytes of pixel
-id per row, 12 of radiance per retired row and a read and a write of
-each pixel it flushes.  ``library_ms`` is the time of one PyTorch call
-that computes the same function (``index_add_`` for K3), null where no
-such call exists.
+first accepted triangle (``any_hit_saved``).  The worklist kernel makes
+WORLD_SLAB_OPS per (ray, box) slab test, every ray against every box as
+its plain version does.  K3 moves 4 bytes of pixel id per row, 12 of
+radiance per retired row and a read and a write of each pixel it
+flushes.  ``library_ms`` is the time of one PyTorch call that computes
+the same function (``index_add_`` for K3), null where no such call
+exists.  K3's row adds ``device_ms`` and ``library_device_ms``: the
+device time of one call, from the kernel rows of ``torch.profiler``
+over DEVICE_RUNS calls, without the host time that an event pair
+around one call holds.
 """
 
 from __future__ import annotations
@@ -121,6 +135,8 @@ K3_RTOL, K3_ATOL = 1e-6, 1e-6           # f32 reassociation
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SLAB_OPS, MT_OPS, K2_OPS = 64, 52, 200
+WORLD_SLAB_OPS = 28                     # the slab table alone
+DEVICE_RUNS = 50
 IMG_RTOL, IMG_ATOL, IMG_FRAC = 1e-4, 1e-6, 0.995  # test_wavefront.py:36-37
 
 
@@ -273,6 +289,8 @@ def isect_bound(work, scene, inputs, r: int, saved: int = 0):
 COUNTERS = {
     "compact_intersect": ("compact_intersect", "launches", "plain_calls",
                           "mode_launches"),
+    "worklist_prepass": ("compact_intersect", "prepass_launches",
+                         "prepass_plain_calls", None),
     "shade": ("shade", "launches", "plain_calls", "mode_launches"),
     "flush": ("flush", "launches", "plain_calls", None),
     "stream_cluster": ("stream_cluster", "launches", "plain_calls",
@@ -286,7 +304,7 @@ COUNTERS = {
     "dense_sweep": ("cluster_intersect", "sweep_launches",
                     "sweep_plain_calls", "sweep_mode_launches"),
 }
-FLAGSHIP = ("compact_intersect", "shade", "flush")
+FLAGSHIP = ("compact_intersect", "worklist_prepass", "shade", "flush")
 
 
 def _module(name):
@@ -363,25 +381,106 @@ def bounce_pool(renderer):
     return pool
 
 
+def per_ray_k1(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris, tile, eps,
+               has_tmax=False, any_hit=False):
+    """K1's function through the one-thread-per-ray visit that its
+    compacted visit replaced (csrc/compact_intersect.cu
+    ``lpt_compact_wl_intersect_per_ray``): the yardstick K1 is timed
+    against.  No launch count: no path of the package runs it."""
+    from logipathtracer_tpu_torch.ops.kernels import _build
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    dev, r = rays8.device, rays8.shape[1]
+    threads = ci._block_threads(r, tile, "per_ray_k1")
+    c, s = ci.require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, dev)
+    t, tri, obj = ci._outputs(r, dev)
+    _build.launch("compact_intersect", "lpt_compact_wl_intersect_per_ray",
+                  rays8, r, wl, wn, c, tile, cl_meta, cl_inv, cl_aabb,
+                  cl_tris, s, float(eps), threads, bool(has_tmax),
+                  bool(any_hit), t, tri, obj, _build.stream_ptr(dev))
+    return t, tri, obj
+
+
+@contextlib.contextmanager
+def per_ray_route():
+    """The route K1 took before its redesign, for comparison in the same
+    call: the plain worklist prepass (its torch ops on the card) and
+    ``per_ray_k1``, in place of the worklist kernel and K1."""
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    saved = ci.build_chunk_worklists, ci.compact_wl_intersect
+    ci.build_chunk_worklists = ci.build_chunk_worklists_plain
+    ci.compact_wl_intersect = per_ray_k1
+    try:
+        yield
+    finally:
+        ci.build_chunk_worklists, ci.compact_wl_intersect = saved
+
+
+def check_worklist(wmin, wmax, rays8, tile, has_tmax=False, runs=10):
+    """The worklist kernel against its plain version (on the card) on
+    one pool: wn equal, and wl on every tile's first wn entries.
+    Returns (wl, wn, max |wl - plain wl| over the listed entries,
+    kernel ms, plain ms, bound); the bound is WORLD_SLAB_OPS per (ray,
+    box) test or the bytes moved."""
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    kw = dict(has_tmax=has_tmax)
+    wl, wn = ci.build_chunk_worklists(wmin, wmax, rays8, tile, **kw)
+    wlp, wnp = ci.build_chunk_worklists_plain(wmin, wmax, rays8, tile, **kw)
+    assert torch.equal(wn, wnp), "worklist kernel: wn differs"
+    live = (torch.arange(wl.shape[1], device=wl.device)[None]
+            < wn[:, None])
+    bad = int((wl != wlp)[live].sum())
+    assert bad == 0, f"worklist kernel: wl differs on {bad} listed entries"
+    err = float((wl - wlp)[live].abs().max()) if bool(live.any()) else 0.0
+    k_ms = _median_ms(
+        lambda: ci.build_chunk_worklists(wmin, wmax, rays8, tile, **kw), runs)
+    p_ms = _median_ms(lambda: ci.build_chunk_worklists_plain(
+        wmin, wmax, rays8, tile, **kw), 3)
+    b = bound(WORLD_SLAB_OPS * rays8.shape[1] * wmin.shape[0],
+              nbytes(wmin, wmax, rays8, wl, wn))
+    return wl, wn, err, k_ms, p_ms, b
+
+
 def check_k1(scene, origin, direction, tile, eps, runs=(10, 3)):
-    """K1 against its plain version on one pool; returns
-    (max_abs_err, kernel_ms, plain_ms, hit fraction, bound)."""
+    """The worklist kernel and K1 against their plain versions on one
+    pool, K1 bit for bit (t, tri, obj) and equal to ``per_ray_k1``;
+    returns (max_abs_err, kernel_ms, plain_ms, hit fraction, bound,
+    worklist row (ms, plain ms, bound), per-ray K1 ms)."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
     rays8, _ = ci.pack_rays8(origin, direction, tile)
     wmin, wmax = scene_cluster_bounds(scene)
-    wl, wn = ci.build_chunk_worklists(wmin, wmax, rays8, tile)
+    wl, wn, *wrow = check_worklist(wmin, wmax, rays8, tile)
     inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
     args = (rays8, wl, wn, scene.cl_meta, inv, scene.cl_aabb,
             scene.cl_tris, tile, eps)
     got = ci.compact_wl_intersect(*args)
     ref, _, work = plain_work(lambda: ci.compact_wl_intersect_plain(*args))
-    err = ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
+    for name, g, p in zip(("t", "tri", "obj"), got, ref):
+        assert torch.equal(g, p), f"K1: {name} differs from the plain version"
+    err = float((got[0] - ref[0]).abs().max())
+    yard = per_ray_k1(*args)
+    assert all(torch.equal(g, y) for g, y in zip(got, yard)), \
+        "K1 and the per-ray visit differ"
     hit_frac = float((ref[0] < ci.BIG).float().mean())
     k_ms = _median_ms(lambda: ci.compact_wl_intersect(*args), runs[0])
     p_ms = _median_ms(lambda: ci.compact_wl_intersect_plain(*args), runs[1])
+    y_ms = _median_ms(lambda: per_ray_k1(*args), runs[0])
     b = isect_bound(work, scene, args[:7], rays8.shape[1])
-    return err, k_ms, p_ms, hit_frac, b
+    return err, k_ms, p_ms, hit_frac, b, wrow, y_ms
+
+
+def print_k1(what, k1, card):
+    """The lines of one check_k1 result."""
+    _, wk_ms, wp_ms, wb = k1[5]
+    print(f"worklist kernel, {what}: the plain worklists, kernel "
+          f"{wk_ms:.3f} ms, plain on the card {wp_ms:.3f} ms, bound "
+          f"{wb[0]:.4f} ms ({wb[1]})", flush=True)
+    print(f"K1 {what}: bit-equal to the plain version and to the per-ray "
+          f"visit, kernel {k1[1]:.3f} ms, per-ray visit {k1[6]:.3f} ms, "
+          f"plain {k1[2]:.1f} ms, bound {k1[4][0]:.4f} ms ({k1[4][1]}); "
+          f"worklist + K1 {wk_ms + k1[1]:.3f} ms, earlier route (plain "
+          f"prepass + per-ray K1) {wp_ms + k1[6]:.3f} ms [{card}]",
+          flush=True)
 
 
 def check_k2(scene, cfg, pool, t, tri, parity, runs=(10, 3), opt=None):
@@ -409,17 +508,19 @@ def check_k2(scene, cfg, pool, t, tri, parity, runs=(10, 3), opt=None):
 
 
 def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
-    """K1 in its t_max / any-hit mode against its plain version on a
-    shadow pool: the visibility predicate t < t_max must agree on every
-    lane.  The plain version runs once, timed.  Returns (max |dt|,
-    kernel ms, plain ms, blocked fraction of the lanes with a light
-    sample, lanes with a light sample, bound)."""
+    """The worklist kernel with t_max and K1 in its t_max / any-hit mode
+    against their plain versions on a shadow pool: the same worklists,
+    and the same t (so the same visibility predicate t < t_max) on every
+    lane.  The plain K1 runs once, timed.  Returns (max |dt|, kernel ms,
+    plain ms, blocked fraction of the lanes with a light sample, lanes
+    with a light sample, bound, worklist row (ms, plain ms, bound),
+    per-ray K1 ms)."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels.shade import PARK
     from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
     rays8, r = ci.pack_rays8(origin, direction, tile, t_max=t_lim)
     wmin, wmax = scene_cluster_bounds(scene)
-    wl, wn = ci.build_chunk_worklists(wmin, wmax, rays8, tile, has_tmax=True)
+    wl, wn, *wrow = check_worklist(wmin, wmax, rays8, tile, has_tmax=True)
     inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
     args = (rays8, wl, wn, scene.cl_meta, inv, scene.cl_aabb,
             scene.cl_tris, tile, eps)
@@ -432,30 +533,26 @@ def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
     blocked_p = ref[0][:r] < t_lim
     bad = int((blocked_k != blocked_p).sum())
     assert bad == 0, f"K1 any-hit: visibility differs on {bad} lanes"
+    assert torch.equal(got[0], ref[0]), "K1 any-hit: t differs"
     err = float((got[0] - ref[0]).abs().max())
+    assert torch.equal(got[0], per_ray_k1(*args, **kw)[0]), \
+        "K1 any-hit and the per-ray visit differ"
     shadow = origin[:, 0] != PARK
     n_shadow = int(shadow.sum())
     frac = float(blocked_k[shadow].float().mean()) if n_shadow else 0.0
     k_ms = _median_ms(lambda: ci.compact_wl_intersect(*args, **kw), runs)
+    y_ms = _median_ms(lambda: per_ray_k1(*args, **kw), runs)
     b = isect_bound(work, scene, args[:7], rays8.shape[1], saved)
-    return err, k_ms, p_ms, frac, n_shadow, b
-
-
-def make_tail(npix, rows, retired, dev, seed=0):
-    """A sorted pool tail: -1 prefix, then `retired` ascending pixel ids
-    (with repeats, as several samples of one pixel retire together)."""
-    rng = np.random.default_rng(seed)
-    pix = np.sort(rng.integers(0, npix, retired)).astype(np.int32)
-    pix = np.concatenate([np.full(rows - retired, -1, np.int32), pix])
-    acc = rng.random((rows, 3), dtype=np.float32)
-    return (torch.from_numpy(pix).to(dev), torch.from_numpy(acc).to(dev))
+    return err, k_ms, p_ms, frac, n_shadow, b, wrow, y_ms
 
 
 def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3)):
     """K3 against its plain version; returns (max err, kernel ms, plain
     ms, bound, ms of ``index_add_`` of the retired rows into the same
-    accumulator)."""
+    accumulator, ``device_ms`` of K3, the same of ``index_add_``)."""
     from logipathtracer_tpu_torch.ops.kernels import flush
+    from logipathtracer_tpu_torch.tools.flush_times import (device_ms,
+                                                            make_tail)
     pix, acc = make_tail(npix, rows, retired, dev)
     base = torch.rand((npix, 3), generator=torch.Generator().manual_seed(1))
     base = base.to(dev)
@@ -464,6 +561,7 @@ def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3)):
     p = flush.flush_sorted_plain(base.clone(), pix, acc)
     torch.cuda.synchronize()
     assert torch.equal(k1, k2), "K3: repeat run not bit-identical"
+    assert torch.equal(k1, p), "K3: differs from its plain version"
     k1, p = k1.cpu().numpy(), p.cpu().numpy()
     np.testing.assert_allclose(k1, p, rtol=K3_RTOL, atol=K3_ATOL)
     err = float(np.abs(k1 - p).max())
@@ -474,9 +572,33 @@ def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3)):
     tail = slice(rows - retired, rows)
     pix_r, acc_r = pix[tail].contiguous(), acc[tail].contiguous()
     lib_ms = _median_ms(lambda: work.index_add_(0, pix_r, acc_r), runs[0])
+    k_dev = device_ms(lambda: flush.flush_sorted(work, pix, acc), DEVICE_RUNS)
+    lib_dev = device_ms(lambda: work.index_add_(0, pix_r, acc_r), DEVICE_RUNS)
     flushed = int(torch.unique(pix_r).numel())
     b = bound(3 * retired, 4 * rows + 12 * retired + 24 * flushed)
-    return err, k_ms, p_ms, b, lib_ms
+    return err, k_ms, p_ms, b, lib_ms, k_dev, lib_dev
+
+
+def beside_per_ray(host_scene, cfg, dev, sps, rad, rays, label, card):
+    """The steps of ``timed_steps`` through ``per_ray_route`` in a fresh
+    renderer of the same seed, timed the same way: its samples/s, and
+    the same mean radiance and ray count as the new route's ``rad`` /
+    ``rays``.  Returns its (samples/s, Mrays/s)."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer
+    renderer = ProgressiveRenderer(host_scene, cfg, host_seed=0, device=dev)
+    with per_ray_route():
+        sps0, mrays0, _, rad0 = timed_steps(renderer)
+    same = float((rad0 == rad).all(-1).mean())
+    print(f"{label} through the earlier route (plain prepass, per-ray "
+          f"K1): {sps0:.3f} samples/s, {mrays0:.2f} Mrays/s; the new route "
+          f"{sps:.3f} samples/s, {sps / sps0:.2f}x; mean radiance "
+          f"{float(rad0.mean()):.6f} / {float(rad.mean()):.6f}, rays "
+          f"{renderer.total_rays} / {rays}, {same:.5f} of pixels identical "
+          f"[{card}]", flush=True)
+    assert float(rad0.mean()) == float(rad.mean()), \
+        f"{label}: the routes' mean radiance differs"
+    assert renderer.total_rays == rays, f"{label}: the ray counts differ"
+    return sps0, mrays0
 
 
 def render_radiance(scene, cfg, dev, host_seed, chunks):
@@ -527,11 +649,16 @@ def nee_phase(dev, card, flagship_rate):
                    **opt)
     shadow_o, shadow_d, t_lim = out[7], out[8], out[9]
     k1 = check_k1_shadow(scene, shadow_o, shadow_d, t_lim, tile, cfg.eps)
+    _, wk_ms, wp_ms, wb = k1[6]
+    print(f"worklist kernel t_max, shadow pool: the plain worklists, "
+          f"kernel {wk_ms:.3f} ms, plain on the card {wp_ms:.3f} ms, bound "
+          f"{wb[0]:.4f} ms ({wb[1]})", flush=True)
     print(f"K1 t_max+any-hit shadow pool {t_lim.shape[0]} lanes "
-          f"({k1[4]} shadow rays, {k1[3]:.3f} blocked): same visibility "
-          f"on every lane, max|dt| {k1[0]:.3g}, kernel {k1[1]:.3f} ms, "
+          f"({k1[4]} shadow rays, {k1[3]:.3f} blocked): the plain t on "
+          f"every lane, kernel {k1[1]:.3f} ms (per-ray visit {k1[7]:.3f}), "
           f"plain {k1[2]:.1f} ms (once), bound {k1[5][0]:.4f} ms "
-          f"({k1[5][1]})", flush=True)
+          f"({k1[5][1]}); worklist + K1 {wk_ms + k1[1]:.3f} ms, earlier "
+          f"route {wp_ms + k1[7]:.3f} ms", flush=True)
     k2 = check_k2(scene, cfg, pool, t, tri, parity=True, runs=(10, 1),
                   opt=opt)
     print(f"K2 tex+nee parity {t.shape[0]} lanes: diverged {k2[0]:.5f}, "
@@ -561,7 +688,8 @@ def nee_phase(dev, card, flagship_rate):
                    runs=(3, 1))
     print(f"K2 on a {small.num_triangles}-triangle scene (tri_sel class), "
           f"{n} lanes: diverged {k2s[0]:.5f}, max|d| {k2s[1]:.3g}, kernel "
-          f"{k2s[2]:.3f} ms, plain {k2s[3]:.1f} ms (once)", flush=True)
+          f"{k2s[2]:.3f} ms, plain {k2s[3]:.1f} ms (once), bound "
+          f"{k2s[4][0]:.4f} ms ({k2s[4][1]})", flush=True)
     del probe, spool
 
     # (c) the NEE main path
@@ -609,6 +737,9 @@ def nee_phase(dev, card, flagship_rate):
           flush=True)
     print(f"NEE launches: {json.dumps(counts)} by mode "
           f"{json.dumps(modes)} in {n_it} iterations", flush=True)
+    assert counts["worklist_prepass"][0] >= 2 * n_it
+    beside_per_ray(host_scene, cfg, dev, spp / wall, rad,
+                   renderer.total_rays, "NEE+textured main path", card)
 
     # (d) card vs CPU on the NEE path
     small_cfg = RenderConfig(width=64, height=64, pool_size=4096, nee=True)
@@ -619,7 +750,9 @@ def nee_phase(dev, card, flagship_rate):
     print(f"NEE card vs CPU 64x64 2+2 spp: {close.mean():.5f} of pixels "
           f"close", flush=True)
     assert close.mean() >= IMG_FRAC, "NEE card and CPU renders disagree"
-    return {"k1": (*k1[:3], k1[5]), "k2": k2[1:], "modes": modes}
+    return {"k1": (*k1[:3], k1[5]), "k1_per_ray_ms": k1[7],
+            "worklist": k1[6], "k2": k2[1:], "modes": modes,
+            "prepass": counts["worklist_prepass"][0]}
 
 
 # Phase 7: K4, K5 and K6 are held against their plain versions on the
@@ -1023,7 +1156,7 @@ def megakernel_phase(dev, card):
     assert rad.shape == (1024, 1024, 3) and np.isfinite(rad).all()
     mean = float(rad.mean())
     assert 1e-3 < mean < 10.0, f"implausible mean radiance {mean}"
-    for k in ("compact_intersect", "shade"):
+    for k in ("compact_intersect", "worklist_prepass", "shade"):
         assert counts[k][0] > 0, f"megakernel never launched kernel {k}"
     for k in ("flush", "compact_order", "dense_sweep"):
         assert counts[k][0] == 0, f"megakernel launched kernel {k}"
@@ -1033,6 +1166,8 @@ def megakernel_phase(dev, card):
           flush=True)
     print(f"megakernel launches (5 samples): {json.dumps(counts)}",
           flush=True)
+    beside_per_ray(host, cfg, dev, sps, rad, renderer.total_rays,
+                   "megakernel main path", card)
     del renderer
 
     # (c) one step(1) at full width on each other route, (d) the BVH walk
@@ -1071,8 +1206,8 @@ def megakernel_phase(dev, card):
               f"Mrays/s, mean radiance {float(rad.mean()):.6f}", flush=True)
         del r
 
-    # (f) card vs CPU on the megakernel through K8 and through K7
-    for label, kw in (("K8", dict(intersect="sweep")),
+    # (f) card vs CPU on the megakernel through K1, K8 and K7
+    for label, kw in (("K1", {}), ("K8", dict(intersect="sweep")),
                       ("K7", dict(compact_worklist=False))):
         small = RenderConfig(width=64, height=64, renderer="megakernel", **kw)
         img_gpu, rg = render_radiance(host, small, dev, 7, (2, 2))
@@ -1143,14 +1278,10 @@ def main(argv=None) -> int:
     tile = cfg.compact_tile
     o, d, _ = primary_pool(probe)
     k1p = check_k1(scene, o, d, tile, cfg.eps)
-    print(f"K1 primary pool {o.shape[0]} rays: max|dt| {k1p[0]:.3g}, "
-          f"hit {k1p[3]:.3f}, kernel {k1p[1]:.3f} ms, plain {k1p[2]:.1f} ms, "
-          f"bound {k1p[4][0]:.4f} ms ({k1p[4][1]})", flush=True)
+    print_k1(f"primary pool {o.shape[0]} rays, hit {k1p[3]:.3f}", k1p, card)
     pool = bounce_pool(probe)
     k1b = check_k1(scene, pool["origin"], pool["direction"], tile, cfg.eps)
-    print(f"K1 bounce pool ({int(pool['alive'].sum())} alive): max|dt| "
-          f"{k1b[0]:.3g}, kernel {k1b[1]:.3f} ms, plain {k1b[2]:.1f} ms, "
-          f"bound {k1b[4][0]:.4f} ms ({k1b[4][1]})", flush=True)
+    print_k1(f"bounce pool ({int(pool['alive'].sum())} alive)", k1b, card)
     from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
     t, _, tri = intersect_scene_sweep(scene, pool["origin"],
                                       pool["direction"], eps=cfg.eps,
@@ -1164,9 +1295,14 @@ def main(argv=None) -> int:
           f"kernel {k2t[2]:.3f} ms", flush=True)
     k3 = check_k3(dev)
     print(f"K3 2^18 retired of 2^20 rows into 1024^2: max|d| {k3[0]:.3g}, "
-          f"bit-identical repeat, kernel {k3[1]:.3f} ms, plain "
-          f"{k3[2]:.3f} ms, index_add_ {k3[4]:.3f} ms, bound "
-          f"{k3[3][0]:.4f} ms ({k3[3][1]})", flush=True)
+          f"bit-identical repeat, events around one call: kernel "
+          f"{k3[1]:.4f} ms, index_add_ {k3[4]:.4f} ms; device time "
+          f"(profiler, {DEVICE_RUNS} calls): kernel {k3[5][0]:.4f} ms, "
+          f"index_add_ {k3[6][0]:.4f} ms; {DEVICE_RUNS} calls back to "
+          f"back: kernel {k3[5][1]:.4f} ms, index_add_ {k3[6][1]:.4f} ms "
+          f"per call, issued in {k3[5][2]:.1f} / {k3[6][2]:.1f} µs of host "
+          f"time each; plain {k3[2]:.3f} ms, bound {k3[3][0]:.4f} ms "
+          f"({k3[3][1]}) [{card}]", flush=True)
     del probe, pool
 
     # ---- 4. the main path ----------------------------------------------
@@ -1185,6 +1321,8 @@ def main(argv=None) -> int:
           f"mean radiance {mean:.6f} [{card}]", flush=True)
     print(f"launches: {json.dumps(counts)}", flush=True)
     flagship_rate = (sps, mrays)
+    beside_per_ray(host_scene, cfg, dev, sps, rad, renderer.total_rays,
+                   "flagship main path", card)
     del renderer
 
     # ---- 8e. beside it: the flagship wavefront through K7 ----------------
@@ -1227,8 +1365,17 @@ def main(argv=None) -> int:
         row("compact_intersect", compact_intersect.SOURCE,
             compact_intersect.REPLACES, counts["compact_intersect"][0],
             main_run, pool, *k1p[:3], k1p[4]),
+        row("compact_intersect[bounce]", compact_intersect.SOURCE,
+            compact_intersect.REPLACES, counts["compact_intersect"][0],
+            main_run, pool, *k1b[:3], k1b[4]),
         row("compact_intersect[tmax+any_hit]", compact_intersect.SOURCE,
             k1_any, nee["modes"]["any_hit"], nee_run, pool, *nee["k1"]),
+        row("compact_intersect[worklist]", compact_intersect.SOURCE,
+            compact_intersect.PREPASS_REPLACES,
+            counts["worklist_prepass"][0], main_run, pool, *k1p[5]),
+        row("compact_intersect[worklist tmax]", compact_intersect.SOURCE,
+            compact_intersect.PREPASS_REPLACES, nee["prepass"], nee_run,
+            pool, *nee["worklist"]),
         row("shade", shade.SOURCE, shade.REPLACES, counts["shade"][0],
             main_run, pool, *k2[1:]),
         row("shade[tex+nee]", shade.SOURCE, shade.REPLACES,
@@ -1236,12 +1383,19 @@ def main(argv=None) -> int:
         row("flush", flush.SOURCE, flush.REPLACES, counts["flush"][0],
             main_run, pool, *k3[:3], k3[3], k3[4]),
     ]
+    for r, per_ray_ms in zip(rows[:3], (k1p[6], k1b[6],
+                                        nee["k1_per_ray_ms"])):
+        r["per_ray_ms"] = per_ray_ms
+    rows[-1].update(device_ms=k3[5][0], library_device_ms=k3[6][0])
     # r: check_isect's (max |dt|, ms, plain ms, fraction, bound, pool)
     rows += [row(n, src, where, launched, run, r[5], *r[:3], r[4])
              for n, src, where, launched, run, r in outside + order_rows]
     # Beside the contract's keys: "run", the run whose launches are
     # counted, and "pool", the rays (lanes, rows) that max_abs_err, ms,
-    # plain_ms and the bound were measured on.
+    # plain_ms and the bound were measured on; on K1's rows
+    # "per_ray_ms", the time of per_ray_k1 on the same pool; on K3's,
+    # the device times of device_ms.  The worklist rows' plain_ms is the
+    # plain version on the card, the prepass the earlier route ran.
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 // (compact_intersect.cu), K4 (stream_cluster.cu), K5 and K6
 // (stream_chunk.cu), K7 and K8 (cluster_sweep.cu).  They compute one
 // function with different cluster visit orders; this header holds the
-// function, the one cluster-visit loop they all run (visit_clusters),
-// the per-tile cluster-list kernel that K1 and K4 instantiate
-// (cluster_list_kernel) and the per-octant order kernel of K7 and K8
-// (cluster_order_kernel).
+// function, the cluster-visit loop of K4-K8 (visit_clusters), the
+// per-tile cluster-list kernel of K4 (cluster_list_kernel), the
+// per-octant order kernel of K7 and K8 (cluster_order_kernel) and K1's
+// kernel, whose visits compact the rays that pass a cluster's slab into
+// a queue that whole warps work through (compact_list_kernel).
 //
 // Per ray and visited cluster: transform the ray into the cluster
 // object's space; slab-test the cluster AABB against the running best t
@@ -118,7 +119,7 @@ __device__ __forceinline__ void closest_in_cluster(
   }
 }
 
-// ---- staging: cp.async ring (K4, K5, K6) or gate before load (K1) -------
+// ---- staging: cp.async ring (K4, K5, K6) or gate before load (K7, K8) ---
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -140,8 +141,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // slab.  A cluster is tested when some ray of the block passes its slab
 // (the block-uniform __syncthreads_or gate).  Its [9, S] block reaches
 // shared memory in one of two ways:
-//   kStages == 0 (gate before load, K1): copied into `ring` after the
-//     gate passes, so a cluster no ray passes is never read;
+//   kStages == 0 (gate before load, K7, K8): copied into `ring` after
+//     the gate passes, so a cluster no ray passes is never read;
 //   kStages >= 2 (ring, K4-K6): copied into ring stage k % kStages with
 //     cp.async kStages - 1 trips ahead, while the block tests the
 //     clusters before it; every listed cluster is loaded, tested or not.
@@ -199,8 +200,10 @@ __device__ __forceinline__ void visit_clusters(
   if constexpr (kStages > 0) cp_async_wait<0>();
 }
 
-// Closest hit over per-tile cluster lists (K1 with kStages == 0, K4 with
-// a ring): one thread per ray, a block holds blockDim.x consecutive rays
+// Closest hit over per-tile cluster lists (K4 with a ring; with
+// kStages == 0 the per-ray visit that K1's compacted one replaced, kept
+// as chip_smoke.py's yardstick): one thread per ray, a block holds
+// blockDim.x consecutive rays
 // of one `tile`-ray tile and visits the tile's list wl[ti, :wn[ti]].
 // Best t starts at min(rays8[6], kBig) with has_tmax, else kBig; miss:
 // t = kInf, tri = obj = -1.
@@ -275,7 +278,170 @@ __global__ void cluster_order_kernel(const float* __restrict__ rays8, int R,
   obj_out[r] = bobj;
 }
 
+// ---- K1: compacted visits -------------------------------------------------
+
+// The triangle test of one queued ray by one warp.  Lane l tests slots
+// l, l + 32, ... of the staged [9, S] block (consecutive lanes read
+// consecutive words: no bank conflicts).  Closest hit: the lexicographic
+// minimum of (t, slot) over t > eps, reduced over the warp with
+// shuffles, accepted when t < best — the sequential loop's answer, since
+// a strict < against the best keeps the lowest slot of equal t.
+// Any-hit: the lowest slot with eps < t < best, found 32 slots at a time
+// by a ballot.  Returns the accepted slot (and its t), or -1; every lane
+// returns the same.
+__device__ __forceinline__ int warp_closest(const float* tri, int S,
+                                            const Ray& l, float eps,
+                                            float best, bool any_hit,
+                                            float& t_hit) {
+  const int lane = threadIdx.x & 31;
+  if (any_hit) {
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      const int s = s0 + lane;
+      bool ok = false;
+      if (s < S) {
+        const float t = mt(tri, S, s, l);
+        ok = t > eps && t < best;
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, ok);
+      if (m) return s0 + __ffs(m) - 1;
+    }
+    return -1;
+  }
+  float tm = __int_as_float(0x7f800000);  // +inf: never < best
+  int sm = 0x7fffffff;
+  for (int s = lane; s < S; s += 32) {
+    const float t = mt(tri, S, s, l);
+    if (t > eps && t < tm) {
+      tm = t;
+      sm = s;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ot = __shfl_xor_sync(0xffffffffu, tm, o);
+    const int os = __shfl_xor_sync(0xffffffffu, sm, o);
+    if (ot < tm || (ot == tm && os < sm)) {
+      tm = ot;
+      sm = os;
+    }
+  }
+  t_hit = tm;
+  return tm < best ? sm : -1;
+}
+
+// Closest hit over per-tile cluster lists with the rays that pass each
+// cluster's slab compacted into a queue (K1).  One thread per ray owns
+// its best (t, tri, obj); a block holds blockDim.x consecutive rays of
+// one `tile`-ray tile (a multiple of 32) and visits the tile's list
+// wl[ti, :wn[ti]] in order.  Per listed cluster:
+//   1. every thread transforms its ray and slab-tests the cluster AABB
+//      against its running best (as visit_clusters does);
+//   2. the passing rays enter a shared-memory queue — a warp ballot, the
+//      lane's prefix within it and the warp's offset from the per-warp
+//      counts — with their local ray and best, each owner keeping its
+//      queue position; nothing passes: next cluster, the triangles
+//      never read;
+//   3. the cluster's [9, S] block is staged; warps take queued rays in
+//      turn and run warp_closest on each;
+//   4. each owner reads its queued ray's answer and accepts it.
+// The same slab decisions, the same Moller-Trumbore arithmetic and the
+// same acceptance rule as the sequential loop: bit-identical results.
+// Any-hit parks an accepted lane's best at -kBig, which fails every
+// later slab (slab_inv's best > 0 guard), so it is never queued again.
+// Shared memory: compact_bytes(S, blockDim.x).  At most 256 threads, 64
+// registers each (four blocks an SM): ptxas would take 83 and fit three.
+__global__ void __launch_bounds__(256, 4)
+    compact_list_kernel(const float* __restrict__ rays8, int R,
+                        const int* __restrict__ wl,
+                        const int* __restrict__ wn, int C, int tile,
+                        const int* __restrict__ meta,
+                        const float* __restrict__ inv,
+                        const float* __restrict__ aabb,
+                        const float* __restrict__ tris, int S, float eps,
+                        int has_tmax, int any_hit, float* __restrict__ t_out,
+                        int* __restrict__ tri_out,
+                        int* __restrict__ obj_out) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int warp_count[2][32];  // by trip parity: see the note below
+  const int nt = blockDim.x;
+  float* staged = smem;              // [9, S]
+  float* q_ray = staged + 9 * S;     // [6, nt]: local o.xyz, d.xyz
+  float* q_best = q_ray + 6 * nt;    // [nt]
+  float* q_t = q_best + nt;          // [nt] accepted t
+  int* q_slot = reinterpret_cast<int*>(q_t + nt);  // [nt] slot or -1
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = nt >> 5;
+  const int r = blockIdx.x * nt + threadIdx.x;
+  const int ti = (blockIdx.x * nt) / tile;
+  const Ray w = load_ray(rays8, R, r);
+  float best = has_tmax ? nmin(rays8[6 * R + r], kBig) : kBig;
+  int btri = -1, bobj = -1;
+  const int* list = wl + static_cast<size_t>(ti) * C;
+  const int n = wn[ti];
+  for (int k = 0; k < n; ++k) {
+    const int c = list[k];
+    const int obj = meta[2 * c];
+    const int base = meta[2 * c + 1];
+    const Ray l = local_ray(inv + 12 * obj, w);
+    const bool hit = slab_inv(l, 1.0f / l.dx, 1.0f / l.dy, 1.0f / l.dz,
+                              aabb + 8 * c, best);
+    const unsigned mask = __ballot_sync(0xffffffffu, hit);
+    // The counts alternate between two rows: a thread that finds an
+    // empty queue goes on to the next trip and writes its count while
+    // slower threads still read this trip's.
+    int* cnt = warp_count[k & 1];
+    if (lane == 0) cnt[warp] = __popc(mask);
+    __syncthreads();
+    int offset = 0, total = 0;
+    for (int i = 0; i < nwarps; ++i) {
+      const int v = cnt[i];
+      offset += i < warp ? v : 0;
+      total += v;
+    }
+    if (total == 0) continue;  // block-uniform
+    const int pos = offset + __popc(mask & ((1u << lane) - 1u));
+    if (hit) {
+      q_ray[0 * nt + pos] = l.ox;
+      q_ray[1 * nt + pos] = l.oy;
+      q_ray[2 * nt + pos] = l.oz;
+      q_ray[3 * nt + pos] = l.dx;
+      q_ray[4 * nt + pos] = l.dy;
+      q_ray[5 * nt + pos] = l.dz;
+      q_best[pos] = best;
+    }
+    const float* src = tris + static_cast<size_t>(c) * 9 * S;
+    for (int i = threadIdx.x; i < 9 * S; i += nt) staged[i] = src[i];
+    __syncthreads();
+    for (int q = warp; q < total; q += nwarps) {
+      const Ray lq{q_ray[0 * nt + q], q_ray[1 * nt + q], q_ray[2 * nt + q],
+                   q_ray[3 * nt + q], q_ray[4 * nt + q], q_ray[5 * nt + q]};
+      float tq = 0.0f;
+      const int slot = warp_closest(staged, S, lq, eps, q_best[q],
+                                    any_hit != 0, tq);
+      if (lane == 0) {
+        q_slot[q] = slot;
+        q_t[q] = tq;
+      }
+    }
+    __syncthreads();  // answers published; the queue is rewritten next trip
+    if (hit && q_slot[pos] >= 0) {
+      best = any_hit ? -kBig : q_t[pos];
+      btri = base + q_slot[pos];
+      bobj = obj;
+    }
+  }
+  t_out[r] = btri >= 0 ? best : kInf;
+  tri_out[r] = btri;
+  obj_out[r] = bobj;
+}
+
 // ---- host side ------------------------------------------------------------
+
+// Dynamic shared memory of compact_list_kernel: the staged [9, S] block
+// and a queue of `threads` entries (6 ray floats, best, t, slot).
+inline size_t compact_bytes(int S, int threads) {
+  return sizeof(float) * (9 * static_cast<size_t>(S) +
+                          9 * static_cast<size_t>(threads));
+}
 
 // Dynamic shared memory of visit_clusters: one [9, S] block, or kStages.
 template <int kStages>
@@ -294,7 +460,8 @@ inline int prepare(Kernel kernel, size_t smem) {
 }
 
 // Launch cluster_list_kernel<kStages> on `stream`; the C entry points of
-// K1 and K4 (void* arguments, cudaGetLastError() returned).
+// K4 and of K1's per-ray yardstick (void* arguments, cudaGetLastError()
+// returned).
 template <int kStages>
 inline int launch_cluster_list(const void* rays8, int R, const void* wl,
                                const void* wn, int C, int tile,
@@ -308,6 +475,27 @@ inline int launch_cluster_list(const void* rays8, int R, const void* wl,
   if (e) return e;
   cluster_list_kernel<kStages><<<R / threads, threads, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rays8), R, static_cast<const int*>(wl),
+      static_cast<const int*>(wn), C, tile, static_cast<const int*>(meta),
+      static_cast<const float*>(inv), static_cast<const float*>(aabb),
+      static_cast<const float*>(tris), S, eps, has_tmax, any_hit,
+      static_cast<float*>(t), static_cast<int*>(tri), static_cast<int*>(obj));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch compact_list_kernel on `stream`; the C entry point of K1.
+inline int launch_compact_list(const void* rays8, int R, const void* wl,
+                               const void* wn, int C, int tile,
+                               const void* meta, const void* inv,
+                               const void* aabb, const void* tris, int S,
+                               float eps, int threads, int has_tmax,
+                               int any_hit, void* t, void* tri, void* obj,
+                               void* stream) {
+  const size_t smem = compact_bytes(S, threads);
+  const int e = prepare(compact_list_kernel, smem);
+  if (e) return e;
+  compact_list_kernel<<<R / threads, threads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rays8), R, static_cast<const int*>(wl),
       static_cast<const int*>(wn), C, tile, static_cast<const int*>(meta),
       static_cast<const float*>(inv), static_cast<const float*>(aabb),

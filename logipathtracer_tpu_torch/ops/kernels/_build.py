@@ -21,6 +21,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -44,6 +46,8 @@ BUILD_SECONDS: dict[str, float] = {}
 _LOCK = threading.Lock()
 _NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+# (source name, entry point) -> the bound C function.
+_ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -104,41 +108,43 @@ def check(code: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {code}")
 
 
+def _ctype(a, fn: str):
+    if isinstance(a, torch.Tensor) or a is None or isinstance(
+            a, ctypes.c_void_p):
+        return ctypes.c_void_p
+    if isinstance(a, (bool, int)):
+        return ctypes.c_int
+    if isinstance(a, float):
+        return ctypes.c_float
+    raise TypeError(f"{fn}: argument of type {type(a).__name__}")
+
+
 def launch(name: str, fn: str, *args):
     """Call the C entry point ``fn`` of csrc/<name>.cu: tensors pass as
     device pointers, None as a null pointer, bools and ints as ``int``,
-    floats as ``float`` and a ``c_void_p`` (the stream) as it is.  Raises
-    on a non-zero return."""
-    import torch
-    types, vals = [], []
-    for a in args:
-        if isinstance(a, torch.Tensor):
-            types.append(ctypes.c_void_p)
-            vals.append(ptr(a))
-        elif a is None or isinstance(a, ctypes.c_void_p):
-            types.append(ctypes.c_void_p)
-            vals.append(ctypes.c_void_p(None) if a is None else a)
-        elif isinstance(a, (bool, int)):
-            types.append(ctypes.c_int)
-            vals.append(int(a))
-        elif isinstance(a, float):
-            types.append(ctypes.c_float)
-            vals.append(a)
-        else:
-            raise TypeError(f"{fn}: argument of type {type(a).__name__}")
-    f = getattr(load(name), fn)
-    f.argtypes = types
-    f.restype = ctypes.c_int
-    check(f(*vals), fn)
-
-
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    floats as ``float`` and a ``c_void_p`` (the stream) as it is.  The
+    entry point's argument types are bound at its first call, from that
+    call's arguments, and kept (``_ENTRIES``): later calls pass the same
+    kinds.  Raises on a non-zero return."""
+    f = _ENTRIES.get((name, fn))
+    if f is None:
+        f = getattr(load(name), fn)
+        f.argtypes = [_ctype(a, fn) for a in args]
+        f.restype = ctypes.c_int
+        _ENTRIES[(name, fn)] = f
+    check(f(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]), fn)
 
 
 def stream_ptr(device) -> ctypes.c_void_p:
-    import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The handle of ``device``'s current CUDA stream, through torch's raw
+    accessor (as Triton's launchers read it): a fraction of a
+    microsecond, where ``torch.cuda.current_stream(device)`` builds a
+    Stream object in several."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 def require(t, name: str, dtype, shape, device):

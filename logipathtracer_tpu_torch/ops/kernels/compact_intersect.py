@@ -1,11 +1,13 @@
 """Closest-hit intersection over per-tile worklists of fired clusters
-(kernel K1, csrc/compact_intersect.cu), with its plain-torch prepass.
+(kernel K1, csrc/compact_intersect.cu), with its worklist kernel.
 
 Replaces the TPU kernel ``logipathtracer_tpu/ops/pallas/
 compact_intersect.py::cluster_intersect_compact(worklist=True)``
-(``_compact_wl_kernel`` → ``_compact_loop``).  The function is the
-same; the TPU mechanics (one-hot matmul compaction, roll-prefix ranks,
-VMEM scratch) are not carried over.
+(``_compact_wl_kernel`` → ``_compact_loop``) and its XLA prepass
+(``build_chunk_worklists``).  The function is the same; the TPU
+mechanics (one-hot matmuls, roll-prefix ranks, VMEM scratch) are not
+carried over, but the TPU kernel's design is: the rays that pass a
+cluster's slab are compacted before the triangle tests.
 
 Contract, per ray: visit the ray tile's fired clusters in worklist
 order; transform the ray into the cluster object's space; slab-test the
@@ -24,19 +26,24 @@ lane's first accepted hit blocks it for good: its best t is parked at
 mode tri/obj are not closest-hit values; only the visibility predicate
 t < t_max is part of the contract.
 
-On the card: one thread per ray, a block of 256 rays inside one
-worklist tile; the block stages each fired cluster's 9 x S triangle
-floats (9 KB at S = 256) in shared memory, but only when some ray of
-the block passes that cluster's slab.  Bound: operations — ~30 flops
-per (ray, triangle) Möller–Trumbore test, one divide each; the
-triangle reads are shared-memory broadcasts.  The simple design does
-nothing about divergence between rays of a warp that pass different
-clusters.
+On the card: a block of 256 rays inside one worklist tile, each thread
+owning one ray's best hit.  Per listed cluster, the rays that pass its
+slab enter a shared-memory queue (warp ballot and prefix); the block
+stages the cluster's 9 x S triangle floats only when the queue is not
+empty, and whole warps test one queued ray each, 32 slots at a time,
+reducing to the lowest (t, slot).  Bound: operations — ~52 per (ray,
+triangle) Möller–Trumbore test, one divide each.  The queue keeps the
+triangle tests to the rays that pass, wherever they sit in a warp.
 
-The worklist prepass (``chunk_world_bounds``, ``build_chunk_worklists``,
-``_order_fired``) and the ``pack_rays8`` ray pack stay plain torch: they
-were XLA code in the JAX package.  ``PlainSweep`` is the per-ray core
-in plain torch, shared by the plain versions of K1 and K4-K8.
+The worklists (``build_chunk_worklists``) come from a kernel of the
+same source on the card, one block per tile: the world slab of every
+ray against every box, ORed over the tile, then the fired boxes ranked
+by the tile's mean direction — a fixed pairwise tree, written out the
+same way in ``build_chunk_worklists_plain`` so that the two agree bit
+for bit.  It counts its launches in ``prepass_launches`` /
+``prepass_plain_calls``.  ``chunk_world_bounds`` and the ``pack_rays8``
+ray pack stay plain torch.  ``PlainSweep`` is the per-ray core in plain
+torch, shared by the plain versions of K1 and K4-K8.
 
 Kernel K5 sits beside K1, as in the JAX package: ``worklist_chunk_
 intersect`` (csrc/stream_chunk.cu) replaces ``compact_intersect.py::
@@ -72,6 +79,14 @@ mode_launches = collections.Counter()
 
 SOURCE = "logipathtracer_tpu_torch/csrc/compact_intersect.cu"
 REPLACES = "logipathtracer_tpu/ops/pallas/compact_intersect.py:801"
+
+# The worklist kernel (same source): its counts.
+prepass_launches = 0
+prepass_plain_calls = 0
+PREPASS_REPLACES = "logipathtracer_tpu/ops/pallas/compact_intersect.py:587"
+# Boxes the worklist kernel takes: a 4-byte key and a bit each in shared
+# memory.
+MAX_BOXES = 8192
 
 # Kernel K5 (the chunk worklist sweep of streamed scenes), beside K1 as
 # in the JAX package: its own counts.
@@ -140,14 +155,50 @@ def _slab_ok(t0, t1, best):
                          | ((t0 <= 0.0) & (t1 > 0.0)))
 
 
+def build_chunk_worklists_plain(chunk_min, chunk_max, rays8, tile: int,
+                                has_tmax: bool = False):
+    """Plain PyTorch version of the worklist kernel."""
+    global prepass_plain_calls
+    prepass_plain_calls += 1
+    fired = fired_chunks(chunk_min, chunk_max, rays8, tile, has_tmax)
+    return _order_fired(fired, chunk_min, chunk_max, rays8, tile)
+
+
 def build_chunk_worklists(chunk_min, chunk_max, rays8, tile: int,
                           has_tmax: bool = False):
     """Per-tile fired-chunk lists (compact_intersect.py:587-643): slab
-    every ray against every world AABB (bounded by min(t_max, BIG) with
-    ``has_tmax``), any-reduce per ray tile, order front to back.
-    Returns (wl [tiles, NC] i32, wn [tiles] i32)."""
-    fired = fired_chunks(chunk_min, chunk_max, rays8, tile, has_tmax)
-    return _order_fired(fired, chunk_min, chunk_max, rays8, tile)
+    every ray of rays8 [8, R] against every world AABB chunk_min /
+    chunk_max [NC, 3] (bounded by min(t_max, BIG) with ``has_tmax``),
+    any-reduce per ``tile``-ray tile, order the fired boxes front to
+    back.  Returns (wl [tiles, NC] i32, wn [tiles] i32).  A CPU tensor
+    takes the plain version, a CUDA tensor the worklist kernel (R a
+    multiple of ``tile``, 32 <= tile <= 8192, NC <= MAX_BOXES)."""
+    global prepass_launches
+    dev = rays8.device
+    if dev.type == "cpu":
+        return build_chunk_worklists_plain(chunk_min, chunk_max, rays8,
+                                           tile, has_tmax)
+    if dev.type != "cuda":
+        raise ValueError(f"build_chunk_worklists: unsupported device {dev}")
+    r = rays8.shape[1]
+    nc = chunk_min.shape[0]
+    if r % tile or not 32 <= tile <= 8192:
+        raise ValueError(f"build_chunk_worklists: R={r} must be a multiple "
+                         f"of tile={tile}, itself within [32, 8192]")
+    if nc > MAX_BOXES:
+        raise ValueError(f"build_chunk_worklists: {nc} boxes, the kernel "
+                         f"takes at most {MAX_BOXES}")
+    _build.require(rays8, "rays8", torch.float32, (8, r), dev)
+    _build.require(chunk_min, "chunk_min", torch.float32, (nc, 3), dev)
+    _build.require(chunk_max, "chunk_max", torch.float32, (nc, 3), dev)
+    wl = torch.empty((r // tile, nc), dtype=torch.int32, device=dev)
+    wn = torch.empty(r // tile, dtype=torch.int32, device=dev)
+    if r:
+        _build.launch("compact_intersect", "lpt_build_worklists", chunk_min,
+                      chunk_max, nc, rays8, r, tile, bool(has_tmax), wl, wn,
+                      _build.stream_ptr(dev))
+        prepass_launches += 1
+    return wl, wn
 
 
 def fired_chunks(chunk_min, chunk_max, rays8, tile: int,
@@ -184,12 +235,27 @@ def fired_chunks(chunk_min, chunk_max, rays8, tile: int,
     return torch.cat(fired, 0)
 
 
-def _order_fired(fired, chunk_min, chunk_max, rays8, tile: int):
-    """Fired clusters first, ordered by the tile's mean direction dotted
-    with the cluster centroid (stable argsort, as the JAX prepass)."""
+def tile_mean_dir(rays8, tile: int):
+    """[3, tiles]: each tile's mean direction, summed by a fixed
+    pairwise tree — adjacent pairs, the tile padded with -0.0 (which
+    adds nothing) to a power of two — then divided by the tile.  The
+    worklist kernel sums in this order; ``.mean`` sums in its own."""
     tiles = rays8.shape[1] // tile
+    d = rays8[3:6].reshape(3, tiles, tile)
+    p = 1 << (tile - 1).bit_length()
+    if p > tile:
+        d = torch.cat([d, d.new_full((3, tiles, p - tile), -0.0)], dim=2)
+    while d.shape[2] > 1:
+        d = d[:, :, 0::2] + d[:, :, 1::2]
+    return d[:, :, 0] / tile
+
+
+def _order_fired(fired, chunk_min, chunk_max, rays8, tile: int):
+    """Fired clusters first, ordered by the tile's mean direction
+    (``tile_mean_dir``) dotted with the cluster centroid (stable
+    argsort, as the JAX prepass)."""
     centroid = 0.5 * (chunk_min + chunk_max)                 # [NC, 3]
-    md = rays8[3:6].reshape(3, tiles, tile).mean(dim=2)      # [3, T]
+    md = tile_mean_dir(rays8, tile)                          # [3, T]
     key = (md[0][:, None] * centroid[:, 0][None]
            + md[1][:, None] * centroid[:, 1][None]
            + md[2][:, None] * centroid[:, 2][None])          # [T, NC]
@@ -391,7 +457,7 @@ def compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
     cl_inv [O, 12] f32, cl_aabb [C, 8] f32, cl_tris [C, 9, S] f32.
     ``has_tmax``/``any_hit``: the shadow-query modes (module docstring).
     Returns (t [R] f32, tri [R] i32, obj [R] i32).  A CPU tensor takes
-    the plain version, a CUDA tensor the kernel."""
+    the plain version, a CUDA tensor the kernel (compacted visits)."""
     global launches
     dev = rays8.device
     if dev.type == "cpu":

@@ -8,14 +8,18 @@ to skip (the wavefront sorts retired lanes to the pool tail keyed by
 pixel id), and every retired row's radiance is added into
 ``accum[pix]``.
 
-On the card: one thread per row; the thread at the start of each run of
-equal pixel ids adds the run's rows in order into its pixel.  No
-atomics, so a repeat run is bit-identical (checkpoint/restore stays
-exact), and the sum order is the one of the JAX package's scatter
-twin (``wavefront.py:302-305``): accum + a0 + a1 + ...
-Bound: bytes — 16 B per pool row read plus 24 B per flushed pixel;
-a 2^20-row pool is ~17 MB, a few microseconds of HBM bandwidth.  The
-design spends no effort on that; the launch costs more than the bytes.
+On the card: the thread at the start of each run of equal pixel ids
+adds the run's rows in order into its pixel; each thread takes four
+rows a grid's width apart and issues all its loads before it adds
+(csrc/flush.cu), so the -1 prefix costs its pixel ids and no threads
+of its own.  No atomics, so a repeat run is bit-identical
+(checkpoint/restore stays exact), and the sum order is the one of the
+JAX package's scatter twin (``wavefront.py:302-305``): accum + a0 +
+a1 + ...  Bound: bytes — 4 B of pixel id per row, 12 B of radiance per
+retired row, 24 B per flushed pixel; ~13 MB for 2^18 retired of 2^20
+rows, a few microseconds of HBM bandwidth.  The wrapper's host time
+(checks, the C call bound once by ``_build.launch``) is of the same
+order.
 
 ``accum`` is updated in place (the JAX version donates its buffer).
 """

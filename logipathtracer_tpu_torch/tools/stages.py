@@ -31,8 +31,9 @@ part:
             (camera rays; then the first bounces, sorted first, and new
             camera rays in the freed lanes), the frustum prepass of the
             streamed path (stream_cluster.build_cluster_worklists)
-            against K1's per-ray prepass (compact_intersect.
-            build_chunk_worklists) over the same per-cluster boxes:
+            against K1's per-ray worklists (compact_intersect.
+            build_chunk_worklists: the worklist kernel on the card) over
+            the same per-cluster boxes:
             median ms of 10 and the mean clusters fired per tile that
             holds a live ray.
 
@@ -76,7 +77,7 @@ STAGES = (
     (wavefront._Body, "_regen", lambda kw: "regen"),
     (ci, "pack_rays8", lambda kw: "ray pack"),
     (ci, "build_chunk_worklists",
-     lambda kw: "per-ray chunk prepass" + _shadow(kw)),
+     lambda kw: "K1 worklist" + _shadow(kw)),
     (k4, "build_cluster_worklists",
      lambda kw: "frustum prepass" + _shadow(kw)),
     (ci, "compact_wl_intersect", lambda kw: "K1 kernel" + _shadow(kw)),

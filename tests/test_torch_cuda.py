@@ -1,7 +1,8 @@
-"""Kernels K1-K8 against their plain versions on the card, at small
-shapes, in every mode (the intersect kernels' t_max / any-hit shadow
-queries, K6's cap 0 and cap > 0 bodies, K8's sub-tile body, K2 with
-textures and NEE), and the render on the card against the CPU, the
+"""Kernels K1-K8 and K1's worklist kernel against their plain versions
+on the card, at small shapes, in every mode (the intersect kernels'
+t_max / any-hit shadow queries, K1 bit for bit and on crafted ties,
+K3's edges, K6's cap 0 and cap > 0 bodies, K8's sub-tile body, K2
+with textures and NEE), and the render on the card against the CPU, the
 wavefront and the megakernel on each route.  Marked ``cuda``: they need
 an NVIDIA card with nvcc and skip elsewhere.  On the card (which has no JAX, imported by the suite's
 conftest):
@@ -60,6 +61,119 @@ def test_k1_matches_plain(scene, dev):
     assert ci.launches == n0 + 1
     ref = ci.compact_wl_intersect_plain(*args)
     ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
+
+
+@pytest.mark.parametrize("has_tmax", [False, True])
+@pytest.mark.parametrize("tile", [384, 1024, 4096])
+def test_worklist_kernel_matches_plain(scene, dev, tile, has_tmax):
+    """The worklist kernel against its plain version: wn and the whole
+    of wl equal, on random, axis-aligned and parked rays (a tile of 384
+    pads the mean's tree to 512)."""
+    o, d = _rays(16384, dev, seed=11)
+    t_max = torch.from_numpy(np.random.default_rng(12).uniform(
+        0.05, 4.0, 16384).astype(np.float32)).to(dev)
+    rays8, _ = ci.pack_rays8(o, d, tile, t_max=t_max if has_tmax else None)
+    bounds = scene_cluster_bounds(scene)
+    n0 = ci.prepass_launches
+    wl, wn = ci.build_chunk_worklists(*bounds, rays8, tile, has_tmax=has_tmax)
+    assert ci.prepass_launches == n0 + 1
+    wlp, wnp = ci.build_chunk_worklists_plain(*bounds, rays8, tile,
+                                              has_tmax=has_tmax)
+    assert torch.equal(wn, wnp) and torch.equal(wl, wlp)
+    assert int(wn.max()) > 0 and int(wn.min()) == 0
+
+
+def test_worklist_kernel_chunks_match_plain(outside, dev):
+    """K5's chunk worklists (padded chunk slots never fire)."""
+    from logipathtracer_tpu_torch.ops.traverse import scene_chunk_bounds
+    o, d, t_max = _outside_rays(8192, dev)
+    bounds = scene_chunk_bounds(outside, 16)
+    for tm in (None, t_max):
+        rays8, _ = ci.pack_rays8(o, d, 1024, t_max=tm)
+        kw = dict(has_tmax=tm is not None)
+        wl, wn = ci.build_chunk_worklists(*bounds, rays8, 1024, **kw)
+        wlp, wnp = ci.build_chunk_worklists_plain(*bounds, rays8, 1024, **kw)
+        assert torch.equal(wn, wnp) and torch.equal(wl, wlp)
+        assert int(wn.max()) > 0
+
+
+@pytest.mark.parametrize("mode", ["closest", "tmax", "any_hit"])
+def test_k1_bit_equal_to_plain(scene, dev, mode):
+    """The compacted K1 equals its plain version bit for bit: t, tri
+    and obj in closest-hit and t_max mode; t (so the visibility t <
+    t_max) on every lane in any-hit mode, where tri is not part of the
+    contract."""
+    o, d = _rays(8192, dev, seed=13)
+    t_max = torch.from_numpy(np.random.default_rng(14).uniform(
+        0.05, 4.0, 8192).astype(np.float32)).to(dev)
+    tile, has_tmax = 4096, mode != "closest"
+    rays8, _ = ci.pack_rays8(o, d, tile, t_max=t_max if has_tmax else None)
+    wl, wn = ci.build_chunk_worklists(*scene_cluster_bounds(scene), rays8,
+                                      tile, has_tmax=has_tmax)
+    inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
+    args = (rays8, wl, wn, scene.cl_meta, inv, scene.cl_aabb, scene.cl_tris,
+            tile, 1e-4)
+    kw = dict(has_tmax=has_tmax, any_hit=mode == "any_hit")
+    got = ci.compact_wl_intersect(*args, **kw)
+    ref = ci.compact_wl_intersect_plain(*args, **kw)
+    assert torch.equal(got[0], ref[0])
+    if mode != "any_hit":
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    hit = got[0] < (t_max if has_tmax else ci.BIG)
+    assert 0 < int(hit.sum()) < 8192
+
+
+def _tie_tables(dev, two_clusters: bool, s: int = 128):
+    """One triangle (the z = 2 patch x + y < 0) in slots 5, 9 and 37 of
+    cluster 0 (37 shares lane 5 of the 32-slot stride) and, with
+    ``two_clusters``, in slot 2 of cluster 1, whose box lies nearer
+    along +z; every other slot holds a triangle far off.  One object,
+    identity transforms (tests/test_torch_worklist.py holds the same
+    case against the JAX package)."""
+    tris = np.zeros((2, 9, s), np.float32)
+    tris[:, 0:3] = 50.0
+    tris[:, 3] = tris[:, 7] = 1.0
+    t_tri = np.array([-1, -1, 2, 2, 0, 0, 0, 2, 0], np.float32)
+    for slot in (5, 9, 37):
+        tris[0, :, slot] = t_tri
+    if two_clusters:
+        tris[1, :, 2] = t_tri
+    g = lambda a: torch.from_numpy(a).to(dev)
+    meta = g(np.array([[0, 0], [0, s]], np.int32))
+    aabb = g(np.array([[-1, -1, 1.9, 1, 1, 2.1, 0, 0],
+                       [-1, -1, 1.8, 1, 1, 2.05, 0, 0]], np.float32))
+    inv = g(np.array([[1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0]], np.float32))
+    bounds = ci.chunk_world_bounds(meta, aabb, torch.eye(4, device=dev)[None],
+                                   2, 2, 1)
+    return bounds, (meta, inv, aabb, g(tris))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("two_clusters", [False, True])
+def test_k1_ties_on_card(dev, two_clusters, any_hit):
+    """Equal t in several slots and two clusters: the lowest slot of the
+    earlier-visited cluster, as the plain version."""
+    bounds, tables = _tie_tables(dev, two_clusters)
+    r = np.random.default_rng(9)
+    o = np.zeros((256, 3), np.float32)
+    o[:, :2] = r.uniform(-0.8, -0.1, (256, 2))
+    o = torch.from_numpy(o).to(dev)
+    d = torch.zeros_like(o)
+    d[:, 2] = 1.0
+    rays8, _ = ci.pack_rays8(o, d, 128, t_max=torch.full((256,), 3.0,
+                                                           device=dev))
+    wl, wn = ci.build_chunk_worklists(*bounds, rays8, 128, has_tmax=True)
+    assert wl[:, 0].tolist() == [1, 1] and wn.tolist() == [2, 2]
+    args = (rays8, wl, wn, *tables, 128, 1e-4)
+    kw = dict(has_tmax=True, any_hit=any_hit)
+    got = ci.compact_wl_intersect(*args, **kw)
+    ref = ci.compact_wl_intersect_plain(*args, **kw)
+    assert torch.equal(got[0], ref[0])
+    if any_hit:
+        assert (got[0] == -ci.BIG).all()
+    else:
+        assert torch.equal(got[1], ref[1])
+        assert (got[1] == (130 if two_clusters else 5)).all()
 
 
 def test_k1_any_hit_matches_plain(scene, dev):
@@ -166,11 +280,43 @@ def test_k3_matches_plain_and_repeats_exactly(dev):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("case", ["unaligned", "ragged", "all_skipped",
+                                  "one_run"])
+def test_k3_edges_match_plain(dev, case):
+    """K3 at its edges: pixel ids not 16-byte aligned, a row count not a
+    multiple of 4 (a thread's last row past the end), nothing to flush,
+    one run across many blocks and across the grid's stride.
+    Bit-identical to the plain version, which adds each pixel's rows in
+    the same order, and to a repeat."""
+    r = np.random.default_rng(15)
+    npix, rows, retired = 4096, 8191, 3000
+    if case == "all_skipped":
+        retired = 0
+    ids = np.sort(r.integers(0, npix, retired)).astype(np.int32)
+    if case == "one_run":
+        ids[:] = 17
+    pix = np.concatenate([np.full(rows + 1 - retired, -1, np.int32), ids])
+    pix = torch.from_numpy(pix).to(dev)
+    pix = pix[1:] if case == "unaligned" else pix[:rows]
+    assert (pix.data_ptr() % 16 != 0) == (case == "unaligned")
+    acc = torch.from_numpy(r.random((rows, 3)).astype(np.float32)).to(dev)
+    base = torch.from_numpy(r.random((npix, 3)).astype(np.float32)).to(dev)
+    a = flush.flush_sorted(base.clone(), pix, acc)
+    b = flush.flush_sorted(base.clone(), pix, acc)
+    p = flush.flush_sorted_plain(base.clone(), pix, acc)
+    assert torch.equal(a, b) and torch.equal(a, p)
+    assert torch.equal(a, base) == (case == "all_skipped")
+
+
 def test_wrappers_check_inputs(scene, dev):
     with pytest.raises(ValueError, match="dtype"):
         flush.flush_sorted(torch.zeros((8, 3), device=dev),
                            torch.zeros(4, dtype=torch.int64, device=dev),
                            torch.zeros((4, 3), device=dev))
+    boxes = torch.zeros((ci.MAX_BOXES + 1, 3), device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        ci.build_chunk_worklists(boxes, boxes,
+                                 torch.zeros((8, 1024), device=dev), 1024)
 
 
 @pytest.mark.parametrize("knob", [

@@ -70,3 +70,15 @@ def test_flush_rejects_other_devices():
         tflush.flush_sorted(torch.zeros((4, 3), device="meta"),
                             torch.zeros(2, dtype=torch.int32, device="meta"),
                             torch.zeros((2, 3), device="meta"))
+
+
+def test_flush_times_inputs_and_no_card(monkeypatch):
+    """tools/flush_times.py: its K3 tail is a -1 prefix then ascending
+    pixel ids, and it refuses to run without a card."""
+    from logipathtracer_tpu_torch.tools import flush_times
+    pix, acc = flush_times.make_tail(64, 256, 200, "cpu")
+    assert (pix[:56] == -1).all() and (pix[56:] >= 0).all()
+    assert (pix[56:].diff() >= 0).all() and acc.shape == (256, 3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        flush_times.main([])

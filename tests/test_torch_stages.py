@@ -30,7 +30,7 @@ CASES = {
                 ("frustum prepass", "K4 kernel") + WAVEFRONT),
     "box": (lambda: make_box_scene(spheres=1, subdiv=2),
             dict(compact_tile=256),
-            ("per-ray chunk prepass", "K1 kernel") + WAVEFRONT),
+            ("K1 worklist", "K1 kernel") + WAVEFRONT),
     "megakernel-k7": (lambda: make_box_scene(spheres=1, subdiv=2),
                       dict(renderer="megakernel", compact_tile=256,
                            compact_worklist=False),
