@@ -11,18 +11,15 @@ the root of a checkout it:
   3. holds each kernel against its plain PyTorch version on the card at
      the main path's shapes (K1's worklist kernel and K1 on the
      2^20-ray primary pool and on a bounce pool of the render — the
-     worklists equal, K1 bit-equal, each timed apart and beside the
-     route K1 took before its redesign: the plain worklist prepass on
-     the card and the one-thread-per-ray visit, ``per_ray_k1``; K2 on
-     that 2^20-lane pool; K3 on a 2^18-row sorted retired tail into a
-     1024^2 accumulator, with ``index_add_``, each by event time and by
-     device time), with median times of both;
+     worklists equal, K1 bit-equal, each timed apart, the worklist
+     kernel beside its plain version on the card; K2 on that 2^20-lane
+     pool; K3 on a 2^18-row sorted retired tail into a 1024^2
+     accumulator, with ``index_add_``, each by event time and by device
+     time), with median times of both;
   4. drives the flagship main path — ProgressiveRenderer at 1024x1024,
      max_depth 10, Heitz, parity RNG, 2^20-lane wavefront pool — and
      checks that it ran through all four kernels (K1's worklist kernel,
-     K1, K2, K3) and never through a plain version; then the same steps
-     through the earlier route (``per_ray_route``), timed the same way,
-     with the same mean radiance and ray count;
+     K1, K2, K3) and never through a plain version;
   5. renders 64x64 at 2+2 spp on the card and on the CPU with the same
      seed and requires >= 99.5% of pixels to agree (rtol 1e-4,
      atol 1e-6);
@@ -36,23 +33,31 @@ the root of a checkout it:
      and K2 on a scene small enough for the TPU kernel's tri_sel form;
      (c) the NEE main path at 1024x1024, timed as in 4, which must run
      the worklist kernel and K1 at least twice per iteration, K2 and K3,
-     and no plain version, and beside it the earlier route;
+     and no plain version;
      (d) the 64x64 card-vs-CPU render of 5 on this path;
   7. the outside-class path, scenes beyond the resident budget that
      stream cluster blocks: ``make_outside_scene()`` (394,242 triangles,
      51 objects, 1,233 clusters of 512) with the default RenderConfig,
      which routes it to K4 — (a) K4, K5 and K6 (cap 0 and cap > 0
      bodies) against their plain versions on the whole 2^20-ray primary
-     pool; K4 on a bounce pool and in its t_max / any-hit mode on the
-     shadow pool of one NEE step (the same visibility on every lane), on
-     as many tiles of those pools as the plain version covers in about
-     15 s (BOUNCE_TILES, SHADOW_TILES), and timed on the whole pool
-     too; (b) the main path at 1024x1024, timed as in 4, which must run
-     K4, K2 and K3, never K1 and no plain version; (c) one 1024x1024
-     step(1) on each other route (``stream_granularity="chunk"``: K5;
-     ``stream_worklist=False``: K6 cap > 0; ``stream_compact=False``:
-     K6 cap 0; ``nee=True``: K4 any-hit), each launching its kernel;
-     (d) the 64x64 card-vs-CPU render of 5 on this path;
+     pool; K4 and K5 on a bounce pool, and K4 in its t_max / any-hit
+     mode on the shadow pool of one NEE step, on as many tiles of those
+     pools as the plain version covers in about 15 s (BOUNCE_TILES,
+     SHADOW_TILES), and timed on the whole pool too.  K4 and K5 (the
+     compacted visit) must equal their plain versions bit for bit (t,
+     tri and obj; t alone in any-hit), K6 agree under hits_agree.  The
+     count pass of each check prints what the compacted visit rests on:
+     the mean worklist length, the share of listed clusters that some
+     ray of a 256-ray block passes, and the cluster blocks staged per
+     launch by the one-thread-per-ray ring (every listed cluster, per
+     256-ray block) and by the kernel (what its blocks pass, or may
+     pass ahead with the prefetch); (b) the main path at 1024x1024,
+     timed as in 4, which must run K4, K2 and K3, never K1 and no plain
+     version; (c) one 1024x1024 step(1) on each other route
+     (``stream_granularity="chunk"``: K5; ``stream_worklist=False``: K6
+     cap > 0; ``stream_compact=False``: K6 cap 0), each launching its
+     kernel, and the NEE route (``nee=True``: K4 any-hit) timed as in
+     4; (d) the 64x64 card-vs-CPU render of 5 on this path;
   8. the lockstep megakernel renderer (``renderer="megakernel"``) on the
      flagship box — (a) K7 (``compact_worklist=False``) and K8
      (``intersect="sweep"``) against their plain versions on the
@@ -62,8 +67,8 @@ the root of a checkout it:
      mode on that bounce's NEE shadow pool (and K7's plain version
      once more before and after its check, without the count pass, to
      show what that pass costs); (b) the megakernel main path
-     at 1024x1024 through the worklist kernel, K1 and K2, timed as in 4,
-     and beside it the earlier route; (c) one 1024x1024
+     at 1024x1024 through the worklist kernel, K1 and K2, timed as in 4;
+     (c) one 1024x1024
      step(1) on each other route (K7, K7 any-hit with NEE, K8, K8 t_max
      with NEE), each launching its kernel; (d) the BVH walk at 512x512,
      one step(1); (e) beside phase 4, in the same call: the flagship
@@ -118,10 +123,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
 
-# Tolerances.  K1, K2 and K4-K6 use the rules kept beside their kernels
-# (compact_intersect.hits_agree: t within rtol 2e-6 / atol 1e-6, tri/obj
-# differing only on t ties; shade.shade_agreement: at most 0.5% of lanes
-# with another seed or alive flag, floats close on the rest).
+from logipathtracer_tpu_torch.tools.harness import (  # noqa: E402
+    bounce_pool, device_ms, event_ms, make_tail, primary_pool, runner,
+    scene_tables, shadow_pool, timed_steps)
+
+# Tolerances.  K1, K4 and K5 (the compacted visit) must equal their
+# plain versions bit for bit; K2 and K6-K8 use the rules kept beside
+# their kernels (compact_intersect.hits_agree: t within rtol 2e-6 / atol
+# 1e-6, tri/obj differing only on t ties; shade.shade_agreement: at most
+# 0.5% of lanes with another seed or alive flag, floats close on the
+# rest).
 K3_RTOL, K3_ATOL = 1e-6, 1e-6           # f32 reassociation
 
 # Bounds (module docstring).  Operation counts, a divide or a compare
@@ -156,19 +167,6 @@ def load_scene(path, **box):
     return compile_scene(g)
 
 
-def _median_ms(fn, runs: int) -> float:
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 def _time_once(fn):
     """(result, ms) of one call, timed with CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -194,16 +192,25 @@ def bound(ops: float, n_bytes: float):
 
 
 @contextlib.contextmanager
-def counted():
+def counted(block=256, prefetch=False, chunk=16):
     """The count pass: the plain intersect versions run in the block with
     every cluster visit's lanes observed (``PlainSweep.lanes``).  The
     dict it yields holds, after the block, "slab": the slab tests made
     (each visit's lanes, within its gate), and "own": the lanes whose own
-    slab test passed.  The sums stay on the device until the block ends:
-    no host read per visit."""
+    slab test passed; and, per visit of a cluster by a tile, "listed":
+    the 256-ray blocks that visit it (within the gate), "passed": those
+    with some own pass, and "staged": the ``block``-ray blocks whose
+    compacted visit stages the cluster (closest_hit.cuh compact_visit) —
+    some own pass, or with ``prefetch`` some pass ahead: the slab against
+    the best before the previous cluster of the same visit (the first
+    cluster of a tile, or of a ``chunk``-cluster chunk behind a gate, is
+    staged on an own pass).  The sums stay on the device until the block
+    ends: no host read per visit."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     plain = ci.PlainSweep
     slab, gated, own = [0], [], []
+    listed, passed, staged = [], [], []
+    last = {}
 
     class Counting(plain):
         def lanes(self, sl, c, gate=None):
@@ -213,6 +220,19 @@ def counted():
             else:
                 gated.append(gate.sum())
             own.append(hit.sum())
+            if not isinstance(sl, slice) or hit.numel() % max(block, 256):
+                return lo, ld, hit          # not a tile of K1, K4 or K5
+            g = torch.ones_like(hit) if gate is None else gate
+            listed.append(g.reshape(-1, 256).any(dim=1).sum())
+            passed.append(hit.reshape(-1, 256).any(dim=1).sum())
+            key = (id(self), sl.start)
+            ahead = hit
+            if prefetch and last.get("key") == key and not (
+                    gate is not None and c % chunk == 0):
+                ahead = ci._slab_table(lo, [1.0 / x for x in ld],
+                                       self.aabb[c], last["best"]) & g
+            staged.append(ahead.reshape(-1, block).any(dim=1).sum())
+            last.update(key=key, best=self.best_t[sl].clone())
             return lo, ld, hit
 
     work = {}
@@ -221,23 +241,19 @@ def counted():
         yield work
     finally:
         ci.PlainSweep = plain
-    work["slab"] = slab[0] + (int(torch.stack(gated).sum()) if gated else 0)
-    work["own"] = int(torch.stack(own).sum()) if own else 0
+    total = lambda xs: int(torch.stack(xs).sum()) if xs else 0
+    work["slab"] = slab[0] + total(gated)
+    work["own"] = total(own)
+    work.update(listed=total(listed), passed=total(passed),
+                staged=total(staged))
 
 
-def plain_work(plain):
+def plain_work(plain, **staging):
     """(result, ms, work) of one plain intersect call, timed, with its
-    count pass."""
-    with counted() as work:
+    count pass (``staging``: ``counted``'s block and prefetch)."""
+    with counted(**staging) as work:
         out, ms = _time_once(plain)
     return out, ms, work
-
-
-def scene_tables(scene):
-    """(cl_meta, cl_inv, cl_aabb, cl_tris): the intersect kernels' scene
-    inputs, cl_inv the objects' 3x4 inverse rows."""
-    inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
-    return scene.cl_meta, inv, scene.cl_aabb, scene.cl_tris
 
 
 def any_hit_saved(rays8, tri, obj, tables, eps):
@@ -341,80 +357,6 @@ def assert_no_plain():
     assert not plain, f"main path ran plain versions: {plain}"
 
 
-def primary_pool(renderer, seed_xy=(48271, 16807)):
-    """The main path's first pool: every pixel's sample-0 camera ray in
-    the block-major order regen injects them."""
-    from logipathtracer_tpu_torch.ops.camera import generate_ray
-    from logipathtracer_tpu_torch.ops.rng import get_rand, seed_from_pixel
-    from logipathtracer_tpu_torch.render.wavefront import (_pix_coords,
-                                                           pix_layout)
-    cfg, dev = renderer.config, renderer.device
-    h, w = cfg.render_height, cfg.render_width
-    blocked, bh, bw = pix_layout(cfg, renderer.scene, h, w)
-    pixi = torch.arange(min(cfg.pool_size, h * w), device=dev)
-    px, py = _pix_coords(pixi, blocked, bh, bw, w, 0)
-    pxy = torch.stack([px, py], -1)
-    seed = seed_from_pixel(torch.tensor(seed_xy, device=dev), pxy,
-                           parity=cfg.parity_rng)
-    cam = torch.from_numpy(renderer.camera_world).to(dev)
-    return generate_ray(cam, renderer.fov_y, pxy, (w, h), seed,
-                        rand=get_rand(cfg.parity_rng))
-
-
-def bounce_pool(renderer):
-    """A mid-render pool: the flagship's state after one step, alive
-    lanes sorted first by coherence key, dead lanes parked — what the
-    next iteration's intersect sees."""
-    from logipathtracer_tpu_torch.render.megakernel import ray_sort_key
-    renderer.step(1)
-    st = renderer._wf_state
-    key = torch.where(st["alive"],
-                      ray_sort_key(renderer.scene, st["origin"],
-                                   st["direction"]), 1 << 18)
-    _, perm = torch.sort(key, stable=True)
-    pool = {k: st[k][perm].clone() for k in
-            ("origin", "direction", "mask", "acc", "seed", "alive",
-             "bounce", "prev_pdf")}
-    dead = ~pool["alive"]
-    pool["origin"][dead] = 1e30
-    pool["direction"][dead] = 1.0
-    return pool
-
-
-def per_ray_k1(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris, tile, eps,
-               has_tmax=False, any_hit=False):
-    """K1's function through the one-thread-per-ray visit that its
-    compacted visit replaced (csrc/compact_intersect.cu
-    ``lpt_compact_wl_intersect_per_ray``): the yardstick K1 is timed
-    against.  No launch count: no path of the package runs it."""
-    from logipathtracer_tpu_torch.ops.kernels import _build
-    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    dev, r = rays8.device, rays8.shape[1]
-    threads = ci._block_threads(r, tile, "per_ray_k1")
-    c, s = ci.require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, dev)
-    t, tri, obj = ci._outputs(r, dev)
-    _build.launch("compact_intersect", "lpt_compact_wl_intersect_per_ray",
-                  rays8, r, wl, wn, c, tile, cl_meta, cl_inv, cl_aabb,
-                  cl_tris, s, float(eps), threads, bool(has_tmax),
-                  bool(any_hit), t, tri, obj, _build.stream_ptr(dev))
-    return t, tri, obj
-
-
-@contextlib.contextmanager
-def per_ray_route():
-    """The route K1 took before its redesign, for comparison in the same
-    call: the plain worklist prepass (its torch ops on the card) and
-    ``per_ray_k1``, in place of the worklist kernel and K1."""
-    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    saved = ci.build_chunk_worklists, ci.compact_wl_intersect
-    ci.build_chunk_worklists = ci.build_chunk_worklists_plain
-    ci.compact_wl_intersect = per_ray_k1
-    try:
-        yield
-    finally:
-        ci.build_chunk_worklists, ci.compact_wl_intersect = saved
-
-
 def check_worklist(wmin, wmax, rays8, tile, has_tmax=False, runs=10):
     """The worklist kernel against its plain version (on the card) on
     one pool: wn equal, and wl on every tile's first wn entries.
@@ -431,9 +373,9 @@ def check_worklist(wmin, wmax, rays8, tile, has_tmax=False, runs=10):
     bad = int((wl != wlp)[live].sum())
     assert bad == 0, f"worklist kernel: wl differs on {bad} listed entries"
     err = float((wl - wlp)[live].abs().max()) if bool(live.any()) else 0.0
-    k_ms = _median_ms(
+    k_ms = event_ms(
         lambda: ci.build_chunk_worklists(wmin, wmax, rays8, tile, **kw), runs)
-    p_ms = _median_ms(lambda: ci.build_chunk_worklists_plain(
+    p_ms = event_ms(lambda: ci.build_chunk_worklists_plain(
         wmin, wmax, rays8, tile, **kw), 3)
     b = bound(WORLD_SLAB_OPS * rays8.shape[1] * wmin.shape[0],
               nbytes(wmin, wmax, rays8, wl, wn))
@@ -442,9 +384,9 @@ def check_worklist(wmin, wmax, rays8, tile, has_tmax=False, runs=10):
 
 def check_k1(scene, origin, direction, tile, eps, runs=(10, 3)):
     """The worklist kernel and K1 against their plain versions on one
-    pool, K1 bit for bit (t, tri, obj) and equal to ``per_ray_k1``;
-    returns (max_abs_err, kernel_ms, plain_ms, hit fraction, bound,
-    worklist row (ms, plain ms, bound), per-ray K1 ms)."""
+    pool, K1 bit for bit (t, tri, obj); returns (max_abs_err, kernel_ms,
+    plain_ms, hit fraction, bound, worklist row (ms, plain ms,
+    bound))."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
     rays8, _ = ci.pack_rays8(origin, direction, tile)
@@ -458,15 +400,11 @@ def check_k1(scene, origin, direction, tile, eps, runs=(10, 3)):
     for name, g, p in zip(("t", "tri", "obj"), got, ref):
         assert torch.equal(g, p), f"K1: {name} differs from the plain version"
     err = float((got[0] - ref[0]).abs().max())
-    yard = per_ray_k1(*args)
-    assert all(torch.equal(g, y) for g, y in zip(got, yard)), \
-        "K1 and the per-ray visit differ"
     hit_frac = float((ref[0] < ci.BIG).float().mean())
-    k_ms = _median_ms(lambda: ci.compact_wl_intersect(*args), runs[0])
-    p_ms = _median_ms(lambda: ci.compact_wl_intersect_plain(*args), runs[1])
-    y_ms = _median_ms(lambda: per_ray_k1(*args), runs[0])
+    k_ms = event_ms(lambda: ci.compact_wl_intersect(*args), runs[0])
+    p_ms = event_ms(lambda: ci.compact_wl_intersect_plain(*args), runs[1])
     b = isect_bound(work, scene, args[:7], rays8.shape[1])
-    return err, k_ms, p_ms, hit_frac, b, wrow, y_ms
+    return err, k_ms, p_ms, hit_frac, b, wrow
 
 
 def print_k1(what, k1, card):
@@ -475,11 +413,9 @@ def print_k1(what, k1, card):
     print(f"worklist kernel, {what}: the plain worklists, kernel "
           f"{wk_ms:.3f} ms, plain on the card {wp_ms:.3f} ms, bound "
           f"{wb[0]:.4f} ms ({wb[1]})", flush=True)
-    print(f"K1 {what}: bit-equal to the plain version and to the per-ray "
-          f"visit, kernel {k1[1]:.3f} ms, per-ray visit {k1[6]:.3f} ms, "
-          f"plain {k1[2]:.1f} ms, bound {k1[4][0]:.4f} ms ({k1[4][1]}); "
-          f"worklist + K1 {wk_ms + k1[1]:.3f} ms, earlier route (plain "
-          f"prepass + per-ray K1) {wp_ms + k1[6]:.3f} ms [{card}]",
+    print(f"K1 {what}: bit-equal to the plain version, kernel "
+          f"{k1[1]:.3f} ms, plain {k1[2]:.1f} ms, bound {k1[4][0]:.4f} ms "
+          f"({k1[4][1]}); worklist + K1 {wk_ms + k1[1]:.3f} ms [{card}]",
           flush=True)
 
 
@@ -499,9 +435,9 @@ def check_k2(scene, cfg, pool, t, tri, parity, runs=(10, 3), opt=None):
     ref, p_once = _time_once(lambda: sk.shade_plain(*args, **kw))
     diverged, err = sk.shade_agreement([x.cpu() for x in ref],
                                        [x.cpu() for x in got])
-    k_ms = _median_ms(lambda: sk.shade(*args, **kw), runs[0])
+    k_ms = event_ms(lambda: sk.shade(*args, **kw), runs[0])
     p_ms = (p_once if runs[1] <= 1 else
-            _median_ms(lambda: sk.shade_plain(*args, **kw), runs[1]))
+            event_ms(lambda: sk.shade_plain(*args, **kw), runs[1]))
     b = bound(K2_OPS * int(pool["alive"].sum()),
               nbytes(*args, *(opt or {}).values(), *got))
     return diverged, err, k_ms, p_ms, b
@@ -513,8 +449,7 @@ def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
     and the same t (so the same visibility predicate t < t_max) on every
     lane.  The plain K1 runs once, timed.  Returns (max |dt|, kernel ms,
     plain ms, blocked fraction of the lanes with a light sample, lanes
-    with a light sample, bound, worklist row (ms, plain ms, bound),
-    per-ray K1 ms)."""
+    with a light sample, bound, worklist row (ms, plain ms, bound))."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels.shade import PARK
     from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
@@ -535,15 +470,12 @@ def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
     assert bad == 0, f"K1 any-hit: visibility differs on {bad} lanes"
     assert torch.equal(got[0], ref[0]), "K1 any-hit: t differs"
     err = float((got[0] - ref[0]).abs().max())
-    assert torch.equal(got[0], per_ray_k1(*args, **kw)[0]), \
-        "K1 any-hit and the per-ray visit differ"
     shadow = origin[:, 0] != PARK
     n_shadow = int(shadow.sum())
     frac = float(blocked_k[shadow].float().mean()) if n_shadow else 0.0
-    k_ms = _median_ms(lambda: ci.compact_wl_intersect(*args, **kw), runs)
-    y_ms = _median_ms(lambda: per_ray_k1(*args, **kw), runs)
+    k_ms = event_ms(lambda: ci.compact_wl_intersect(*args, **kw), runs)
     b = isect_bound(work, scene, args[:7], rays8.shape[1], saved)
-    return err, k_ms, p_ms, frac, n_shadow, b, wrow, y_ms
+    return err, k_ms, p_ms, frac, n_shadow, b, wrow
 
 
 def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3)):
@@ -551,8 +483,6 @@ def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3)):
     ms, bound, ms of ``index_add_`` of the retired rows into the same
     accumulator, ``device_ms`` of K3, the same of ``index_add_``)."""
     from logipathtracer_tpu_torch.ops.kernels import flush
-    from logipathtracer_tpu_torch.tools.flush_times import (device_ms,
-                                                            make_tail)
     pix, acc = make_tail(npix, rows, retired, dev)
     base = torch.rand((npix, 3), generator=torch.Generator().manual_seed(1))
     base = base.to(dev)
@@ -566,39 +496,17 @@ def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3)):
     np.testing.assert_allclose(k1, p, rtol=K3_RTOL, atol=K3_ATOL)
     err = float(np.abs(k1 - p).max())
     work = base.clone()
-    k_ms = _median_ms(lambda: flush.flush_sorted(work, pix, acc), runs[0])
-    p_ms = _median_ms(lambda: flush.flush_sorted_plain(work, pix, acc),
+    k_ms = event_ms(lambda: flush.flush_sorted(work, pix, acc), runs[0])
+    p_ms = event_ms(lambda: flush.flush_sorted_plain(work, pix, acc),
                       runs[1])
     tail = slice(rows - retired, rows)
     pix_r, acc_r = pix[tail].contiguous(), acc[tail].contiguous()
-    lib_ms = _median_ms(lambda: work.index_add_(0, pix_r, acc_r), runs[0])
+    lib_ms = event_ms(lambda: work.index_add_(0, pix_r, acc_r), runs[0])
     k_dev = device_ms(lambda: flush.flush_sorted(work, pix, acc), DEVICE_RUNS)
     lib_dev = device_ms(lambda: work.index_add_(0, pix_r, acc_r), DEVICE_RUNS)
     flushed = int(torch.unique(pix_r).numel())
     b = bound(3 * retired, 4 * rows + 12 * retired + 24 * flushed)
     return err, k_ms, p_ms, b, lib_ms, k_dev, lib_dev
-
-
-def beside_per_ray(host_scene, cfg, dev, sps, rad, rays, label, card):
-    """The steps of ``timed_steps`` through ``per_ray_route`` in a fresh
-    renderer of the same seed, timed the same way: its samples/s, and
-    the same mean radiance and ray count as the new route's ``rad`` /
-    ``rays``.  Returns its (samples/s, Mrays/s)."""
-    from logipathtracer_tpu_torch import ProgressiveRenderer
-    renderer = ProgressiveRenderer(host_scene, cfg, host_seed=0, device=dev)
-    with per_ray_route():
-        sps0, mrays0, _, rad0 = timed_steps(renderer)
-    same = float((rad0 == rad).all(-1).mean())
-    print(f"{label} through the earlier route (plain prepass, per-ray "
-          f"K1): {sps0:.3f} samples/s, {mrays0:.2f} Mrays/s; the new route "
-          f"{sps:.3f} samples/s, {sps / sps0:.2f}x; mean radiance "
-          f"{float(rad0.mean()):.6f} / {float(rad.mean()):.6f}, rays "
-          f"{renderer.total_rays} / {rays}, {same:.5f} of pixels identical "
-          f"[{card}]", flush=True)
-    assert float(rad0.mean()) == float(rad.mean()), \
-        f"{label}: the routes' mean radiance differs"
-    assert renderer.total_rays == rays, f"{label}: the ray counts differ"
-    return sps0, mrays0
 
 
 def render_radiance(scene, cfg, dev, host_seed, chunks):
@@ -655,10 +563,9 @@ def nee_phase(dev, card, flagship_rate):
           f"{wb[0]:.4f} ms ({wb[1]})", flush=True)
     print(f"K1 t_max+any-hit shadow pool {t_lim.shape[0]} lanes "
           f"({k1[4]} shadow rays, {k1[3]:.3f} blocked): the plain t on "
-          f"every lane, kernel {k1[1]:.3f} ms (per-ray visit {k1[7]:.3f}), "
-          f"plain {k1[2]:.1f} ms (once), bound {k1[5][0]:.4f} ms "
-          f"({k1[5][1]}); worklist + K1 {wk_ms + k1[1]:.3f} ms, earlier "
-          f"route {wp_ms + k1[7]:.3f} ms", flush=True)
+          f"every lane, kernel {k1[1]:.3f} ms, plain {k1[2]:.1f} ms "
+          f"(once), bound {k1[5][0]:.4f} ms ({k1[5][1]}); worklist + K1 "
+          f"{wk_ms + k1[1]:.3f} ms", flush=True)
     k2 = check_k2(scene, cfg, pool, t, tri, parity=True, runs=(10, 1),
                   opt=opt)
     print(f"K2 tex+nee parity {t.shape[0]} lanes: diverged {k2[0]:.5f}, "
@@ -738,8 +645,6 @@ def nee_phase(dev, card, flagship_rate):
     print(f"NEE launches: {json.dumps(counts)} by mode "
           f"{json.dumps(modes)} in {n_it} iterations", flush=True)
     assert counts["worklist_prepass"][0] >= 2 * n_it
-    beside_per_ray(host_scene, cfg, dev, spp / wall, rad,
-                   renderer.total_rays, "NEE+textured main path", card)
 
     # (d) card vs CPU on the NEE path
     small_cfg = RenderConfig(width=64, height=64, pool_size=4096, nee=True)
@@ -750,9 +655,8 @@ def nee_phase(dev, card, flagship_rate):
     print(f"NEE card vs CPU 64x64 2+2 spp: {close.mean():.5f} of pixels "
           f"close", flush=True)
     assert close.mean() >= IMG_FRAC, "NEE card and CPU renders disagree"
-    return {"k1": (*k1[:3], k1[5]), "k1_per_ray_ms": k1[7],
-            "worklist": k1[6], "k2": k2[1:], "modes": modes,
-            "prepass": counts["worklist_prepass"][0]}
+    return {"k1": (*k1[:3], k1[5]), "worklist": k1[6], "k2": k2[1:],
+            "modes": modes, "prepass": counts["worklist_prepass"][0]}
 
 
 # Phase 7: K4, K5 and K6 are held against their plain versions on the
@@ -776,58 +680,33 @@ def sub_pool(rays8, tile, n_live, tiles):
     return rays8[:, idx.to(rays8.device)].contiguous()
 
 
-def runner(kind, scene, rays8, tile, chunk=16, **kw):
-    """(kernel call, plain call, inputs) of one intersect kernel of the
-    streamed (K4, K5, K6) or order (K7, K8) kind on a packed pool, with
-    the front end the main path gives it, computed once."""
-    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
+def staging(kind, r, tile):
+    """The count pass's ``staging`` for K4 or K5 on an R-ray pool: the
+    block and prefetch of its compacted visit (K4 gates then loads,
+    csrc/stream_cluster.cu; K5 prefetches, csrc/stream_chunk.cu); {} for
+    the others."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
-    from logipathtracer_tpu_torch.ops.traverse import (scene_chunk_bounds,
-                                                       scene_cluster_bounds)
-    tables = scene_tables(scene)
-    has_tmax = kw.get("has_tmax", False)
-    if kind in ("K7", "K8"):
-        args = (rays8, ci.tile_octants(rays8, tile), scene.cl_order, *tables,
-                tile, 1e-4)
-        kernel, plain = ((ci.compact_order_intersect,
-                          ci.compact_order_intersect_plain) if kind == "K7"
-                         else (k6.dense_sweep_intersect,
-                               k6.dense_sweep_intersect_plain))
-        return (lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
-                args[:7])
-    if kind == "K4":
-        wl, wn = k4.build_cluster_worklists(*scene_cluster_bounds(scene),
-                                            rays8, tile, has_tmax=has_tmax)
-        args = (rays8, wl, wn, *tables, tile, 1e-4)
-        return (lambda: k4.stream_cl_intersect(*args, **kw),
-                lambda: k4.stream_cl_intersect_plain(*args, **kw), args[:7])
-    bounds = scene_chunk_bounds(scene, chunk)
-    chunk_aabb = torch.cat(bounds, 1).contiguous()
-    if kind == "K5":
-        wl, wn = ci.build_chunk_worklists(*bounds, rays8, tile,
-                                          has_tmax=has_tmax)
-        args = (rays8, wl, wn, chunk_aabb, *tables, tile, chunk, 1e-4)
-        return (lambda: ci.worklist_chunk_intersect(*args, **kw),
-                lambda: ci.worklist_chunk_intersect_plain(*args, **kw),
-                args[:8])
-    oct_, live = k6.tile_front(rays8, tile)
-    order = k6.octant_chunk_order(*bounds)
-    args = (rays8, oct_, order, live, chunk_aabb, *tables, tile, chunk, 1e-4)
-    kw = dict(kw, cap=0 if kind == "K6[cap=0]" else 32)
-    return (lambda: k6.octant_chunk_intersect(*args, **kw),
-            lambda: k6.octant_chunk_intersect_plain(*args, **kw), args[:9])
+    if kind not in ("K4", "K5"):
+        return {}
+    return dict(block=ci._block_threads(r, tile, kind),
+                prefetch=kind == "K5")
 
 
 def check_isect(kind, scene, rays8, tile, runs=10, **kw):
-    """An intersect kernel against its plain version on one packed pool
-    (hits_agree; with any_hit the visibility t < t_max on every lane).
-    Returns (max |dt|, kernel ms (median of ``runs``), plain ms (once),
-    hit or blocked fraction, bound), all on that pool."""
+    """An intersect kernel against its plain version on one packed pool:
+    K4 and K5 (the compacted visit) bit for bit — t, tri and obj; t alone
+    with any_hit — the others under hits_agree, with any_hit the
+    visibility t < t_max on every lane.  Returns (max |dt|, kernel ms
+    (median of ``runs``), plain ms (once), hit or blocked fraction,
+    bound, visits), all on that pool; visits (K4, K5): the count pass's
+    listed / passed / staged block visits and the mean worklist length
+    "wn", else None."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    kernel, plain, inputs = runner(kind, scene, rays8, tile, **kw)
+    kernel, plain, inputs, wn = runner(kind, scene, rays8, tile, **kw)
     got = kernel()
-    ref, p_ms, work = plain_work(plain)
+    stage = staging(kind, rays8.shape[1], tile)
+    ref, p_ms, work = plain_work(plain, **stage)
+    exact = bool(stage)
     saved = 0
     if kw.get("any_hit"):
         saved = any_hit_saved(rays8, ref[1], ref[2], scene_tables(scene),
@@ -835,25 +714,53 @@ def check_isect(kind, scene, rays8, tile, runs=10, **kw):
         t_max = rays8[6]
         bad = int(((got[0] < t_max) != (ref[0] < t_max)).sum())
         assert bad == 0, f"{kind} any-hit: visibility differs on {bad} lanes"
+        assert not exact or torch.equal(got[0], ref[0]), \
+            f"{kind} any-hit: t differs from the plain version"
         err = float((got[0] - ref[0]).abs().max())
         live = rays8[0] < 1e29
         frac = float((got[0] < t_max)[live].float().mean())
+    elif exact:
+        for name, g, p in zip(("t", "tri", "obj"), got, ref):
+            assert torch.equal(g, p), \
+                f"{kind}: {name} differs from the plain version"
+        err = float((got[0] - ref[0]).abs().max())
+        frac = float((ref[1] >= 0).float().mean())
     else:
         err = ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
         frac = float((ref[1] >= 0).float().mean())
     b = isect_bound(work, scene, inputs, rays8.shape[1], saved)
-    return err, _median_ms(kernel, runs), p_ms, frac, b
+    visits = None
+    if exact:
+        visits = {k: work[k] for k in ("listed", "passed", "staged")}
+        visits.update(wn=float(wn.float().mean()), **stage)
+    return err, event_ms(kernel, runs), p_ms, frac, b, visits
+
+
+def print_visits(kind, what, visits, s):
+    """The numbers the compacted visit rests on (check_isect's visits):
+    the mean worklist, the share of listed clusters some ray of a 256-ray
+    block passes, and the cluster blocks (9 x S floats each) staged per
+    launch by the one-thread-per-ray ring — every listed cluster, per
+    256-ray block — and by the kernel."""
+    blk = 36 * s
+    v = visits
+    unit = "chunks" if kind == "K5" else "clusters"
+    print(f"{kind} {what}: mean worklist {v['wn']:.1f} {unit}; "
+          f"{v['listed']} (256-ray block, cluster) visits listed, "
+          f"{v['passed'] / max(v['listed'], 1):.4f} of them passed by some "
+          f"ray of the block; staged per launch: {v['listed'] * blk / 1e9:.3f}"
+          f" GB by the one-thread-per-ray ring, {v['staged'] * blk / 1e9:.3f}"
+          f" GB by the kernel ({v['block']}-ray blocks, prefetch "
+          f"{v['prefetch']})", flush=True)
 
 
 def outside_phase(dev, card):
     """Phase 7: the outside-class path (module docstring).  Returns the
-    kernel rows (name, launches, max err, kernel ms, plain ms)."""
+    kernel rows (name, source, replaces, launches, run, result of
+    check_isect and pool)."""
     from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
                                           compile_scene)
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    from logipathtracer_tpu_torch.ops.kernels import shade as sk
-    from logipathtracer_tpu_torch.ops.traverse import \
-        intersect_scene_cluster_wl
     from logipathtracer_tpu_torch.render.megakernel import \
         resolve_intersect_mode
     from logipathtracer_tpu_torch.scene.procedural import make_outside_scene
@@ -862,84 +769,69 @@ def outside_phase(dev, card):
     host = compile_scene(make_outside_scene())
     cfg = RenderConfig(width=1024, height=1024)
     tile = cfg.stream_tile
+    s = host.cl_tris.shape[2]
     assert resolve_intersect_mode(cfg, host) == "stream"
     print(f"outside scene: {host.num_triangles} triangles, "
           f"{host.num_objects} objects, {host.cl_tris.shape[0]} clusters of "
-          f"{host.cl_tris.shape[2]}, {host.num_lights} light triangles "
+          f"{s}, {host.num_lights} light triangles "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
     # (a) kernels against their plain versions
+    res = {}
+
+    def check(key, kind, rays8, **kw):
+        r = check_isect(kind, scene, rays8, tile, **kw)
+        res[key] = (*r[:5], rays8.shape[1])
+        if r[5]:
+            print_visits(kind, f"{key} pool {rays8.shape[1]} rays", r[5], s)
+        return r
+
     probe = ProgressiveRenderer(host, cfg, host_seed=1, device=dev)
     scene = probe.scene
     o, d, _ = primary_pool(probe)
     full8, _ = ci.pack_rays8(o, d, tile)
-    res = {}
     for kind in ("K4", "K5", "K6[cap=0]", "K6[cap>0]"):
-        res[kind] = (*check_isect(kind, scene, full8, tile), full8.shape[1])
-        err, k_ms, p_ms, frac, b, n = res[kind]
-        print(f"{kind} primary pool {n} rays: max|dt| {err:.3g}, hit "
-              f"{frac:.3f}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms (once), "
-              f"bound {b[0]:.4f} ms ({b[1]})", flush=True)
+        err, k_ms, p_ms, frac, b, _ = check(kind, kind, full8)
+        print(f"{kind} primary pool {full8.shape[1]} rays: "
+              f"{'bit-equal, ' if kind in ('K4', 'K5') else ''}max|dt| "
+              f"{err:.3g}, hit {frac:.3f}, kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.1f} ms (once), bound {b[0]:.4f} ms ({b[1]})",
+              flush=True)
     pool = bounce_pool(probe)
     n_alive = int(pool["alive"].sum())
     full8, _ = ci.pack_rays8(pool["origin"], pool["direction"], tile)
-    k_full = _median_ms(runner("K4", scene, full8, tile)[0], 10)
     sub8 = sub_pool(full8, tile, n_alive, BOUNCE_TILES)
-    res["K4 bounce"] = (*check_isect("K4", scene, sub8, tile), sub8.shape[1])
-    err, k_ms, p_ms, frac, b, n = res["K4 bounce"]
-    print(f"K4 bounce pool ({n_alive} alive): kernel {k_full:.3f} ms on "
-          f"{full8.shape[1]} rays; on {n} rays max|dt| {err:.3g}, kernel "
-          f"{k_ms:.3f} ms, plain {p_ms:.1f} ms (once), bound {b[0]:.4f} ms "
-          f"({b[1]})", flush=True)
+    for kind in ("K4", "K5"):
+        k_full = event_ms(runner(kind, scene, full8, tile)[0], 10)
+        err, k_ms, p_ms, _, b, _ = check(f"{kind} bounce", kind, sub8)
+        print(f"{kind} bounce pool ({n_alive} alive): kernel {k_full:.3f} ms "
+              f"on {full8.shape[1]} rays; on {sub8.shape[1]} rays bit-equal, "
+              f"max|dt| {err:.3g}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms "
+              f"(once), bound {b[0]:.4f} ms ({b[1]}) [{card}]", flush=True)
     del probe, pool, full8, sub8
 
-    nee_cfg = cfg.replace(nee=True)
-    probe = ProgressiveRenderer(host, nee_cfg, host_seed=1, device=dev)
+    probe = ProgressiveRenderer(host, cfg.replace(nee=True), host_seed=1,
+                                device=dev)
     scene = probe.scene
-    pool = bounce_pool(probe)
-    t, _, tri = intersect_scene_cluster_wl(scene, pool["origin"],
-                                           pool["direction"], tile=tile)
-    out = sk.shade(scene.tri_shade, pool["origin"], pool["direction"],
-                   pool["acc"], pool["mask"], pool["alive"], pool["seed"],
-                   pool["bounce"], t, tri, env=cfg.env_color,
-                   rr_threshold=cfg.rr_threshold, rr_bounces=cfg.rr_bounces,
-                   max_order=cfg.heitz_max_order, parity=cfg.parity_rng,
-                   light_tris=scene.light_tris, light_cdf=scene.light_cdf,
-                   prev_pdf=pool["prev_pdf"], nee_mis=cfg.nee_mis,
-                   total_light_area=float(scene.total_light_area))
-    n_alive = int(pool["alive"].sum())
+    so, sd, t_max, n_alive = shadow_pool(probe)
     shadow = dict(has_tmax=True, any_hit=True)
-    full8, _ = ci.pack_rays8(out[7], out[8], tile, t_max=out[9])
-    k_full = _median_ms(runner("K4", scene, full8, tile, **shadow)[0], 10)
+    full8, _ = ci.pack_rays8(so, sd, tile, t_max=t_max)
+    k_full = event_ms(runner("K4", scene, full8, tile, **shadow)[0], 10)
     sub8 = sub_pool(full8, tile, n_alive, SHADOW_TILES)
-    res["K4 any_hit"] = (*check_isect("K4", scene, sub8, tile, **shadow),
-                         sub8.shape[1])
-    err, k_ms, p_ms, frac, b, n = res["K4 any_hit"]
+    err, k_ms, p_ms, frac, b, _ = check("K4 any_hit", "K4", sub8, **shadow)
     print(f"K4 t_max+any-hit shadow pool ({n_alive} lanes alive): kernel "
-          f"{k_full:.3f} ms on {full8.shape[1]} lanes; on {n} lanes the same "
-          f"visibility on every lane, {frac:.3f} blocked, max|dt| {err:.3g}, "
-          f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms (once), bound "
-          f"{b[0]:.4f} ms ({b[1]})", flush=True)
-    del probe, pool, out, full8, sub8
+          f"{k_full:.3f} ms on {full8.shape[1]} lanes; on {sub8.shape[1]} "
+          f"lanes the plain t on every lane, {frac:.3f} blocked, max|dt| "
+          f"{err:.3g}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms (once), "
+          f"bound {b[0]:.4f} ms ({b[1]}) [{card}]", flush=True)
+    del probe, so, sd, t_max, full8, sub8
 
     # (b) the main path
     renderer = ProgressiveRenderer(host, cfg, host_seed=0, device=dev)
     reset_counts()
-    renderer.step(1)                        # warm-up
-    iters = [renderer.last_iterations]
-    torch.cuda.synchronize()
-    rays0 = renderer.total_rays
-    t0 = time.perf_counter()
-    timed = (2, 2)
-    for n_spp in timed:
-        renderer.step(n_spp)
-        iters.append(renderer.last_iterations)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rays = renderer.total_rays - rays0
+    sps, mrays, iters, rad = timed_steps(renderer)
     counts = read_counts()
     modes = modes_of("stream_cluster")
-    rad = renderer.radiance()
     assert rad.shape == (cfg.height, cfg.width, 3) and np.isfinite(rad).all()
     mean = float(rad.mean())
     assert 1e-3 < mean < 10.0, f"implausible mean radiance {mean}"
@@ -948,27 +840,25 @@ def outside_phase(dev, card):
     for k in ("compact_intersect", "worklist_chunk", "octant_chunk"):
         assert counts[k][0] == 0, f"outside path launched kernel {k}"
     assert_no_plain()
-    spp = sum(timed)
-    print(f"outside main path {cfg.width}x{cfg.height} spp {spp}: "
-          f"{spp / wall:.3f} "
-          f"samples/s, {rays / wall / 1e6:.2f} Mrays/s, iterations per "
-          f"chunk {iters[1:]}, mean radiance {mean:.6f} [{card}]",
+    print(f"outside main path {cfg.width}x{cfg.height} spp 4: {sps:.3f} "
+          f"samples/s, {mrays:.2f} Mrays/s, iterations per chunk {iters}, "
+          f"mean radiance {mean!r}, rays {renderer.total_rays} [{card}]",
           flush=True)
     print(f"outside launches: {json.dumps(counts)} K4 by mode "
-          f"{json.dumps(modes)} in {sum(iters)} iterations", flush=True)
+          f"{json.dumps(modes)} (5 samples)", flush=True)
     main_run = f"{cfg.width}^2 main path"
     launches = {"K4": (counts["stream_cluster"][0], main_run)}
     del renderer
 
-    # (c) one step(1) at full width on each other route
+    # (c) one step(1) at full width on each other route, and the NEE
+    # route timed as the main path
     for label, kw, name, mode in (
             ("K5", dict(stream_granularity="chunk"), "worklist_chunk",
              "closest"),
             ("K6[cap>0]", dict(stream_worklist=False), "octant_chunk",
              "cap/closest"),
             ("K6[cap=0]", dict(stream_compact=False), "octant_chunk",
-             "cap0/closest"),
-            ("K4 any_hit", dict(nee=True), "stream_cluster", "any_hit")):
+             "cap0/closest")):
         r = ProgressiveRenderer(host, cfg.replace(**kw), host_seed=2,
                                 device=dev)
         reset_counts()
@@ -988,6 +878,21 @@ def outside_phase(dev, card):
               f"{wall:.3f} s, mean radiance after the drain "
               f"{float(rad.mean()):.6f}", flush=True)
         del r
+    r = ProgressiveRenderer(host, cfg.replace(nee=True), host_seed=0,
+                            device=dev)
+    reset_counts()
+    sps_nee, mrays_nee, iters, rad = timed_steps(r)
+    n = modes_of("stream_cluster")["any_hit"]
+    assert n > 0, "the NEE route never launched K4 any-hit"
+    assert_no_plain()
+    assert np.isfinite(rad).all() and 1e-3 < float(rad.mean()) < 10.0
+    launches["K4 any_hit"] = (n, f"{cfg.width}^2 NEE route")
+    print(f"outside NEE route {cfg.width}x{cfg.height} spp 4: "
+          f"{sps_nee:.3f} samples/s, {mrays_nee:.2f} Mrays/s (path rays), "
+          f"iterations per chunk {iters}, K4 any-hit launched {n} times in 5 "
+          f"samples, mean radiance {float(rad.mean()):.6f} [{card}]",
+          flush=True)
+    del r
 
     # (d) card vs CPU on the default route
     small = RenderConfig(width=64, height=64, pool_size=4096)
@@ -1002,33 +907,21 @@ def outside_phase(dev, card):
 
     from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
     from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
-    return [(name, src, where, *launches[key], res[key])
-            for name, src, where, key in (
-                ("stream_cluster", k4.SOURCE, k4.REPLACES, "K4"),
+    return [(name, src, where, *launches[run], res[key])
+            for name, src, where, run, key in (
+                ("stream_cluster", k4.SOURCE, k4.REPLACES, "K4", "K4"),
+                ("stream_cluster[bounce]", k4.SOURCE, k4.REPLACES, "K4",
+                 "K4 bounce"),
                 ("stream_cluster[tmax+any_hit]", k4.SOURCE, k4.REPLACES,
-                 "K4 any_hit"),
+                 "K4 any_hit", "K4 any_hit"),
                 ("worklist_chunk", ci.WORKLIST_SOURCE, ci.WORKLIST_REPLACES,
-                 "K5"),
-                ("octant_chunk[cap=0]", k6.SOURCE, k6.REPLACES, "K6[cap=0]"),
+                 "K5", "K5"),
+                ("worklist_chunk[bounce]", ci.WORKLIST_SOURCE,
+                 ci.WORKLIST_REPLACES, "K5", "K5 bounce"),
+                ("octant_chunk[cap=0]", k6.SOURCE, k6.REPLACES, "K6[cap=0]",
+                 "K6[cap=0]"),
                 ("octant_chunk[cap>0]", k6.SOURCE, k6.REPLACES_CAP,
-                 "K6[cap>0]"))]
-
-
-def timed_steps(renderer, timed=(2, 2)):
-    """A warm-up step(1), then the timed steps: returns (samples/s,
-    Mrays/s, iterations per timed step, radiance)."""
-    renderer.step(1)
-    torch.cuda.synchronize()
-    rays0 = renderer.total_rays
-    t0 = time.perf_counter()
-    iters = []
-    for n in timed:
-        renderer.step(n)
-        iters.append(renderer.last_iterations)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rays = renderer.total_rays - rays0
-    return sum(timed) / wall, rays / wall / 1e6, iters, renderer.radiance()
+                 "K6[cap>0]", "K6[cap>0]"))]
 
 
 def wavefront_k7(host_scene, cfg, dev, card, flagship_rate):
@@ -1138,7 +1031,7 @@ def megakernel_phase(dev, card):
                 print(f"K7 plain on the primary pool without the count "
                       f"pass: {bare_ms[0]:.1f} ms before, {bare_ms[1]:.1f} "
                       f"after, {r[2]:.1f} with it", flush=True)
-            res[kind, pool] = (*r, rays8.shape[1])
+            res[kind, pool] = (*r[:5], rays8.shape[1])
             what = ("blocked" if t_max else "hit")
             print(f"{kind} megakernel {pool} pool {rays8.shape[1]} rays"
                   + (f" ({n_alive} alive)" if pool == "bounce" else "")
@@ -1166,8 +1059,6 @@ def megakernel_phase(dev, card):
           flush=True)
     print(f"megakernel launches (5 samples): {json.dumps(counts)}",
           flush=True)
-    beside_per_ray(host, cfg, dev, sps, rad, renderer.total_rays,
-                   "megakernel main path", card)
     del renderer
 
     # (c) one step(1) at full width on each other route, (d) the BVH walk
@@ -1321,8 +1212,6 @@ def main(argv=None) -> int:
           f"mean radiance {mean:.6f} [{card}]", flush=True)
     print(f"launches: {json.dumps(counts)}", flush=True)
     flagship_rate = (sps, mrays)
-    beside_per_ray(host_scene, cfg, dev, sps, rad, renderer.total_rays,
-                   "flagship main path", card)
     del renderer
 
     # ---- 8e. beside it: the flagship wavefront through K7 ----------------
@@ -1383,18 +1272,14 @@ def main(argv=None) -> int:
         row("flush", flush.SOURCE, flush.REPLACES, counts["flush"][0],
             main_run, pool, *k3[:3], k3[3], k3[4]),
     ]
-    for r, per_ray_ms in zip(rows[:3], (k1p[6], k1b[6],
-                                        nee["k1_per_ray_ms"])):
-        r["per_ray_ms"] = per_ray_ms
     rows[-1].update(device_ms=k3[5][0], library_device_ms=k3[6][0])
     # r: check_isect's (max |dt|, ms, plain ms, fraction, bound, pool)
     rows += [row(n, src, where, launched, run, r[5], *r[:3], r[4])
              for n, src, where, launched, run, r in outside + order_rows]
     # Beside the contract's keys: "run", the run whose launches are
     # counted, and "pool", the rays (lanes, rows) that max_abs_err, ms,
-    # plain_ms and the bound were measured on; on K1's rows
-    # "per_ray_ms", the time of per_ray_k1 on the same pool; on K3's,
-    # the device times of device_ms.  The worklist rows' plain_ms is the
+    # plain_ms and the bound were measured on; on K3's, the device times
+    # of device_ms.  The worklist rows' plain_ms is the
     # plain version on the card, the prepass the earlier route ran.
     print(json.dumps({"kernels": rows}))
     print(card)

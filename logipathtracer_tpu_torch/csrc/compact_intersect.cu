@@ -247,16 +247,3 @@ extern "C" int lpt_compact_wl_intersect(
                                   tris, S, eps, threads, has_tmax, any_hit,
                                   t, tri, obj, stream);
 }
-
-// The one-thread-per-ray visit that K1's compacted one replaced
-// (cluster_list_kernel in its gate-before-load form): the same function,
-// launched by no path of the package; chip_smoke.py times K1 against it.
-extern "C" int lpt_compact_wl_intersect_per_ray(
-    const void* rays8, int R, const void* wl, const void* wn, int C,
-    int tile, const void* meta, const void* inv, const void* aabb,
-    const void* tris, int S, float eps, int threads, int has_tmax,
-    int any_hit, void* t, void* tri, void* obj, void* stream) {
-  return lpt::launch_cluster_list<0>(rays8, R, wl, wn, C, tile, meta, inv,
-                                     aabb, tris, S, eps, threads, has_tmax,
-                                     any_hit, t, tri, obj, stream);
-}

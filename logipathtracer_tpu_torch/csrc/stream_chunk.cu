@@ -1,6 +1,6 @@
 // Closest-hit intersection over 16-cluster chunks of a streamed scene:
 // the chunk worklist sweep (kernel K5) and the (tiles x chunks) octant
-// sweep (kernel K6), two entry points over one member-cluster loop.
+// sweep (kernel K6), two entry points over one chunk test.
 //
 // K5 replaces logipathtracer_tpu/ops/pallas/compact_intersect.py::
 // cluster_intersect_worklist -> _worklist_compact_kernel: each ray tile
@@ -15,9 +15,15 @@
 // Per visited chunk, both re-test the chunk's world AABB against the
 // world ray with the live best t (_slab); when some ray of the block
 // passes, each member cluster c < num_real is visited as in K1 (local
-// ray, _slab_inv, Moller-Trumbore; closest_hit.cuh), its 9 x S floats
-// staged one cluster at a time in a cp.async ring (a whole 16-cluster
-// chunk is 288 KB at S = 512, beyond a block's shared memory).
+// ray, _slab_inv, Moller-Trumbore; closest_hit.cuh).  K5 visits the
+// members through compact_visit, the TPU kernel's own design (the rays
+// that pass a member's slab compacted before the triangle tests): the
+// passing rays are queued, whole warps test one queued ray each, a
+// member no ray passes is never read, and the next member that some ray
+// may pass is staged by cp.async while the warps test the one before.
+// K6 visits them one thread per ray (visit_clusters), each member's
+// 9 x S floats staged in a cp.async ring (a whole 16-cluster chunk is
+// 288 KB at S = 512, beyond a block's shared memory).
 //
 // K5 and K6 with cap > 0 keep K1's contract: best t starts at
 // min(rays8[6], BIG) with has_tmax, else BIG; any-hit parking; miss
@@ -33,7 +39,8 @@
 // a chunk's world box but passes a member cluster's local box, which
 // rounding alone can cause.
 // Bound: operations, as for K1, plus each cluster block's load latency,
-// which the ring hides behind the previous member's tests.
+// which the prefetch (K5) or the ring (K6) hides behind the previous
+// member's tests.
 
 #include "closest_hit.cuh"
 
@@ -54,31 +61,49 @@ struct Scene {
   float eps;
 };
 
-// One chunk jc: the block-wide chunk test, then the member clusters.
+// The block-wide test of chunk jc's world box with the live best t,
+// uniform over the block.
+__device__ __forceinline__ bool chunk_passes(int jc, const Scene& sc,
+                                             const lpt::Ray& w, float wix,
+                                             float wiy, float wiz,
+                                             float best) {
+  return __syncthreads_or(
+      lpt::slab_inv(w, wix, wiy, wiz, sc.chunk_aabb + 6 * jc, best));
+}
+
+// The member clusters of chunk jc below num_real: their count.
+__device__ __forceinline__ int chunk_members(int jc, const Scene& sc) {
+  return min(sc.chunk, sc.num_real - jc * sc.chunk);
+}
+
+// K6's chunk: the chunk test, then the members one thread per ray.
 template <bool kSubtile>
 __device__ __forceinline__ void visit_chunk(int jc, const Scene& sc,
                                             float* ring, const lpt::Ray& w,
                                             float wix, float wiy, float wiz,
                                             bool any_hit, float& best,
                                             int& btri, int& bobj) {
-  const bool chunk_hit =
-      lpt::slab_inv(w, wix, wiy, wiz, sc.chunk_aabb + 6 * jc, best);
-  if (!__syncthreads_or(chunk_hit)) return;  // uniform over the block
+  if (!chunk_passes(jc, sc, w, wix, wiy, wiz, best)) return;
   const int c0 = jc * sc.chunk;
-  const int n = min(sc.chunk, sc.num_real - c0);  // c < num_real
   lpt::visit_clusters<kStages, kSubtile>(
-      [c0](int k) { return c0 + k; }, n, ring, sc.tris, sc.S, sc.meta, sc.inv,
-      sc.aabb, w, sc.eps, any_hit, best, btri, bobj);
+      [c0](int k) { return c0 + k; }, chunk_members(jc, sc), ring, sc.tris,
+      sc.S, sc.meta, sc.inv, sc.aabb, w, sc.eps, any_hit, best, btri, bobj);
 }
 
-__global__ void worklist_chunk_kernel(const float* __restrict__ rays8, int R,
-                                      const int* __restrict__ wl,
-                                      const int* __restrict__ wn, int NC,
-                                      int tile, Scene sc, int has_tmax,
-                                      int any_hit, float* __restrict__ t_out,
-                                      int* __restrict__ tri_out,
-                                      int* __restrict__ obj_out) {
-  extern __shared__ __align__(16) float ring[];  // [kStages, 9, S]
+// K5: a block of blockDim.x <= 256 rays of one tile visits the tile's
+// fired chunks, each chunk's members through compact_visit with the
+// prefetch (gates batched a barrier were measured slower, PERF.md).
+// Launch bounds as K1's (64 registers); shared memory: visit_bytes.
+__global__ void __launch_bounds__(256, 4)
+    worklist_chunk_kernel(const float* __restrict__ rays8, int R,
+                          const int* __restrict__ wl,
+                          const int* __restrict__ wn, int NC, int tile,
+                          Scene sc, int has_tmax, int any_hit,
+                          float* __restrict__ t_out,
+                          int* __restrict__ tri_out,
+                          int* __restrict__ obj_out) {
+  extern __shared__ __align__(16) float smem[];
+  const lpt::VisitQueue q = lpt::carve_queue(smem, sc.S, blockDim.x, true);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const int ti = (blockIdx.x * blockDim.x) / tile;
   const lpt::Ray w = lpt::load_ray(rays8, R, r);
@@ -86,9 +111,15 @@ __global__ void worklist_chunk_kernel(const float* __restrict__ rays8, int R,
   float best = has_tmax ? lpt::nmin(rays8[6 * R + r], kBig) : kBig;
   int btri = -1, bobj = -1;
   const int n = wn[ti];
-  for (int j = 0; j < n; ++j)
-    visit_chunk<false>(wl[static_cast<size_t>(ti) * NC + j], sc, ring, w,
-                       wix, wiy, wiz, any_hit != 0, best, btri, bobj);
+  for (int j = 0; j < n; ++j) {
+    const int jc = wl[static_cast<size_t>(ti) * NC + j];
+    if (!chunk_passes(jc, sc, w, wix, wiy, wiz, best)) continue;
+    const int c0 = jc * sc.chunk;
+    lpt::compact_visit<true, 1>(
+        [c0](int k) { return c0 + k; }, chunk_members(jc, sc), q, sc.tris,
+        sc.S, sc.meta, sc.inv, sc.aabb, w, sc.eps, any_hit != 0, best, btri,
+        bobj);
+  }
   t_out[r] = btri >= 0 ? best : kInf;
   tri_out[r] = btri;
   obj_out[r] = bobj;
@@ -138,23 +169,25 @@ Scene make_scene(const void* meta, const void* inv, const void* aabb,
 
 }  // namespace
 
-// K5: per-tile fired-chunk lists wl [tiles, NC] / wn [tiles].
+// K5: per-tile fired-chunk lists wl [tiles, NC] / wn [tiles]; threads
+// 128 or 256 (the chunk test's block, a divisor of tile).  The prefetch
+// needs S a multiple of 4 and tris 16-byte aligned.
 extern "C" int lpt_worklist_chunk_intersect(
     const void* rays8, int R, const void* wl, const void* wn, int NC,
     int tile, int chunk, int num_real, const void* chunk_aabb,
     const void* meta, const void* inv, const void* aabb, const void* tris,
     int S, float eps, int threads, int has_tmax, int any_hit, void* t,
     void* tri, void* obj, void* stream) {
-  const size_t smem = lpt::ring_bytes<kStages>(S);
+  const Scene sc =
+      make_scene(meta, inv, aabb, tris, chunk_aabb, S, chunk, num_real, eps);
+  const size_t smem = lpt::visit_bytes(S, threads, true, 1);
   const int e = lpt::prepare(worklist_chunk_kernel, smem);
   if (e) return e;
   worklist_chunk_kernel<<<R / threads, threads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rays8), R, static_cast<const int*>(wl),
-      static_cast<const int*>(wn), NC, tile,
-      make_scene(meta, inv, aabb, tris, chunk_aabb, S, chunk, num_real, eps),
-      has_tmax, any_hit, static_cast<float*>(t), static_cast<int*>(tri),
-      static_cast<int*>(obj));
+      static_cast<const int*>(wn), NC, tile, sc, has_tmax, any_hit,
+      static_cast<float*>(t), static_cast<int*>(tri), static_cast<int*>(obj));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,9 +13,12 @@ the clusters of the conservative interval-arithmetic frustum mask
 stable ``_order_fired``.  A cluster the mask culls has no ray of the
 tile whose slab could pass, so the culls change no hit.
 
-On the card each fired cluster's 9 x S triangle block streams from
-device memory through a cp.async shared-memory ring (the TPU kernel's
-NBUF-deep async-copy ring); see the source's note.
+On the card K4 runs the compacted visit (csrc/closest_hit.cuh
+``compact_visit``; the TPU kernel's own design, its hit rays compacted
+before the triangle tests): per listed cluster the rays of a block that
+pass its slab are queued and whole warps test one queued ray each; a
+cluster no ray of the block passes is never read.  See the source's
+note.
 """
 
 from __future__ import annotations
@@ -94,8 +97,7 @@ def stream_cl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
         raise ValueError(f"stream_cl_intersect: unsupported device {dev}")
     r = rays8.shape[1]
     threads = ci._block_threads(r, tile, "stream_cl_intersect")
-    c, s = ci.require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, dev,
-                            stream=True)
+    c, s = ci.require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, dev)
     tiles = r // tile
     _build.require(rays8, "rays8", torch.float32, (8, r), dev)
     _build.require(wl, "wl", torch.int32, (tiles, c), dev)

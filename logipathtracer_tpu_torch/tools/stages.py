@@ -34,8 +34,9 @@ part:
             against K1's per-ray worklists (compact_intersect.
             build_chunk_worklists: the worklist kernel on the card) over
             the same per-cluster boxes:
-            median ms of 10 and the mean clusters fired per tile that
-            holds a live ray.
+            median ms of 10, the mean clusters fired per tile that
+            holds a live ray, and K4's median ms of 10 over each
+            prepass's worklists (the same hits, K1's function).
 
 Stages are timed by wrapping module functions for the run; nothing in
 the package carries timers.  On the CPU only the stage split runs.
@@ -61,6 +62,7 @@ from logipathtracer_tpu_torch.render import megakernel, wavefront
 from logipathtracer_tpu_torch.render.progressive import ProgressiveRenderer
 from logipathtracer_tpu_torch.scene.procedural import (make_box_scene,
                                                        make_outside_scene)
+from logipathtracer_tpu_torch.tools.harness import event_ms
 
 
 def _shadow(kw):
@@ -185,23 +187,11 @@ def busy_share(renderer, top=8):
             "top": [[k[:60], ms, n] for k, ms, n in rows[:top]]}
 
 
-def _median_ms(fn, runs=10):
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
 def prepass_compare(renderer, tile: int):
     """Frustum vs per-ray prepass on the first two intersect pools of a
     fresh step(2) (CUDA only)."""
-    from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
+    from logipathtracer_tpu_torch.ops.traverse import (_inv_rows,
+                                                       scene_cluster_bounds)
     pools = []
     frustum = k4.build_cluster_worklists
 
@@ -216,7 +206,9 @@ def prepass_compare(renderer, tile: int):
         renderer.step(2)
     finally:
         k4.build_cluster_worklists = frustum
-    wmin, wmax = scene_cluster_bounds(renderer.scene)
+    scene = renderer.scene
+    wmin, wmax = scene_cluster_bounds(scene)
+    tables = (scene.cl_meta, _inv_rows(scene), scene.cl_aabb, scene.cl_tris)
     out = []
     for name, rays8 in zip(("iteration 1", "iteration 2"), pools):
         live = (rays8[0] < 1e29).reshape(-1, tile).any(1)
@@ -224,11 +216,14 @@ def prepass_compare(renderer, tile: int):
                "live_tiles": int(live.sum())}
         for label, build in (("frustum", frustum),
                              ("per_ray", ci.build_chunk_worklists)):
-            _, wn = build(wmin, wmax, rays8, tile)
-            row[label + "_ms"] = _median_ms(
+            wl, wn = build(wmin, wmax, rays8, tile)
+            row[label + "_ms"] = event_ms(
                 lambda: build(wmin, wmax, rays8, tile))
             row[label + "_fired_per_live_tile"] = float(
                 wn[live].float().mean())
+            row[label + "_k4_ms"] = event_ms(
+                lambda: k4.stream_cl_intersect(rays8, wl, wn, *tables, tile,
+                                               1e-4))
         out.append(row)
     return out
 

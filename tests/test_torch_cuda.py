@@ -446,6 +446,101 @@ def test_stream_kernels_match_plain(outside, dev, kernel):
     assert 0 < int(blocked.sum()) < 4096
 
 
+def _same(got, ref, any_hit):
+    """Bit for bit: t, tri and obj; t alone with any_hit."""
+    n = 1 if any_hit else 3
+    return all(torch.equal(g, r) for g, r in zip(got[:n], ref[:n]))
+
+
+@pytest.mark.parametrize("mode", ["closest", "tmax", "any_hit"])
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_k4_k5_bit_equal_to_plain(outside, dev, kernel, mode):
+    """K4 and K5 (the compacted visit) equal their plain versions bit for
+    bit in every mode, on random and axis-aligned rays with a part-parked
+    tile and an all-parked tile (wn = 0)."""
+    o, d, t_max = _outside_rays(16384, dev)
+    tile, has_tmax = 4096, mode != "closest"
+    kw = dict(has_tmax=has_tmax, any_hit=mode == "any_hit")
+    rays8, _ = ci.pack_rays8(o, d, tile, t_max=t_max if has_tmax else None)
+    ref = _stream_call(kernel, outside, rays8, tile, plain=True, **kw)
+    got = _stream_call(kernel, outside, rays8, tile, plain=False, **kw)
+    assert _same(got, ref, kw["any_hit"])
+    hit = got[0] < (t_max if has_tmax else ci.BIG)
+    assert 0 < int(hit.sum()) < 12188
+    assert not bool(hit[12188:].any())       # the parked lanes
+
+
+def test_k4_k5_empty_worklists(outside, dev):
+    """An all-parked tile lists no cluster (K4) and no chunk (K5)."""
+    from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
+    from logipathtracer_tpu_torch.ops.traverse import scene_chunk_bounds
+    o, d, _ = _outside_rays(16384, dev)
+    rays8, _ = ci.pack_rays8(o, d, 4096)
+    _, wn4 = k4.build_cluster_worklists(*scene_cluster_bounds(outside),
+                                        rays8, 4096)
+    _, wn5 = ci.build_chunk_worklists(*scene_chunk_bounds(outside, 16), rays8,
+                                      4096)
+    for wn in (wn4, wn5):
+        assert int(wn[3]) == 0 and int(wn[2]) > 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("two_clusters", [False, True])
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_k4_k5_ties_on_card(dev, kernel, two_clusters, any_hit):
+    """test_k1_ties_on_card through K4 and K5 (one cluster a chunk): the
+    lowest slot of the earlier-visited cluster, as the plain version."""
+    from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
+    bounds, tables = _tie_tables(dev, two_clusters)
+    r = np.random.default_rng(9)
+    o = np.zeros((256, 3), np.float32)
+    o[:, :2] = r.uniform(-0.8, -0.1, (256, 2))
+    o = torch.from_numpy(o).to(dev)
+    d = torch.zeros_like(o)
+    d[:, 2] = 1.0
+    rays8, _ = ci.pack_rays8(o, d, 128, t_max=torch.full((256,), 3.0,
+                                                           device=dev))
+    kw = dict(has_tmax=True, any_hit=any_hit)
+    if kernel == "k4":
+        wl, wn = k4.build_cluster_worklists(*bounds, rays8, 128,
+                                            has_tmax=True)
+        args = (rays8, wl, wn, *tables, 128, 1e-4)
+        fn, plain = k4.stream_cl_intersect, k4.stream_cl_intersect_plain
+    else:
+        wl, wn = ci.build_chunk_worklists(*bounds, rays8, 128, has_tmax=True)
+        args = (rays8, wl, wn, torch.cat(bounds, 1).contiguous(), *tables,
+                128, 1, 1e-4)
+        fn = ci.worklist_chunk_intersect
+        plain = ci.worklist_chunk_intersect_plain
+    assert wl[:, 0].tolist() == [1, 1] and wn.tolist() == [2, 2]
+    ref = plain(*args, **kw)
+    got = fn(*args, **kw)
+    assert _same(got, ref, any_hit)
+    if any_hit:
+        assert (got[0] == -ci.BIG).all()
+    else:
+        assert (got[1] == (130 if two_clusters else 5)).all()
+
+
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_k4_k5_cluster_size_128(dev, kernel):
+    """K4 and K5 bit-equal to their plain versions on clusters of 128
+    triangles (S = 128, not 512), closest hit and any-hit."""
+    from logipathtracer_tpu_torch import RenderConfig, compile_scene
+    from logipathtracer_tpu_torch.scene.procedural import make_outside_scene
+    scene = compile_scene(
+        make_outside_scene(objects=8, n_materials=8, tri_budget=8000),
+        RenderConfig(cluster_size=128)).to(dev)
+    assert scene.cl_tris.shape[2] == 128
+    o, d, t_max = _outside_rays(8192, dev, seed=21)
+    for kw in (dict(), dict(has_tmax=True, any_hit=True)):
+        rays8, _ = ci.pack_rays8(o, d, 4096, t_max=t_max if kw else None)
+        got = _stream_call(kernel, scene, rays8, 4096, plain=False, **kw)
+        ref = _stream_call(kernel, scene, rays8, 4096, plain=True, **kw)
+        assert _same(got, ref, bool(kw))
+        assert 0 < int((got[0] < (t_max if kw else ci.BIG)).sum()) < 8192
+
+
 @pytest.mark.parametrize("route", [
     {}, dict(stream_granularity="chunk"), dict(stream_worklist=False),
     dict(stream_compact=False), dict(nee=True)])

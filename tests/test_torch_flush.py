@@ -73,12 +73,13 @@ def test_flush_rejects_other_devices():
 
 
 def test_flush_times_inputs_and_no_card(monkeypatch):
-    """tools/flush_times.py: its K3 tail is a -1 prefix then ascending
-    pixel ids, and it refuses to run without a card."""
-    from logipathtracer_tpu_torch.tools import flush_times
-    pix, acc = flush_times.make_tail(64, 256, 200, "cpu")
+    """tools/kernel_times.py flush: its K3 tail (tools/harness.py) is a
+    -1 prefix then ascending pixel ids, and it refuses to run without a
+    card."""
+    from logipathtracer_tpu_torch.tools import harness, kernel_times
+    pix, acc = harness.make_tail(64, 256, 200, "cpu")
     assert (pix[:56] == -1).all() and (pix[56:] >= 0).all()
     assert (pix[56:].diff() >= 0).all() and acc.shape == (256, 3)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA card"):
-        flush_times.main([])
+        kernel_times.main(["flush"])
