@@ -40,33 +40,36 @@ the root of a checkout it:
      51 objects, 1,233 clusters of 512) with the default RenderConfig,
      which routes it to K4 — (a) K4, K5 and K6 (cap 0 and cap > 0
      bodies) against their plain versions on the whole 2^20-ray primary
-     pool; K4 and K5 on a bounce pool, and K4 in its t_max / any-hit
-     mode on the shadow pool of one NEE step, on as many tiles of those
-     pools as the plain version covers in about 15 s (BOUNCE_TILES,
-     SHADOW_TILES), and timed on the whole pool too.  K4 and K5 (the
-     compacted visit) must equal their plain versions bit for bit (t,
-     tri and obj; t alone in any-hit), K6 agree under hits_agree.  The
-     count pass of each check prints what the compacted visit rests on:
-     the mean worklist length, the share of listed clusters that some
-     ray of a 256-ray block passes, and the cluster blocks staged per
-     launch by the one-thread-per-ray ring (every listed cluster, per
-     256-ray block) and by the kernel (what its blocks pass, or may
+     pool; K4, K5 and K6 cap > 0 on a bounce pool, and K4 and K6 cap > 0
+     in their t_max / any-hit mode on the shadow pool of one NEE step,
+     on as many tiles of those pools as the plain version covers in
+     about 15 s (BOUNCE_TILES, SHADOW_TILES, K6_BOUNCE_TILES,
+     K6_SHADOW_TILES), and timed on the whole pool too.  K4, K5 and K6
+     cap > 0 (the compacted visit) must equal their plain versions bit
+     for bit (t, tri and obj; t alone in any-hit), K6 cap 0 agree under
+     hits_agree.  The count pass of each check prints what the compacted
+     visit rests on: the mean list a tile visits, the share of listed
+     clusters that some ray of a 256-ray block passes, and the cluster
+     blocks staged per launch by a ring that stages every listed cluster
+     (per 256-ray block) and by the kernel (what its blocks pass, or may
      pass ahead with the prefetch); (b) the main path at 1024x1024,
      timed as in 4, which must run K4, K2 and K3, never K1 and no plain
-     version; (c) one 1024x1024 step(1) on each other route
-     (``stream_granularity="chunk"``: K5; ``stream_worklist=False``: K6
-     cap > 0; ``stream_compact=False``: K6 cap 0), each launching its
-     kernel, and the NEE route (``nee=True``: K4 any-hit) timed as in
-     4; (d) the 64x64 card-vs-CPU render of 5 on this path;
+     version; (c) each other route timed as in 4, each launching its
+     kernel (``stream_granularity="chunk"``: K5;
+     ``stream_worklist=False``: K6 cap > 0, also with NEE for its
+     any-hit mode; ``stream_compact=False``: K6 cap 0; ``nee=True``: K4
+     any-hit); (d) the 64x64 card-vs-CPU render of 5 on this path;
   8. the lockstep megakernel renderer (``renderer="megakernel"``) on the
      flagship box — (a) K7 (``compact_worklist=False``) and K8
      (``intersect="sweep"``) against their plain versions on the
      megakernel's 2^20-ray primary pool (camera rays in each route's
      block-major order, sorted by coherence key) and on its bounce pool
      after one bounce; K7 in its t_max / any-hit mode and K8 in its t_max
-     mode on that bounce's NEE shadow pool (and K7's plain version
-     once more before and after its check, without the count pass, to
-     show what that pass costs); (b) the megakernel main path
+     mode on that bounce's NEE shadow pool, K7 (the compacted visit) bit
+     for bit, K8 under hits_agree, K7's count pass printed as phase 7's
+     (and K7's plain version once more before and after its check,
+     without the count pass, to show what that pass costs); (b) the
+     megakernel main path
      at 1024x1024 through the worklist kernel, K1 and K2, timed as in 4;
      (c) one 1024x1024
      step(1) on each other route (K7, K7 any-hit with NEE, K8, K8 t_max
@@ -124,15 +127,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch  # noqa: E402
 
 from logipathtracer_tpu_torch.tools.harness import (  # noqa: E402
-    bounce_pool, device_ms, event_ms, make_tail, primary_pool, runner,
-    scene_tables, shadow_pool, timed_steps)
+    bounce_pool, device_ms, event_ms, make_tail, megakernel_pools,
+    primary_pool, runner, scene_tables, shadow_pool, timed_steps)
 
-# Tolerances.  K1, K4 and K5 (the compacted visit) must equal their
-# plain versions bit for bit; K2 and K6-K8 use the rules kept beside
-# their kernels (compact_intersect.hits_agree: t within rtol 2e-6 / atol
-# 1e-6, tri/obj differing only on t ties; shade.shade_agreement: at most
-# 0.5% of lanes with another seed or alive flag, floats close on the
-# rest).
+# Tolerances.  K1, K4, K5, K6's cap > 0 body and K7 (the compacted
+# visit) must equal their plain versions bit for bit; K2, K6's cap = 0
+# body and K8 use the rules kept beside their kernels
+# (compact_intersect.hits_agree: t within rtol 2e-6 / atol 1e-6, tri/obj
+# differing only on t ties; shade.shade_agreement: at most 0.5% of lanes
+# with another seed or alive flag, floats close on the rest).
 K3_RTOL, K3_ATOL = 1e-6, 1e-6           # f32 reassociation
 
 # Bounds (module docstring).  Operation counts, a divide or a compare
@@ -257,13 +260,14 @@ def plain_work(plain, **staging):
 
 
 def any_hit_saved(rays8, tri, obj, tables, eps):
-    """Triangle tests that any-hit lanes skip: the kernels stop at the
-    first accepted slot j of the cluster that blocks a lane
-    (closest_hit.cuh closest_in_cluster), so that visit makes j + 1
-    tests, not S.  Summed over the lanes the plain result blocks (tri >=
-    0).  The blocking cluster is the one of the lane's object with the
-    largest triangle base <= tri; the best t at that visit is still the
-    initial one, min(t_max, BIG)."""
+    """Triangle tests that any-hit lanes skip: the function needs only
+    the tests up to the first accepted slot j of the cluster that blocks
+    a lane (the kernels' closest_hit.cuh warp_closest stops within 32
+    slots of it), so that visit needs j + 1 tests, not S.  Summed over
+    the lanes the plain result blocks (tri >= 0).  The blocking cluster
+    is the one of the lane's object with the largest triangle base <=
+    tri; the best t at that visit is still the initial one, min(t_max,
+    BIG)."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     cl_meta, cl_inv, cl_aabb, cl_tris = tables
     s = cl_tris.shape[2]
@@ -667,6 +671,13 @@ def nee_phase(dev, card, flagship_rate):
 # finish in about 15 s, spread over the pool's live tiles.
 BOUNCE_TILES = 32                       # 2^17 rays
 SHADOW_TILES = 16                       # 2^16 rays
+K6_BOUNCE_TILES = 16                    # K6 visits every chunk: 2^16 rays
+K6_SHADOW_TILES = 8                     # 2^15 rays
+
+# The compacted-visit kernels, held bit for bit, and whether the form
+# each source builds stages the next cluster ahead by cp.async (K5's and
+# K6's prefetch) or gates then loads (K4, K7).
+COMPACTED = {"K4": False, "K5": True, "K6[cap>0]": True, "K7": False}
 
 
 def sub_pool(rays8, tile, n_live, tiles):
@@ -681,26 +692,25 @@ def sub_pool(rays8, tile, n_live, tiles):
 
 
 def staging(kind, r, tile):
-    """The count pass's ``staging`` for K4 or K5 on an R-ray pool: the
-    block and prefetch of its compacted visit (K4 gates then loads,
-    csrc/stream_cluster.cu; K5 prefetches, csrc/stream_chunk.cu); {} for
-    the others."""
+    """The count pass's ``staging`` for a compacted-visit kernel on an
+    R-ray pool: the block and prefetch of its compacted visit
+    (``COMPACTED``); {} for the others."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    if kind not in ("K4", "K5"):
+    if kind not in COMPACTED:
         return {}
     return dict(block=ci._block_threads(r, tile, kind),
-                prefetch=kind == "K5")
+                prefetch=COMPACTED[kind])
 
 
 def check_isect(kind, scene, rays8, tile, runs=10, **kw):
     """An intersect kernel against its plain version on one packed pool:
-    K4 and K5 (the compacted visit) bit for bit — t, tri and obj; t alone
-    with any_hit — the others under hits_agree, with any_hit the
-    visibility t < t_max on every lane.  Returns (max |dt|, kernel ms
+    the compacted-visit kernels (``COMPACTED``) bit for bit — t, tri and
+    obj; t alone with any_hit — the others under hits_agree, with any_hit
+    the visibility t < t_max on every lane.  Returns (max |dt|, kernel ms
     (median of ``runs``), plain ms (once), hit or blocked fraction,
-    bound, visits), all on that pool; visits (K4, K5): the count pass's
-    listed / passed / staged block visits and the mean worklist length
-    "wn", else None."""
+    bound, visits), all on that pool; visits (compacted kernels): the
+    count pass's listed / passed / staged block visits and the mean list
+    length "wn", else None."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     kernel, plain, inputs, wn = runner(kind, scene, rays8, tile, **kw)
     got = kernel()
@@ -738,20 +748,20 @@ def check_isect(kind, scene, rays8, tile, runs=10, **kw):
 
 def print_visits(kind, what, visits, s):
     """The numbers the compacted visit rests on (check_isect's visits):
-    the mean worklist, the share of listed clusters some ray of a 256-ray
-    block passes, and the cluster blocks (9 x S floats each) staged per
-    launch by the one-thread-per-ray ring — every listed cluster, per
-    256-ray block — and by the kernel."""
+    the mean list a tile visits, the share of listed clusters some ray of
+    a 256-ray block passes, and the cluster blocks (9 x S floats each)
+    staged per launch by a ring that stages every listed cluster, per
+    256-ray block, and by the kernel."""
     blk = 36 * s
     v = visits
-    unit = "chunks" if kind == "K5" else "clusters"
-    print(f"{kind} {what}: mean worklist {v['wn']:.1f} {unit}; "
+    unit = "chunks" if kind in ("K5", "K6[cap>0]") else "clusters"
+    print(f"{kind} {what}: mean list {v['wn']:.1f} {unit} a tile; "
           f"{v['listed']} (256-ray block, cluster) visits listed, "
           f"{v['passed'] / max(v['listed'], 1):.4f} of them passed by some "
           f"ray of the block; staged per launch: {v['listed'] * blk / 1e9:.3f}"
-          f" GB by the one-thread-per-ray ring, {v['staged'] * blk / 1e9:.3f}"
-          f" GB by the kernel ({v['block']}-ray blocks, prefetch "
-          f"{v['prefetch']})", flush=True)
+          f" GB by a ring staging every listed cluster, "
+          f"{v['staged'] * blk / 1e9:.3f} GB by the kernel ({v['block']}-ray "
+          f"blocks, prefetch {v['prefetch']})", flush=True)
 
 
 def outside_phase(dev, card):
@@ -783,7 +793,8 @@ def outside_phase(dev, card):
         r = check_isect(kind, scene, rays8, tile, **kw)
         res[key] = (*r[:5], rays8.shape[1])
         if r[5]:
-            print_visits(kind, f"{key} pool {rays8.shape[1]} rays", r[5], s)
+            pool = key[len(kind):].strip() or "primary"
+            print_visits(kind, f"{pool} pool {rays8.shape[1]} rays", r[5], s)
         return r
 
     probe = ProgressiveRenderer(host, cfg, host_seed=1, device=dev)
@@ -793,15 +804,16 @@ def outside_phase(dev, card):
     for kind in ("K4", "K5", "K6[cap=0]", "K6[cap>0]"):
         err, k_ms, p_ms, frac, b, _ = check(kind, kind, full8)
         print(f"{kind} primary pool {full8.shape[1]} rays: "
-              f"{'bit-equal, ' if kind in ('K4', 'K5') else ''}max|dt| "
+              f"{'bit-equal, ' if kind in COMPACTED else ''}max|dt| "
               f"{err:.3g}, hit {frac:.3f}, kernel {k_ms:.3f} ms, plain "
               f"{p_ms:.1f} ms (once), bound {b[0]:.4f} ms ({b[1]})",
               flush=True)
     pool = bounce_pool(probe)
     n_alive = int(pool["alive"].sum())
     full8, _ = ci.pack_rays8(pool["origin"], pool["direction"], tile)
-    sub8 = sub_pool(full8, tile, n_alive, BOUNCE_TILES)
-    for kind in ("K4", "K5"):
+    for kind, tiles in (("K4", BOUNCE_TILES), ("K5", BOUNCE_TILES),
+                        ("K6[cap>0]", K6_BOUNCE_TILES)):
+        sub8 = sub_pool(full8, tile, n_alive, tiles)
         k_full = event_ms(runner(kind, scene, full8, tile)[0], 10)
         err, k_ms, p_ms, _, b, _ = check(f"{kind} bounce", kind, sub8)
         print(f"{kind} bounce pool ({n_alive} alive): kernel {k_full:.3f} ms "
@@ -816,14 +828,17 @@ def outside_phase(dev, card):
     so, sd, t_max, n_alive = shadow_pool(probe)
     shadow = dict(has_tmax=True, any_hit=True)
     full8, _ = ci.pack_rays8(so, sd, tile, t_max=t_max)
-    k_full = event_ms(runner("K4", scene, full8, tile, **shadow)[0], 10)
-    sub8 = sub_pool(full8, tile, n_alive, SHADOW_TILES)
-    err, k_ms, p_ms, frac, b, _ = check("K4 any_hit", "K4", sub8, **shadow)
-    print(f"K4 t_max+any-hit shadow pool ({n_alive} lanes alive): kernel "
-          f"{k_full:.3f} ms on {full8.shape[1]} lanes; on {sub8.shape[1]} "
-          f"lanes the plain t on every lane, {frac:.3f} blocked, max|dt| "
-          f"{err:.3g}, kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms (once), "
-          f"bound {b[0]:.4f} ms ({b[1]}) [{card}]", flush=True)
+    for kind, tiles in (("K4", SHADOW_TILES), ("K6[cap>0]", K6_SHADOW_TILES)):
+        k_full = event_ms(runner(kind, scene, full8, tile, **shadow)[0], 10)
+        sub8 = sub_pool(full8, tile, n_alive, tiles)
+        err, k_ms, p_ms, frac, b, _ = check(f"{kind} any_hit", kind, sub8,
+                                            **shadow)
+        print(f"{kind} t_max+any-hit shadow pool ({n_alive} lanes alive): "
+              f"kernel {k_full:.3f} ms on {full8.shape[1]} lanes; on "
+              f"{sub8.shape[1]} lanes the plain t on every lane, {frac:.3f} "
+              f"blocked, max|dt| {err:.3g}, kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.1f} ms (once), bound {b[0]:.4f} ms ({b[1]}) [{card}]",
+              flush=True)
     del probe, so, sd, t_max, full8, sub8
 
     # (b) the main path
@@ -850,49 +865,33 @@ def outside_phase(dev, card):
     launches = {"K4": (counts["stream_cluster"][0], main_run)}
     del renderer
 
-    # (c) one step(1) at full width on each other route, and the NEE
-    # route timed as the main path
+    # (c) each other route and the NEE route, timed as the main path
     for label, kw, name, mode in (
             ("K5", dict(stream_granularity="chunk"), "worklist_chunk",
              "closest"),
             ("K6[cap>0]", dict(stream_worklist=False), "octant_chunk",
              "cap/closest"),
+            ("K6[cap>0] any_hit", dict(stream_worklist=False, nee=True),
+             "octant_chunk", "cap/any_hit"),
             ("K6[cap=0]", dict(stream_compact=False), "octant_chunk",
-             "cap0/closest")):
-        r = ProgressiveRenderer(host, cfg.replace(**kw), host_seed=2,
+             "cap0/closest"),
+            ("K4 any_hit", dict(nee=True), "stream_cluster", "any_hit")):
+        r = ProgressiveRenderer(host, cfg.replace(**kw), host_seed=0,
                                 device=dev)
         reset_counts()
-        t0 = time.perf_counter()
-        r.step(1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n, n_it = modes_of(name)[mode], r.last_iterations
+        sps_r, mrays_r, iters, rad = timed_steps(r)
+        n = modes_of(name)[mode]
         assert n > 0, f"{kw}: kernel {label} never launched"
         assert_no_plain()
-        launches[label] = (n, f"{cfg.width}^2 step(1) " + " ".join(
+        assert np.isfinite(rad).all() and 1e-3 < float(rad.mean()) < 10.0
+        launches[label] = (n, f"{cfg.width}^2 route " + " ".join(
             f"{k}={v}" for k, v in kw.items()))
-        rad = r.radiance()                  # drains the pool
-        assert np.isfinite(rad).all() and rad.mean() > 1e-3
-        print(f"route {json.dumps(kw)} {cfg.width}x{cfg.height} step(1): "
-              f"{label} launched {n} times in {n_it} iterations, "
-              f"{wall:.3f} s, mean radiance after the drain "
-              f"{float(rad.mean()):.6f}", flush=True)
+        print(f"route {json.dumps(kw)} {cfg.width}x{cfg.height} spp 4: "
+              f"{sps_r:.3f} samples/s, {mrays_r:.2f} Mrays/s (path rays), "
+              f"iterations per chunk {iters}, {label} launched {n} times in "
+              f"5 samples, mean radiance {float(rad.mean())!r}, rays "
+              f"{r.total_rays} [{card}]", flush=True)
         del r
-    r = ProgressiveRenderer(host, cfg.replace(nee=True), host_seed=0,
-                            device=dev)
-    reset_counts()
-    sps_nee, mrays_nee, iters, rad = timed_steps(r)
-    n = modes_of("stream_cluster")["any_hit"]
-    assert n > 0, "the NEE route never launched K4 any-hit"
-    assert_no_plain()
-    assert np.isfinite(rad).all() and 1e-3 < float(rad.mean()) < 10.0
-    launches["K4 any_hit"] = (n, f"{cfg.width}^2 NEE route")
-    print(f"outside NEE route {cfg.width}x{cfg.height} spp 4: "
-          f"{sps_nee:.3f} samples/s, {mrays_nee:.2f} Mrays/s (path rays), "
-          f"iterations per chunk {iters}, K4 any-hit launched {n} times in 5 "
-          f"samples, mean radiance {float(rad.mean()):.6f} [{card}]",
-          flush=True)
-    del r
 
     # (d) card vs CPU on the default route
     small = RenderConfig(width=64, height=64, pool_size=4096)
@@ -921,7 +920,11 @@ def outside_phase(dev, card):
                 ("octant_chunk[cap=0]", k6.SOURCE, k6.REPLACES, "K6[cap=0]",
                  "K6[cap=0]"),
                 ("octant_chunk[cap>0]", k6.SOURCE, k6.REPLACES_CAP,
-                 "K6[cap>0]", "K6[cap>0]"))]
+                 "K6[cap>0]", "K6[cap>0]"),
+                ("octant_chunk[cap>0 bounce]", k6.SOURCE, k6.REPLACES_CAP,
+                 "K6[cap>0]", "K6[cap>0] bounce"),
+                ("octant_chunk[cap>0 tmax+any_hit]", k6.SOURCE,
+                 k6.REPLACES_CAP, "K6[cap>0] any_hit", "K6[cap>0] any_hit"))]
 
 
 def wavefront_k7(host_scene, cfg, dev, card, flagship_rate):
@@ -946,49 +949,6 @@ def wavefront_k7(host_scene, cfg, dev, card, flagship_rate):
     print(f"K7 wavefront launches: {counts['compact_order'][0]} "
           f"(5 samples)", flush=True)
     return sps, mrays
-
-
-def megakernel_pools(renderer, seed_xy=(48271, 16807)):
-    """The megakernel's intersect inputs at the renderer's size: the
-    primary pool (every pixel's camera ray in the route's block-major
-    order, sorted by coherence key as sorted_intersect sorts them), the
-    pool of the second bounce (dead lanes parked, sorted) and that
-    bounce's NEE shadow pool (shadow rays in pixel order, through the
-    unsorted closure as trace_rays casts them).  Each is (origin,
-    direction[, t_max])."""
-    from logipathtracer_tpu_torch.ops.kernels import shade as sk
-    from logipathtracer_tpu_torch.render import megakernel as mk
-    cfg, dev, scene = renderer.config, renderer.device, renderer.scene
-    pix, _ = mk.block_pixels(cfg, scene, 0, cfg.render_height, dev)
-    cam = torch.from_numpy(renderer.camera_world).to(dev)
-    o, d, seed = mk.camera_rays(cfg, cam, renderer.fov_y,
-                                torch.tensor(seed_xy, device=dev), pix)
-    o, d = o.contiguous(), d.contiguous()
-
-    def in_key_order(o, d):
-        _, perm = torch.sort(mk.ray_sort_key(scene, o, d), stable=True)
-        return o[perm].contiguous(), d[perm].contiguous()
-
-    isect = mk.pick_intersect(cfg, scene)
-    n = o.shape[0]
-    t, obj, tri = mk.sorted_intersect(isect, scene, o, d, cfg.eps)
-    o1, d1, acc, mask, alive, seed, prev = mk.shade_step(
-        scene, cfg, o, d, torch.zeros_like(o), torch.ones_like(o),
-        torch.ones(n, dtype=torch.bool, device=dev), seed, 0, t, obj, tri)
-    oi = torch.where(alive[:, None], o1, 1e30)
-    di = torch.where(alive[:, None], d1, 1.0)
-    t, obj, tri = mk.sorted_intersect(isect, scene, oi, di, cfg.eps)
-    out = sk.shade(scene.tri_shade, o1, d1, acc, mask, alive, seed,
-                   torch.ones(n, dtype=torch.int32, device=dev), t, tri,
-                   env=cfg.env_color, rr_threshold=cfg.rr_threshold,
-                   rr_bounces=cfg.rr_bounces, max_order=cfg.heitz_max_order,
-                   parity=cfg.parity_rng, light_tris=scene.light_tris,
-                   light_cdf=scene.light_cdf, prev_pdf=prev,
-                   nee_mis=cfg.nee_mis,
-                   total_light_area=float(scene.total_light_area))
-    return (in_key_order(o, d), in_key_order(oi, di),
-            (out[7].contiguous(), out[8].contiguous(), out[9].contiguous()),
-            int(alive.sum()))
 
 
 def megakernel_phase(dev, card):
@@ -1032,10 +992,14 @@ def megakernel_phase(dev, card):
                       f"pass: {bare_ms[0]:.1f} ms before, {bare_ms[1]:.1f} "
                       f"after, {r[2]:.1f} with it", flush=True)
             res[kind, pool] = (*r[:5], rays8.shape[1])
+            if r[5]:
+                print_visits(kind, f"megakernel {pool} pool", r[5],
+                             probe.scene.cl_tris.shape[2])
             what = ("blocked" if t_max else "hit")
             print(f"{kind} megakernel {pool} pool {rays8.shape[1]} rays"
                   + (f" ({n_alive} alive)" if pool == "bounce" else "")
                   + (f" {json.dumps(kw)}" if kw else "")
+                  + (": bit-equal" if kind in COMPACTED else "")
                   + f": max|dt| {r[0]:.3g}, {what} {r[3]:.3f}, kernel "
                   f"{r[1]:.3f} ms, plain {r[2]:.1f} ms (once), bound "
                   f"{r[4][0]:.4f} ms ({r[4][1]})", flush=True)
@@ -1117,6 +1081,8 @@ def megakernel_phase(dev, card):
             for name, src, where, key, kind, pool in (
                 ("compact_order", ci.ORDER_SOURCE, ci.ORDER_REPLACES, "K7",
                  "K7", "primary"),
+                ("compact_order[bounce]", ci.ORDER_SOURCE, ci.ORDER_REPLACES,
+                 "K7", "K7", "bounce"),
                 ("compact_order[tmax+any_hit]", ci.ORDER_SOURCE,
                  ci.ORDER_REPLACES, "K7 any_hit", "K7", "shadow"),
                 ("dense_sweep", k8.SWEEP_SOURCE, k8.SWEEP_REPLACES, "K8",

@@ -2,12 +2,12 @@
 // (compact_intersect.cu), K4 (stream_cluster.cu), K5 and K6
 // (stream_chunk.cu), K7 and K8 (cluster_sweep.cu).  They compute one
 // function with different cluster visit orders; this header holds the
-// function, the one-thread-per-ray cluster-visit loop of K6-K8
-// (visit_clusters), the per-octant order kernel of K7 and K8
-// (cluster_order_kernel), K1's kernel, whose visits queue the rays that
-// pass a cluster's slab for whole warps to work through
-// (compact_list_kernel), and the same compacted visit for K4 and K5 as
-// a device function (compact_visit).
+// function, K1's kernel, whose visits queue the rays that pass a
+// cluster's slab for whole warps to work through (compact_list_kernel),
+// the same compacted visit for K4-K7 as a device function
+// (compact_visit), and the sub-tile visit of K6's cap = 0 body and K8,
+// where every ray of a 128-ray block runs a cluster's triangle test once
+// one of them passes its slab (visit_clusters).
 //
 // Per ray and visited cluster: transform the ray into the cluster
 // object's space; slab-test the cluster AABB against the running best t
@@ -31,7 +31,7 @@
 namespace lpt {
 
 constexpr float kInf = 3.4e38f;  // miss t (shaders/common/constants.glsl:9)
-constexpr float kBig = 1e30f;    // internal miss sentinel of K1, K4, K5
+constexpr float kBig = 1e30f;    // internal miss sentinel of K1, K4-K7
 
 __device__ __forceinline__ float nmin(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
@@ -131,26 +131,21 @@ __device__ __forceinline__ float mt(const float* tri, int S, int s,
 }
 
 // The S triangles of one staged cluster against ray l: accept t > eps
-// strictly closer than best (lowest slot on ties); any_hit parks best
-// at -kBig on the first accepted hit.
+// strictly closer than best (lowest slot on ties).
 __device__ __forceinline__ void closest_in_cluster(
     const float* tri, int S, const Ray& l, float eps, int base, int obj,
-    bool any_hit, float& best, int& btri, int& bobj) {
+    float& best, int& btri, int& bobj) {
   for (int s = 0; s < S; ++s) {
     const float t = mt(tri, S, s, l);
     if (t > eps && t < best) {
       best = t;
       btri = base + s;
       bobj = obj;
-      if (any_hit) {
-        best = -kBig;  // blocked: no later test can pass
-        break;
-      }
     }
   }
 }
 
-// ---- staging: cp.async (K4, K5, K6) or plain loads (K1, K7, K8) ---------
+// ---- staging: cp.async (K5, K6) or plain loads (K1, K4, K7, K8) ---------
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -165,29 +160,27 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Visit n clusters, the k-th being cluster_at(k), for the block's rays,
-// one thread per ray (K6, K7, K8).
-// Every thread of the block makes the same n trips (n and cluster_at
-// are block-uniform), so __syncthreads_or and the shared memory stay
-// uniform; any-hit lanes that are blocked keep looping and fail every
-// slab.  A cluster is tested when some ray of the block passes its slab
-// (the block-uniform __syncthreads_or gate).  Its [9, S] block reaches
-// shared memory in one of two ways:
-//   kStages == 0 (gate before load, K7, K8): copied into `ring` after
-//     the gate passes, so a cluster no ray passes is never read;
+// The sub-tile visit (K6's cap = 0 body, K8): visit n clusters, the
+// k-th being cluster_at(k), for the block's rays, one thread per ray.
+// Every thread of the block makes the same n trips (n and cluster_at are
+// block-uniform), so __syncthreads_or and the shared memory stay
+// uniform.  Once some ray of the block passes a cluster's slab (the
+// block-uniform __syncthreads_or gate), every ray of the block runs its
+// triangle test, not only the rays whose own slab passed.  The cluster's
+// [9, S] block reaches shared memory in one of two ways:
+//   kStages == 0 (gate before load, K8): copied into `ring` after the
+//     gate passes, so a cluster no ray passes is never read;
 //   kStages >= 2 (ring, K6): copied into ring stage k % kStages with
 //     cp.async kStages - 1 trips ahead, while the block tests the
 //     clusters before it; every listed cluster is loaded, tested or not.
-// kSubtile (K6's cap=0 body): every ray of the block runs the triangle
-// test, not only the rays whose own slab passed.  ring holds
-// ring_bytes<kStages>(S) bytes, 16-byte aligned; with a ring, S is a
-// multiple of 4.
-template <int kStages, bool kSubtile, class ClusterAt>
+// ring holds ring_bytes<kStages>(S) bytes, 16-byte aligned; with a ring,
+// S is a multiple of 4.
+template <int kStages, class ClusterAt>
 __device__ __forceinline__ void visit_clusters(
     ClusterAt cluster_at, int n, float* ring, const float* __restrict__ tris,
     int S, const int* __restrict__ meta, const float* __restrict__ inv,
-    const float* __restrict__ aabb, const Ray& w, float eps, bool any_hit,
-    float& best, int& btri, int& bobj) {
+    const float* __restrict__ aabb, const Ray& w, float eps, float& best,
+    int& btri, int& bobj) {
   static_assert(kStages == 0 || kStages >= 2, "gate-first or a ring");
   const int blk = 9 * S;
   auto issue = [&](int k) {
@@ -224,59 +217,13 @@ __device__ __forceinline__ void visit_clusters(
       for (int i = threadIdx.x; i < blk; i += blockDim.x) ring[i] = src[i];
       __syncthreads();
     }
-    if (kSubtile || hit)
-      closest_in_cluster(staged, S, l, eps, base, obj,
-                         kSubtile ? false : any_hit, best, btri, bobj);
+    closest_in_cluster(staged, S, l, eps, base, obj, best, btri, bobj);
     __syncthreads();  // the staged block is rewritten on a later trip
   }
   if constexpr (kStages > 0) cp_async_wait<0>();
 }
 
-// Closest hit visiting every cluster in a per-octant order (K7 with
-// kSubtile false, K8 with kSubtile true; gate before load): one thread
-// per ray, a block holds blockDim.x consecutive rays of one `tile`-ray
-// tile and visits all C clusters order[oct[ti], :].  oct [tiles] is the
-// direction octant of each tile's first ray, computed on the host side:
-// the octant belongs to the whole tile, not to the block.
-// kSubtile false (K7): K1's contract — best t from min(rays8[6], kBig)
-// with has_tmax, else kBig; any-hit parking; miss t = kInf.
-// kSubtile true (K8, 128-thread blocks = the TPU kernel's 128-ray
-// sub-tiles): best t from rays8[6] unclamped with has_tmax, else kInf;
-// every ray of the block runs the triangle test once some ray passes the
-// slab; any_hit ignored; t is the best as it stands without has_tmax,
-// kInf where no hit was accepted with it.
-template <bool kSubtile>
-__global__ void cluster_order_kernel(const float* __restrict__ rays8, int R,
-                                     const int* __restrict__ oct,
-                                     const int* __restrict__ order, int C,
-                                     int tile, const int* __restrict__ meta,
-                                     const float* __restrict__ inv,
-                                     const float* __restrict__ aabb,
-                                     const float* __restrict__ tris, int S,
-                                     float eps, int has_tmax, int any_hit,
-                                     float* __restrict__ t_out,
-                                     int* __restrict__ tri_out,
-                                     int* __restrict__ obj_out) {
-  extern __shared__ __align__(16) float ring[];
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const int ti = (blockIdx.x * blockDim.x) / tile;
-  const Ray w = load_ray(rays8, R, r);
-  float best;
-  if (kSubtile)
-    best = has_tmax ? rays8[6 * R + r] : kInf;
-  else
-    best = has_tmax ? nmin(rays8[6 * R + r], kBig) : kBig;
-  int btri = -1, bobj = -1;
-  const int* ord = order + static_cast<size_t>(oct[ti]) * C;
-  visit_clusters<0, kSubtile>([ord](int k) { return ord[k]; }, C, ring,
-                              tris, S, meta, inv, aabb, w, eps, any_hit != 0,
-                              best, btri, bobj);
-  t_out[r] = (kSubtile && !has_tmax) || btri >= 0 ? best : kInf;
-  tri_out[r] = btri;
-  obj_out[r] = bobj;
-}
-
-// ---- compacted visits (K1, K4, K5) ---------------------------------------
+// ---- compacted visits (K1, K4-K7) ----------------------------------------
 
 // The triangle test of one queued ray by one warp.  Lane l tests slots
 // l, l + 32, ... of the staged [9, S] block (consecutive lanes read
@@ -332,7 +279,7 @@ __device__ __forceinline__ int warp_closest(const float* tri, int S,
 // one `tile`-ray tile (a multiple of 32) and visits the tile's list
 // wl[ti, :wn[ti]] in order.  Per listed cluster:
 //   1. every thread transforms its ray and slab-tests the cluster AABB
-//      against its running best (as visit_clusters does);
+//      against its running best;
 //   2. the passing rays enter a shared-memory queue — a warp ballot, the
 //      lane's prefix within it and the warp's offset from the per-warp
 //      counts — with their local ray and best, each owner keeping its
@@ -459,7 +406,7 @@ __device__ __forceinline__ VisitQueue carve_queue(float* smem, int S,
 }
 
 // Visit n clusters, the k-th being cluster_at(k), with the rays that
-// pass each one's slab compacted into a queue (K4, K5; K1's
+// pass each one's slab compacted into a queue (K4-K7; K1's
 // compact_list_kernel makes the same visit in a loop of its own).  One
 // thread per ray owns its best (t, tri, obj); n and cluster_at are
 // block-uniform.  Per cluster:
@@ -497,8 +444,8 @@ __device__ __forceinline__ VisitQueue carve_queue(float* smem, int S,
 //     then a multiple of 4 and tris 16-byte aligned.
 // A gate publishes its counts with one barrier; a tested cluster adds
 // two (block staged and queue written; answers written).  K4 runs it as
-// <false, 4>, K5 as <true, 1>: the fastest forms measured on the card
-// for each (PERF.md).
+// <false, 4>, K5 as <true, 1>, K6 (cap > 0) and K7 as their sources say:
+// the fastest forms measured on the card for each (PERF.md).
 template <bool kPrefetch, int kBatch, class ClusterAt>
 __device__ __forceinline__ void compact_visit(
     ClusterAt cluster_at, int n, const VisitQueue& q,

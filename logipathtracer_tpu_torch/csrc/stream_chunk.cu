@@ -15,15 +15,15 @@
 // Per visited chunk, both re-test the chunk's world AABB against the
 // world ray with the live best t (_slab); when some ray of the block
 // passes, each member cluster c < num_real is visited as in K1 (local
-// ray, _slab_inv, Moller-Trumbore; closest_hit.cuh).  K5 visits the
-// members through compact_visit, the TPU kernel's own design (the rays
-// that pass a member's slab compacted before the triangle tests): the
-// passing rays are queued, whole warps test one queued ray each, a
-// member no ray passes is never read, and the next member that some ray
-// may pass is staged by cp.async while the warps test the one before.
-// K6 visits them one thread per ray (visit_clusters), each member's
-// 9 x S floats staged in a cp.async ring (a whole 16-cluster chunk is
-// 288 KB at S = 512, beyond a block's shared memory).
+// ray, _slab_inv, Moller-Trumbore; closest_hit.cuh).  K5 and K6's cap > 0
+// body visit the members through compact_visit, the TPU kernel's own
+// design (the rays that pass a member's slab compacted before the
+// triangle tests): the passing rays are queued, whole warps test one
+// queued ray each, and a member no ray passes is never read.  K6's
+// cap = 0 body visits them through the sub-tile visit (visit_clusters),
+// each member's 9 x S floats staged in a cp.async ring (a whole
+// 16-cluster chunk is 288 KB at S = 512, beyond a block's shared
+// memory).
 //
 // K5 and K6 with cap > 0 keep K1's contract: best t starts at
 // min(rays8[6], BIG) with has_tmax, else BIG; any-hit parking; miss
@@ -39,8 +39,8 @@
 // a chunk's world box but passes a member cluster's local box, which
 // rounding alone can cause.
 // Bound: operations, as for K1, plus each cluster block's load latency,
-// which the prefetch (K5) or the ring (K6) hides behind the previous
-// member's tests.
+// which the prefetch (K5, K6 cap > 0) or the ring (K6 cap = 0) hides
+// behind the previous member's tests.
 
 #include "closest_hit.cuh"
 
@@ -49,7 +49,13 @@ namespace {
 using lpt::kBig;
 using lpt::kInf;
 
-constexpr int kStages = 3;
+constexpr int kStages = 3;  // the cap = 0 body's cp.async ring
+
+// K5's and K6's (cap > 0) form of compact_visit: the next member staged
+// by cp.async a cluster ahead (PERF.md: <true, 1> and <false, 4>
+// measured for each).
+constexpr bool kPrefetch = true;
+constexpr int kBatch = 1;
 
 struct Scene {
   const int* meta;
@@ -76,24 +82,30 @@ __device__ __forceinline__ int chunk_members(int jc, const Scene& sc) {
   return min(sc.chunk, sc.num_real - jc * sc.chunk);
 }
 
-// K6's chunk: the chunk test, then the members one thread per ray.
-template <bool kSubtile>
-__device__ __forceinline__ void visit_chunk(int jc, const Scene& sc,
-                                            float* ring, const lpt::Ray& w,
-                                            float wix, float wiy, float wiz,
-                                            bool any_hit, float& best,
-                                            int& btri, int& bobj) {
-  if (!chunk_passes(jc, sc, w, wix, wiy, wiz, best)) return;
-  const int c0 = jc * sc.chunk;
-  lpt::visit_clusters<kStages, kSubtile>(
-      [c0](int k) { return c0 + k; }, chunk_members(jc, sc), ring, sc.tris,
-      sc.S, sc.meta, sc.inv, sc.aabb, w, sc.eps, any_hit, best, btri, bobj);
+// The chunks list[0 .. n) for the block's rays: per chunk the block-wide
+// chunk test with the live best, then the members c < num_real through
+// compact_visit (list and n block-uniform).
+__device__ __forceinline__ void visit_chunks(const int* __restrict__ list,
+                                             int n, const Scene& sc,
+                                             const lpt::VisitQueue& q,
+                                             const lpt::Ray& w, bool any_hit,
+                                             float& best, int& btri,
+                                             int& bobj) {
+  const float wix = 1.0f / w.dx, wiy = 1.0f / w.dy, wiz = 1.0f / w.dz;
+  for (int j = 0; j < n; ++j) {
+    const int jc = list[j];
+    if (!chunk_passes(jc, sc, w, wix, wiy, wiz, best)) continue;
+    const int c0 = jc * sc.chunk;
+    lpt::compact_visit<kPrefetch, kBatch>(
+        [c0](int k) { return c0 + k; }, chunk_members(jc, sc), q, sc.tris,
+        sc.S, sc.meta, sc.inv, sc.aabb, w, sc.eps, any_hit, best, btri,
+        bobj);
+  }
 }
 
 // K5: a block of blockDim.x <= 256 rays of one tile visits the tile's
-// fired chunks, each chunk's members through compact_visit with the
-// prefetch (gates batched a barrier were measured slower, PERF.md).
-// Launch bounds as K1's (64 registers); shared memory: visit_bytes.
+// fired chunks wl[ti, :wn[ti]].  Launch bounds as K1's (64 registers);
+// shared memory: visit_bytes.
 __global__ void __launch_bounds__(256, 4)
     worklist_chunk_kernel(const float* __restrict__ rays8, int R,
                           const int* __restrict__ wl,
@@ -103,35 +115,54 @@ __global__ void __launch_bounds__(256, 4)
                           int* __restrict__ tri_out,
                           int* __restrict__ obj_out) {
   extern __shared__ __align__(16) float smem[];
-  const lpt::VisitQueue q = lpt::carve_queue(smem, sc.S, blockDim.x, true);
+  const lpt::VisitQueue q = lpt::carve_queue(smem, sc.S, blockDim.x, kPrefetch);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const int ti = (blockIdx.x * blockDim.x) / tile;
   const lpt::Ray w = lpt::load_ray(rays8, R, r);
-  const float wix = 1.0f / w.dx, wiy = 1.0f / w.dy, wiz = 1.0f / w.dz;
   float best = has_tmax ? lpt::nmin(rays8[6 * R + r], kBig) : kBig;
   int btri = -1, bobj = -1;
-  const int n = wn[ti];
-  for (int j = 0; j < n; ++j) {
-    const int jc = wl[static_cast<size_t>(ti) * NC + j];
-    if (!chunk_passes(jc, sc, w, wix, wiy, wiz, best)) continue;
-    const int c0 = jc * sc.chunk;
-    lpt::compact_visit<true, 1>(
-        [c0](int k) { return c0 + k; }, chunk_members(jc, sc), q, sc.tris,
-        sc.S, sc.meta, sc.inv, sc.aabb, w, sc.eps, any_hit != 0, best, btri,
-        bobj);
-  }
+  visit_chunks(wl + static_cast<size_t>(ti) * NC, wn[ti], sc, q, w,
+               any_hit != 0, best, btri, bobj);
   t_out[r] = btri >= 0 ? best : kInf;
   tri_out[r] = btri;
   obj_out[r] = bobj;
 }
 
-template <bool kSubtile>
+// K6's cap > 0 body: a block of blockDim.x <= 256 rays of one tile visits
+// all NC chunks order[oct[ti], :], none when live[ti] == 0.  Launch
+// bounds and shared memory as K5's.
+__global__ void __launch_bounds__(256, 4)
+    octant_compact_kernel(const float* __restrict__ rays8, int R,
+                          const int* __restrict__ oct,
+                          const int* __restrict__ order,
+                          const int* __restrict__ live, int NC, int tile,
+                          Scene sc, int has_tmax, int any_hit,
+                          float* __restrict__ t_out,
+                          int* __restrict__ tri_out,
+                          int* __restrict__ obj_out) {
+  extern __shared__ __align__(16) float smem[];
+  const lpt::VisitQueue q = lpt::carve_queue(smem, sc.S, blockDim.x, kPrefetch);
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ti = (blockIdx.x * blockDim.x) / tile;
+  const lpt::Ray w = lpt::load_ray(rays8, R, r);
+  float best = has_tmax ? lpt::nmin(rays8[6 * R + r], kBig) : kBig;
+  int btri = -1, bobj = -1;
+  visit_chunks(order + static_cast<size_t>(oct[ti]) * NC, live[ti] ? NC : 0,
+               sc, q, w, any_hit != 0, best, btri, bobj);
+  t_out[r] = btri >= 0 ? best : kInf;
+  tri_out[r] = btri;
+  obj_out[r] = bobj;
+}
+
+// K6's cap = 0 body: a block of 128 rays (a sub-tile) of one tile visits
+// all NC chunks order[oct[ti], :], none when live[ti] == 0; each chunk's
+// members through the sub-tile visit and the cp.async ring.
 __global__ void octant_chunk_kernel(const float* __restrict__ rays8, int R,
                                     const int* __restrict__ oct,
                                     const int* __restrict__ order,
                                     const int* __restrict__ live, int NC,
                                     int tile, Scene sc, int has_tmax,
-                                    int any_hit, float* __restrict__ t_out,
+                                    float* __restrict__ t_out,
                                     int* __restrict__ tri_out,
                                     int* __restrict__ obj_out) {
   extern __shared__ __align__(16) float ring[];  // [kStages, 9, S]
@@ -139,19 +170,21 @@ __global__ void octant_chunk_kernel(const float* __restrict__ rays8, int R,
   const int ti = (blockIdx.x * blockDim.x) / tile;
   const lpt::Ray w = lpt::load_ray(rays8, R, r);
   const float wix = 1.0f / w.dx, wiy = 1.0f / w.dy, wiz = 1.0f / w.dz;
-  float best;
-  if (kSubtile)
-    best = has_tmax ? rays8[6 * R + r] : kInf;
-  else
-    best = has_tmax ? lpt::nmin(rays8[6 * R + r], kBig) : kBig;
+  float best = has_tmax ? rays8[6 * R + r] : kInf;
   int btri = -1, bobj = -1;
   if (live[ti]) {
     const int* ord = order + static_cast<size_t>(oct[ti]) * NC;
-    for (int j = 0; j < NC; ++j)
-      visit_chunk<kSubtile>(ord[j], sc, ring, w, wix, wiy, wiz,
-                            !kSubtile && any_hit != 0, best, btri, bobj);
+    for (int j = 0; j < NC; ++j) {
+      const int jc = ord[j];
+      if (!chunk_passes(jc, sc, w, wix, wiy, wiz, best)) continue;
+      const int c0 = jc * sc.chunk;
+      lpt::visit_clusters<kStages>(
+          [c0](int k) { return c0 + k; }, chunk_members(jc, sc), ring,
+          sc.tris, sc.S, sc.meta, sc.inv, sc.aabb, w, sc.eps, best, btri,
+          bobj);
+    }
   }
-  t_out[r] = (kSubtile && !has_tmax) || btri >= 0 ? best : kInf;
+  t_out[r] = !has_tmax || btri >= 0 ? best : kInf;
   tri_out[r] = btri;
   obj_out[r] = bobj;
 }
@@ -180,7 +213,7 @@ extern "C" int lpt_worklist_chunk_intersect(
     void* tri, void* obj, void* stream) {
   const Scene sc =
       make_scene(meta, inv, aabb, tris, chunk_aabb, S, chunk, num_real, eps);
-  const size_t smem = lpt::visit_bytes(S, threads, true, 1);
+  const size_t smem = lpt::visit_bytes(S, threads, kPrefetch, kBatch);
   const int e = lpt::prepare(worklist_chunk_kernel, smem);
   if (e) return e;
   worklist_chunk_kernel<<<R / threads, threads, smem,
@@ -192,7 +225,10 @@ extern "C" int lpt_worklist_chunk_intersect(
 }
 
 // K6: per-tile octant oct [tiles], per-octant chunk order [8, NC], live
-// flag [tiles]; subtile selects the cap = 0 body (threads must be 128).
+// flag [tiles]; subtile selects the cap = 0 body (threads must be 128;
+// any_hit is ignored), else the cap > 0 body (threads 128 or 256, a
+// divisor of tile).  Both stage by cp.async: S a multiple of 4, tris
+// 16-byte aligned.
 extern "C" int lpt_octant_chunk_intersect(
     const void* rays8, int R, const void* oct, const void* order,
     const void* live, int NC, int tile, int chunk, int num_real,
@@ -200,26 +236,30 @@ extern "C" int lpt_octant_chunk_intersect(
     const void* aabb, const void* tris, int S, float eps, int threads,
     int subtile, int has_tmax, int any_hit, void* t, void* tri, void* obj,
     void* stream) {
-  const size_t smem = lpt::ring_bytes<kStages>(S);
   const Scene sc =
       make_scene(meta, inv, aabb, tris, chunk_aabb, S, chunk, num_real, eps);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* rays = static_cast<const float*>(rays8);
+  const int* oc = static_cast<const int*>(oct);
+  const int* ord = static_cast<const int*>(order);
+  const int* lv = static_cast<const int*>(live);
+  float* t_out = static_cast<float*>(t);
+  int* tri_out = static_cast<int*>(tri);
+  int* obj_out = static_cast<int*>(obj);
   if (subtile) {
-    const int e = lpt::prepare(octant_chunk_kernel<true>, smem);
+    const size_t smem = lpt::ring_bytes<kStages>(S);
+    const int e = lpt::prepare(octant_chunk_kernel, smem);
     if (e) return e;
-    octant_chunk_kernel<true><<<R / threads, threads, smem, st>>>(
-        static_cast<const float*>(rays8), R, static_cast<const int*>(oct),
-        static_cast<const int*>(order), static_cast<const int*>(live), NC,
-        tile, sc, has_tmax, any_hit, static_cast<float*>(t),
-        static_cast<int*>(tri), static_cast<int*>(obj));
+    octant_chunk_kernel<<<R / threads, threads, smem, st>>>(
+        rays, R, oc, ord, lv, NC, tile, sc, has_tmax, t_out, tri_out,
+        obj_out);
   } else {
-    const int e = lpt::prepare(octant_chunk_kernel<false>, smem);
+    const size_t smem = lpt::visit_bytes(S, threads, kPrefetch, kBatch);
+    const int e = lpt::prepare(octant_compact_kernel, smem);
     if (e) return e;
-    octant_chunk_kernel<false><<<R / threads, threads, smem, st>>>(
-        static_cast<const float*>(rays8), R, static_cast<const int*>(oct),
-        static_cast<const int*>(order), static_cast<const int*>(live), NC,
-        tile, sc, has_tmax, any_hit, static_cast<float*>(t),
-        static_cast<int*>(tri), static_cast<int*>(obj));
+    octant_compact_kernel<<<R / threads, threads, smem, st>>>(
+        rays, R, oc, ord, lv, NC, tile, sc, has_tmax, any_hit, t_out,
+        tri_out, obj_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

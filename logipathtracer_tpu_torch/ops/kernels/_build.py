@@ -67,6 +67,14 @@ def _source_mtime(src: str) -> float:
     return max(os.path.getmtime(p) for p in [src, *headers])
 
 
+def nvcc_command(name: str, out: str, *extra: str) -> list[str]:
+    """The nvcc command that builds csrc/<name>.cu into ``out``."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            *EXTRA_FLAGS.get(name, []), *extra, "-o", out,
+            os.path.join(CSRC, name + ".cu")]
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu."""
     with _LOCK:
@@ -82,10 +90,8 @@ def load(name: str) -> ctypes.CDLL:
                 or os.path.getmtime(so) < _source_mtime(src)):
             t0 = time.perf_counter()
             tmp = so + f".{os.getpid()}.tmp"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   *EXTRA_FLAGS.get(name, []), "-o", tmp, src]
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            res = subprocess.run(nvcc_command(name, tmp),
+                                 capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
             os.replace(tmp, so)

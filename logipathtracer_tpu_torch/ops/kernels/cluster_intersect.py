@@ -14,8 +14,11 @@ of the direction octant of the tile's first ray; a tile whose origins
 are all parked (the x row only: min x >= 1e29) visits none.  Per chunk,
 a test of its world AABB with the live best t, then the member clusters
 c < C as in K1.  With cap > 0 the per-ray contract is K1's
-(``compact_intersect.py``).  The cap = 0 body differs, and the kernel
-and ``PlainSweep`` hold it by construction:
+(``compact_intersect.py``) and so is the design: the rays that pass a
+member's slab are compacted for whole warps (csrc/closest_hit.cuh
+``compact_visit``, K5's form), and the result is bit-equal to the plain
+version.  The cap = 0 body differs, and the kernel and ``PlainSweep``
+hold it by construction:
 
   * best t starts at INF, or at rays8[6] unclamped with ``has_tmax``;
   * without ``has_tmax``, t is the best t as it stands;

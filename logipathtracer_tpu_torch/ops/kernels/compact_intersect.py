@@ -55,8 +55,10 @@ chunks, with K1's per-ray contract.  It counts its launches in
 So does kernel K7: ``compact_order_intersect`` (csrc/cluster_sweep.cu)
 replaces ``cluster_intersect_compact(worklist=False)`` (``_compact_kernel``
 → ``_compact_loop``), K1's contract with every cluster visited in
-``cl_order[octant of the tile's first ray]`` and no prepass.  It counts
-its launches in ``order_launches`` / ``order_plain_calls``.
+``cl_order[octant of the tile's first ray]`` and no prepass, its rays
+compacted as K4's are (csrc/closest_hit.cuh ``compact_visit``), bit-equal
+to its plain version.  It counts its launches in ``order_launches`` /
+``order_plain_calls``.
 """
 
 from __future__ import annotations

@@ -155,6 +155,49 @@ def pools(host, cfg, dev, tile):
     return out
 
 
+def megakernel_pools(renderer, seed_xy=(48271, 16807)):
+    """The megakernel's intersect inputs at the renderer's size: the
+    primary pool (every pixel's camera ray in the route's block-major
+    order, sorted by coherence key as sorted_intersect sorts them), the
+    pool of the second bounce (dead lanes parked, sorted) and that
+    bounce's NEE shadow pool (shadow rays in pixel order, through the
+    unsorted closure as trace_rays casts them).  Each is (origin,
+    direction[, t_max]); then the second bounce's alive lanes."""
+    from logipathtracer_tpu_torch.ops.kernels import shade as sk
+    from logipathtracer_tpu_torch.render import megakernel as mk
+    cfg, dev, scene = renderer.config, renderer.device, renderer.scene
+    pix, _ = mk.block_pixels(cfg, scene, 0, cfg.render_height, dev)
+    cam = torch.from_numpy(renderer.camera_world).to(dev)
+    o, d, seed = mk.camera_rays(cfg, cam, renderer.fov_y,
+                                torch.tensor(seed_xy, device=dev), pix)
+    o, d = o.contiguous(), d.contiguous()
+
+    def in_key_order(o, d):
+        _, perm = torch.sort(mk.ray_sort_key(scene, o, d), stable=True)
+        return o[perm].contiguous(), d[perm].contiguous()
+
+    isect = mk.pick_intersect(cfg, scene)
+    n = o.shape[0]
+    t, obj, tri = mk.sorted_intersect(isect, scene, o, d, cfg.eps)
+    o1, d1, acc, mask, alive, seed, prev = mk.shade_step(
+        scene, cfg, o, d, torch.zeros_like(o), torch.ones_like(o),
+        torch.ones(n, dtype=torch.bool, device=dev), seed, 0, t, obj, tri)
+    oi = torch.where(alive[:, None], o1, 1e30)
+    di = torch.where(alive[:, None], d1, 1.0)
+    t, obj, tri = mk.sorted_intersect(isect, scene, oi, di, cfg.eps)
+    out = sk.shade(scene.tri_shade, o1, d1, acc, mask, alive, seed,
+                   torch.ones(n, dtype=torch.int32, device=dev), t, tri,
+                   env=cfg.env_color, rr_threshold=cfg.rr_threshold,
+                   rr_bounces=cfg.rr_bounces, max_order=cfg.heitz_max_order,
+                   parity=cfg.parity_rng, light_tris=scene.light_tris,
+                   light_cdf=scene.light_cdf, prev_pdf=prev,
+                   nee_mis=cfg.nee_mis,
+                   total_light_area=float(scene.total_light_area))
+    return (in_key_order(o, d), in_key_order(oi, di),
+            (out[7].contiguous(), out[8].contiguous(), out[9].contiguous()),
+            int(alive.sum()))
+
+
 def scene_tables(scene):
     """(cl_meta, cl_inv, cl_aabb, cl_tris): the intersect kernels' scene
     inputs, cl_inv the objects' 3x4 inverse rows."""
@@ -165,8 +208,9 @@ def scene_tables(scene):
 def runner(kind, scene, rays8, tile, chunk=16, **kw):
     """(kernel call, plain call, inputs, wn) of one intersect kernel — K1
     and the streamed (K4, K5, K6) or order (K7, K8) kinds — on a packed
-    pool, with the front end the main path gives it, computed once (wn:
-    the worklist lengths, None without a worklist)."""
+    pool, with the front end the main path gives it, computed once (wn
+    [tiles]: the clusters, for K5 and K6 the chunks, each tile lists —
+    its worklist, or every one, none on a K6 tile with live == 0)."""
     from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
@@ -181,8 +225,10 @@ def runner(kind, scene, rays8, tile, chunk=16, **kw):
                           ci.compact_order_intersect_plain) if kind == "K7"
                          else (k6.dense_sweep_intersect,
                                k6.dense_sweep_intersect_plain))
+        wn = torch.full((rays8.shape[1] // tile,), scene.cl_tris.shape[0],
+                        dtype=torch.int32, device=rays8.device)
         return (lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
-                args[:7], None)
+                args[:7], wn)
     if kind in ("K1", "K4"):
         build, kernel, plain = (
             (ci.build_chunk_worklists, ci.compact_wl_intersect,
@@ -209,7 +255,7 @@ def runner(kind, scene, rays8, tile, chunk=16, **kw):
     kw = dict(kw, cap=0 if kind == "K6[cap=0]" else 32)
     return (lambda: k6.octant_chunk_intersect(*args, **kw),
             lambda: k6.octant_chunk_intersect_plain(*args, **kw), args[:9],
-            None)
+            live * order.shape[1])
 
 
 def timed_steps(renderer, timed=(2, 2)):

@@ -1,11 +1,13 @@
 """Kernel times on the card for this checkout's package or another's:
 K3 beside ``index_add_`` (``flush``), and the compacted-visit intersect
-kernels K1, K4 and K5 with the outside main path's rate (``isect``).
+kernels K1, K4-K7 with the rates of the routes they serve (``isect``).
 
     python logipathtracer_tpu_torch/tools/kernel_times.py flush
         [--root DIR] [--label NAME] [--runs 50]
     python logipathtracer_tpu_torch/tools/kernel_times.py isect
         [--root DIR] [--label NAME] [--runs 10] [--main-runs N]
+    python logipathtracer_tpu_torch/tools/kernel_times.py ptxas
+        [--root DIR] [--label NAME]
 
 Times the ``logipathtracer_tpu_torch`` package under ``--root`` (default:
 the checkout that holds this script), so that an earlier commit, e.g. a
@@ -35,15 +37,25 @@ seeds (``harness.pools``): on ``make_outside_scene()`` under the default
 RenderConfig at 1024^2, which routes it to K4, the primary pool, the
 bounce pool after one step and that bounce's NEE shadow pool (t_max +
 any-hit); on the flagship box ``make_box_scene(spheres=10, subdiv=3)``
-(K1) the same three.  Each time is the median of ``--runs`` single calls
-between two CUDA events.
+(K1) the same three, and the megakernel's three pools of the route
+``compact_worklist=False`` (K7; ``harness.megakernel_pools``).  Each
+time is the median of ``--runs`` single calls between two CUDA events.
 
-  k4, k5, k1: ms per pool (K5 on the outside primary and bounce pools),
-              with the mean worklist length wn of K4's and K5's pools;
-  main:       with ``--main-runs N``: the outside main path N times, each
-              a fresh renderer (host seed 0): a warm-up step(1), then
-              step(2) twice, timed — samples/s, Mrays/s, mean radiance
-              and ray count.
+  k4, k6, k5, k1, k7: ms per pool (K6 is its cap > 0 body, the route
+              ``stream_worklist=False``; K5 on the outside primary and
+              bounce pools), with the mean list length wn of K4's, K5's
+              and K6's pools;
+  main:       with ``--main-runs N``: each route N times, each a fresh
+              renderer (host seed 0): a warm-up step(1), then step(2)
+              twice, timed — samples/s, Mrays/s, mean radiance and ray
+              count.  Routes: the outside main path (K4), the outside
+              with ``stream_worklist=False`` (K6 cap > 0), the flagship
+              wavefront and megakernel with ``compact_worklist=False``
+              (K7).
+
+``ptxas``: each source built as the package builds it, with ``-Xptxas
+-v``: per kernel, ptxas's lines on its registers, spills and shared
+memory.
 """
 
 from __future__ import annotations
@@ -99,25 +111,38 @@ def flush_times(h, dev, runs, npix=1 << 20, rows=1 << 20, retired=1 << 18):
     return out
 
 
+MAIN_ROUTES = {
+    "outside": ("outside", {}),
+    "outside stream_worklist=False": ("outside",
+                                      dict(stream_worklist=False)),
+    "wavefront compact_worklist=False": ("box",
+                                         dict(compact_worklist=False)),
+    "megakernel compact_worklist=False": (
+        "box", dict(renderer="megakernel", compact_worklist=False)),
+}
+
+
 def isect_times(h, dev, runs, main_runs):
-    """{"k4", "k5", "k1": ms per pool, "wn": mean worklist per K4 / K5
-    pool, "main": the outside main path's runs}."""
+    """{"k4", "k6", "k5", "k1", "k7": ms per pool, "wn": mean list per K4
+    / K5 / K6 pool, "main": each of MAIN_ROUTES' runs}."""
     from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
                                           compile_scene)
     from logipathtracer_tpu_torch.ops.kernels import _build
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.scene.procedural import (make_box_scene,
                                                            make_outside_scene)
     _build.load_all(("compact_intersect", "shade", "flush", "stream_cluster",
-                     "stream_chunk"))
-    out = {"k4": {}, "k5": {}, "k1": {}, "wn": {}}
+                     "stream_chunk", "cluster_sweep"))
+    out = {"k4": {}, "k6": {}, "k5": {}, "k1": {}, "k7": {}, "wn": {}}
     cfg = RenderConfig(width=1024, height=1024)
     outside = compile_scene(make_outside_scene())
     scene = outside.to(dev)
     tile = cfg.stream_tile
     for name, (rays8, kw) in h.pools(outside, cfg, dev, tile).items():
-        for kind in ("K4", "K5") if name != "shadow" else ("K4",):
+        for kind in (("K4", "K6[cap>0]", "K5") if name != "shadow" else
+                     ("K4", "K6[cap>0]")):
             kernel, _, _, wn = h.runner(kind, scene, rays8, tile, **kw)
-            out[kind.lower()][name] = h.event_ms(kernel, runs)
+            out[kind[:2].lower()][name] = h.event_ms(kernel, runs)
             out["wn"][f"{kind} {name}"] = float(wn.float().mean())
     box = compile_scene(make_box_scene(spheres=10, subdiv=3))
     btile = cfg.compact_tile
@@ -125,28 +150,61 @@ def isect_times(h, dev, runs, main_runs):
     for name, (rays8, kw) in h.pools(box, cfg, dev, btile).items():
         kernel = h.runner("K1", bscene, rays8, btile, **kw)[0]
         out["k1"][name] = h.event_ms(kernel, runs)
-    main = []
-    for _ in range(main_runs):
-        r = ProgressiveRenderer(outside, cfg, host_seed=0, device=dev)
-        sps, mrays, iters, rad = h.timed_steps(r)
-        main.append({"samples_per_s": sps, "mrays_per_s": mrays,
-                     "iterations": iters, "mean_radiance": float(rad.mean()),
-                     "rays": int(r.total_rays)})
-        del r
+    probe = ProgressiveRenderer(
+        box, cfg.replace(renderer="megakernel", compact_worklist=False),
+        host_seed=1, device=dev)
+    primary, bounce, shadow, _ = h.megakernel_pools(probe)
+    for name, (o, d, *t_max) in (("primary", primary), ("bounce", bounce),
+                                 ("shadow", shadow)):
+        kw = dict(has_tmax=True, any_hit=True) if t_max else {}
+        rays8, _ = ci.pack_rays8(o, d, btile,
+                                 t_max=t_max[0] if t_max else None)
+        kernel = h.runner("K7", probe.scene, rays8, btile, **kw)[0]
+        out["k7"][name] = h.event_ms(kernel, runs)
+    del probe, primary, bounce, shadow
+    main = {}
+    for route, (which, kw) in MAIN_ROUTES.items():
+        main[route] = []
+        for _ in range(main_runs):
+            r = ProgressiveRenderer(outside if which == "outside" else box,
+                                    cfg.replace(**kw), host_seed=0,
+                                    device=dev)
+            sps, mrays, iters, rad = h.timed_steps(r)
+            main[route].append({
+                "samples_per_s": sps, "mrays_per_s": mrays,
+                "iterations": iters, "mean_radiance": float(rad.mean()),
+                "rays": int(r.total_rays)})
+            del r
     out["main"] = main
+    return out
+
+
+def ptxas_report():
+    """{source: ptxas -v lines}: each csrc source compiled as ``_build``
+    compiles it, into the build directory, with ``-Xptxas -v``."""
+    from logipathtracer_tpu_torch.ops.kernels import _build
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    out = {}
+    for name in _build.EXTRA_FLAGS:
+        so = os.path.join(_build.BUILD_DIR, f"ptxas_{name}.so")
+        res = subprocess.run(_build.nvcc_command(name, so, "-Xptxas", "-v"),
+                             capture_output=True, text=True, check=True)
+        out[name] = [ln.strip() for ln in res.stderr.splitlines()
+                     if "Compiling entry" in ln or "Used" in ln
+                     or "spill" in ln]
     return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernels", choices=("flush", "isect"))
+    ap.add_argument("kernels", choices=("flush", "isect", "ptxas"))
     ap.add_argument("--root", default=_ROOT,
                     help="checkout whose logipathtracer_tpu_torch to time")
     ap.add_argument("--label", default=None)
     ap.add_argument("--runs", type=int, default=None,
                     help="calls per time (flush: 50, isect: 10)")
     ap.add_argument("--main-runs", type=int, default=0,
-                    help="isect: outside main path runs")
+                    help="isect: runs of each main route")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_times: needs a CUDA card")
@@ -162,7 +220,10 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    if args.kernels == "flush":
+    runs = None
+    if args.kernels == "ptxas":
+        res = {"ptxas": ptxas_report()}
+    elif args.kernels == "flush":
         runs = args.runs or 50
         res = flush_times(h, dev, runs)
     else:

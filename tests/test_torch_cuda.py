@@ -452,22 +452,48 @@ def _same(got, ref, any_hit):
     return all(torch.equal(g, r) for g, r in zip(got[:n], ref[:n]))
 
 
+def _compacted_call(kernel, scene, rays8, tile, plain, **kw):
+    """K4, K5 or K6's cap > 0 body (``_stream_call``), or K7
+    (``_order_call``)."""
+    if kernel == "k7":
+        return _order_call(kernel, scene, rays8, tile, plain, **kw)
+    return _stream_call(kernel, scene, rays8, tile, plain, **kw)
+
+
 @pytest.mark.parametrize("mode", ["closest", "tmax", "any_hit"])
-@pytest.mark.parametrize("kernel", ["k4", "k5"])
-def test_k4_k5_bit_equal_to_plain(outside, dev, kernel, mode):
-    """K4 and K5 (the compacted visit) equal their plain versions bit for
-    bit in every mode, on random and axis-aligned rays with a part-parked
-    tile and an all-parked tile (wn = 0)."""
-    o, d, t_max = _outside_rays(16384, dev)
+@pytest.mark.parametrize("kernel", ["k4", "k5", "k6", "k7"])
+def test_k4_k5_bit_equal_to_plain(request, dev, kernel, mode):
+    """K4, K5, K6's cap > 0 body and K7 (the compacted visit) equal their
+    plain versions bit for bit in every mode, on random and axis-aligned
+    rays with parked lanes: K4-K6 on the outside class with a part-parked
+    tile and an all-parked tile (wn = 0, live = 0), K7 on the box with a
+    tile led by parked lanes (octant 7) and an all-parked tile."""
+    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
     tile, has_tmax = 4096, mode != "closest"
     kw = dict(has_tmax=has_tmax, any_hit=mode == "any_hit")
+    if kernel == "k7":
+        scene = request.getfixturevalue("scene")
+        o, d = _rays(16384, dev, seed=15)
+        o[tile:tile + 50] = 1e30
+        d[tile:tile + 50] = 1.0
+        t_max = torch.from_numpy(np.random.default_rng(16).uniform(
+            0.05, 4.0, 16384).astype(np.float32)).to(dev)
+    else:
+        scene = request.getfixturevalue("outside")
+        o, d, t_max = _outside_rays(16384, dev)
+    parked = o[:, 0] >= 1e29
     rays8, _ = ci.pack_rays8(o, d, tile, t_max=t_max if has_tmax else None)
-    ref = _stream_call(kernel, outside, rays8, tile, plain=True, **kw)
-    got = _stream_call(kernel, outside, rays8, tile, plain=False, **kw)
+    if kernel == "k6":
+        assert k6.tile_front(rays8, tile)[1].tolist() == [1, 1, 1, 0]
+    if kernel == "k7":
+        assert int(ci.tile_octants(rays8, tile)[1]) == 7
+    ref = _compacted_call(kernel, scene, rays8, tile, True, **kw)
+    got = _compacted_call(kernel, scene, rays8, tile, False, **kw)
     assert _same(got, ref, kw["any_hit"])
     hit = got[0] < (t_max if has_tmax else ci.BIG)
-    assert 0 < int(hit.sum()) < 12188
-    assert not bool(hit[12188:].any())       # the parked lanes
+    assert 0 < int(hit.sum()) < int((~parked).sum())
+    assert not bool(hit[parked].any())
+    assert bool(parked[-tile:].all())          # an all-parked tile
 
 
 def test_k4_k5_empty_worklists(outside, dev):
@@ -486,10 +512,13 @@ def test_k4_k5_empty_worklists(outside, dev):
 
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("two_clusters", [False, True])
-@pytest.mark.parametrize("kernel", ["k4", "k5"])
+@pytest.mark.parametrize("kernel", ["k4", "k5", "k6", "k7"])
 def test_k4_k5_ties_on_card(dev, kernel, two_clusters, any_hit):
-    """test_k1_ties_on_card through K4 and K5 (one cluster a chunk): the
-    lowest slot of the earlier-visited cluster, as the plain version."""
+    """test_k1_ties_on_card through K4, K5 and K6's cap > 0 body (one
+    cluster a chunk; each visits the nearer cluster first) and K7 (in the
+    order cluster 0, 1): the lowest slot of the earlier-visited cluster,
+    as the plain version."""
+    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
     from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
     bounds, tables = _tie_tables(dev, two_clusters)
     r = np.random.default_rng(9)
@@ -506,26 +535,44 @@ def test_k4_k5_ties_on_card(dev, kernel, two_clusters, any_hit):
                                             has_tmax=True)
         args = (rays8, wl, wn, *tables, 128, 1e-4)
         fn, plain = k4.stream_cl_intersect, k4.stream_cl_intersect_plain
-    else:
+        assert wl[:, 0].tolist() == [1, 1] and wn.tolist() == [2, 2]
+    elif kernel == "k5":
         wl, wn = ci.build_chunk_worklists(*bounds, rays8, 128, has_tmax=True)
         args = (rays8, wl, wn, torch.cat(bounds, 1).contiguous(), *tables,
                 128, 1, 1e-4)
         fn = ci.worklist_chunk_intersect
         plain = ci.worklist_chunk_intersect_plain
-    assert wl[:, 0].tolist() == [1, 1] and wn.tolist() == [2, 2]
+        assert wl[:, 0].tolist() == [1, 1] and wn.tolist() == [2, 2]
+    elif kernel == "k6":
+        oct_, live = k6.tile_front(rays8, 128)
+        order = k6.octant_chunk_order(*bounds)
+        args = (rays8, oct_, order, live, torch.cat(bounds, 1).contiguous(),
+                *tables, 128, 1, 1e-4)
+        fn, plain = k6.octant_chunk_intersect, k6.octant_chunk_intersect_plain
+        kw["cap"] = 32
+        assert order[oct_.long()].tolist() == [[1, 0]] * 2
+        assert live.tolist() == [1, 1]
+    else:
+        order = torch.tensor([[0, 1]] * 8, dtype=torch.int32, device=dev)
+        args = (rays8, ci.tile_octants(rays8, 128), order, *tables, 128,
+                1e-4)
+        fn = ci.compact_order_intersect
+        plain = ci.compact_order_intersect_plain
     ref = plain(*args, **kw)
     got = fn(*args, **kw)
     assert _same(got, ref, any_hit)
     if any_hit:
         assert (got[0] == -ci.BIG).all()
     else:
-        assert (got[1] == (130 if two_clusters else 5)).all()
+        nearer_first = two_clusters and kernel != "k7"
+        assert (got[1] == (130 if nearer_first else 5)).all()
 
 
-@pytest.mark.parametrize("kernel", ["k4", "k5"])
+@pytest.mark.parametrize("kernel", ["k4", "k5", "k6", "k7"])
 def test_k4_k5_cluster_size_128(dev, kernel):
-    """K4 and K5 bit-equal to their plain versions on clusters of 128
-    triangles (S = 128, not 512), closest hit and any-hit."""
+    """K4, K5, K6's cap > 0 body and K7 bit-equal to their plain versions
+    on clusters of 128 triangles (S = 128, not 512; a multiple of 4, as
+    K5's and K6's cp.async prefetch needs), closest hit and any-hit."""
     from logipathtracer_tpu_torch import RenderConfig, compile_scene
     from logipathtracer_tpu_torch.scene.procedural import make_outside_scene
     scene = compile_scene(
@@ -535,8 +582,8 @@ def test_k4_k5_cluster_size_128(dev, kernel):
     o, d, t_max = _outside_rays(8192, dev, seed=21)
     for kw in (dict(), dict(has_tmax=True, any_hit=True)):
         rays8, _ = ci.pack_rays8(o, d, 4096, t_max=t_max if kw else None)
-        got = _stream_call(kernel, scene, rays8, 4096, plain=False, **kw)
-        ref = _stream_call(kernel, scene, rays8, 4096, plain=True, **kw)
+        got = _compacted_call(kernel, scene, rays8, 4096, False, **kw)
+        ref = _compacted_call(kernel, scene, rays8, 4096, True, **kw)
         assert _same(got, ref, bool(kw))
         assert 0 < int((got[0] < (t_max if kw else ci.BIG)).sum()) < 8192
 

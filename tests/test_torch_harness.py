@@ -1,7 +1,7 @@
 """tools/harness.py and tools/kernel_times.py on the CPU, at a small
 size: the harness's pools are the main path's (2^10 rays here: camera
 rays, a bounce pool with parked dead lanes, NEE shadow rays with t_max),
-its runner drives the entry points K1, K4 and K5 with their front ends
+its runner drives the entry points K1, K4-K7 with their front ends
 (on the CPU their plain versions), and the timing tool refuses to run
 without a card."""
 
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from logipathtracer_tpu_torch import RenderConfig, compile_scene
+from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
 from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
 from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
 from logipathtracer_tpu_torch.scene.procedural import (make_box_scene,
@@ -40,20 +41,42 @@ def test_pools_are_the_main_paths(outside):
     assert bool(torch.isfinite(t_max).all()) and float(t_max.min()) > 0
 
 
-@pytest.mark.parametrize("kind", ["K4", "K5"])
-def test_runner_drives_the_streamed_entry_points(outside, kind):
-    scene = outside.to("cpu")
-    rays8 = harness.pools(outside, CFG.replace(intersect="stream"),
-                              "cpu", 1024)["primary"][0]
-    calls = (lambda: (k4.plain_calls, k4.launches) if kind == "K4" else
-             (ci.worklist_plain_calls, ci.worklist_launches))
-    kernel, plain, inputs, wn = harness.runner(kind, scene, rays8, 1024)
+# kind -> (its counts: plain calls, launches; tile; whether the list is
+# every cluster / chunk)
+COUNTS = {
+    "K4": (lambda: (k4.plain_calls, k4.launches), 1024, False),
+    "K5": (lambda: (ci.worklist_plain_calls, ci.worklist_launches), 1024,
+           False),
+    "K6[cap>0]": (lambda: (k6.plain_calls, k6.launches), 1024, True),
+    "K7": (lambda: (ci.order_plain_calls, ci.order_launches), 256, True),
+}
+
+
+@pytest.fixture(scope="module")
+def box():
+    return compile_scene(make_box_scene(spheres=2, subdiv=3))
+
+
+@pytest.mark.parametrize("kind", list(COUNTS))
+def test_runner_drives_the_streamed_entry_points(outside, box, kind):
+    """K4, K5 and K6 (cap > 0) on the outside class, K7 on the box, each
+    on its main path's primary pool."""
+    calls, tile, every = COUNTS[kind]
+    host, cfg = ((box, CFG.replace(compact_worklist=False)) if kind == "K7"
+                 else (outside, CFG.replace(intersect="stream")))
+    scene = host.to("cpu")
+    rays8 = harness.pools(host, cfg, "cpu", tile)["primary"][0]
+    kernel, plain, inputs, wn = harness.runner(kind, scene, rays8, tile)
     before = calls()
     got = kernel()
     assert calls() == (before[0] + 1, before[1])  # the CPU's plain version
     ref = plain()
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
-    assert inputs[0] is rays8 and wn.shape == (1,) and int(wn[0]) > 0
+    assert inputs[0] is rays8 and wn.shape == (1024 // tile,)
+    if every:       # every cluster (K7) or chunk (K6, all tiles live)
+        n = scene.cl_tris.shape[0]
+        assert (wn == (n if kind == "K7" else -(-n // 16))).all()
+    assert int(wn.min()) > 0
     assert float((got[1] >= 0).float().mean()) > 0.2
 
 
