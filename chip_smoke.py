@@ -102,7 +102,10 @@ first accepted triangle (``any_hit_saved``).  The worklist kernel makes
 WORLD_SLAB_OPS per (ray, box) slab test, every ray against every box as
 its plain version does.  K3 moves 4 bytes of pixel id per row, 12 of
 radiance per retired row and a read and a write of each pixel it
-flushes.  ``library_ms`` is the time of one PyTorch call that computes
+flushes.  K2's operations come from its count pass over the compared
+plain call (``shade_counted``): every lane's prologue, walk orders by
+lobe, light sample, roulette and draws at harness.K2_OPS.
+``library_ms`` is the time of one PyTorch call that computes
 the same function (``index_add_`` for K3), null where no such call
 exists.  K3's row adds ``device_ms`` and ``library_device_ms``: the
 device time of one call, from the kernel rows of ``torch.profiler``
@@ -128,7 +131,8 @@ import torch  # noqa: E402
 
 from logipathtracer_tpu_torch.tools.harness import (  # noqa: E402
     bounce_pool, device_ms, event_ms, make_tail, megakernel_pools,
-    primary_pool, runner, scene_tables, shadow_pool, timed_steps)
+    primary_pool, runner, scene_tables, shade_args, shade_counted,
+    shade_ops, shade_work, shadow_pool, timed_steps, walk_efficiency)
 
 # Tolerances.  K1, K4, K5, K6's cap > 0 body and K7 (the compacted
 # visit) must equal their plain versions bit for bit; K2, K6's cap = 0
@@ -142,13 +146,14 @@ K3_RTOL, K3_ATOL = 1e-6, 1e-6           # f32 reassociation
 # counted as one: a slab test is 64, the local ray (33), three
 # reciprocals (3) and the slab table (28: 12 for the six plane
 # distances, 10 for t0 and t1, 6 compares); a ray-triangle test is
-# Möller–Trumbore with its acceptance (52).  K2 is given a floor of 200 per alive lane (hit
-# point, barycentrics, normal, frame, one BSDF sample, Russian roulette;
-# the Heitz walk's further orders are not counted); K3 one add per
-# retired channel.
+# Möller–Trumbore with its acceptance (52).  K2's operations come from
+# its count pass over the compared plain call (``shade_counted``): per
+# lane its prologue, each walk order by lobe, the NEE block, Russian
+# roulette and every draw, at the counts of harness.K2_OPS (counted from
+# csrc/shade.cu); K3 one add per retired channel.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-SLAB_OPS, MT_OPS, K2_OPS = 64, 52, 200
+SLAB_OPS, MT_OPS = 64, 52
 WORLD_SLAB_OPS = 28                     # the slab table alone
 DEVICE_RUNS = 50
 IMG_RTOL, IMG_ATOL, IMG_FRAC = 1e-4, 1e-6, 0.995  # test_wavefront.py:36-37
@@ -425,26 +430,35 @@ def print_k1(what, k1, card):
 
 def check_k2(scene, cfg, pool, t, tri, parity, runs=(10, 3), opt=None):
     """K2 against its plain version on one pool; ``opt`` adds the
-    texture / NEE inputs.  runs[1] == 1 times the plain version once,
-    on the very call that is compared.  Returns (diverged, max err,
-    kernel ms, plain ms, bound)."""
+    texture / NEE inputs.  The compared plain call is K2's count pass;
+    runs[1] == 1 times the plain version once more, else the median of
+    runs[1] calls.  Returns (diverged, max err, kernel ms, plain ms,
+    bound, walk warp efficiency (efficiency, with the lobes apart),
+    modelled from the count pass for one thread a lane in pool order)."""
     from logipathtracer_tpu_torch.ops.kernels import shade as sk
-    args = (scene.tri_shade, pool["origin"], pool["direction"], pool["acc"],
-            pool["mask"], pool["alive"], pool["seed"], pool["bounce"], t,
-            tri)
-    kw = dict(env=cfg.env_color, rr_threshold=cfg.rr_threshold,
-              rr_bounces=cfg.rr_bounces, max_order=cfg.heitz_max_order,
-              parity=parity, **(opt or {}))
+    args, kw = shade_args(scene, cfg, pool, t, tri, parity, opt)
     got = sk.shade(*args, **kw)
-    ref, p_once = _time_once(lambda: sk.shade_plain(*args, **kw))
+    with shade_counted() as calls:
+        ref = sk.shade_plain(*args, **kw)
+    work = shade_work(calls[0])
     diverged, err = sk.shade_agreement([x.cpu() for x in ref],
                                        [x.cpu() for x in got])
     k_ms = event_ms(lambda: sk.shade(*args, **kw), runs[0])
-    p_ms = (p_once if runs[1] <= 1 else
+    p_ms = (_time_once(lambda: sk.shade_plain(*args, **kw))[1]
+            if runs[1] <= 1 else
             event_ms(lambda: sk.shade_plain(*args, **kw), runs[1]))
-    b = bound(K2_OPS * int(pool["alive"].sum()),
-              nbytes(*args, *(opt or {}).values(), *got))
-    return diverged, err, k_ms, p_ms, b
+    b = bound(shade_ops(work), nbytes(*args, *(opt or {}).values(), *got))
+    orders, lobe = work["orders"].cpu(), work["lobe"].cpu()
+    return diverged, err, k_ms, p_ms, b, walk_efficiency(orders, lobe)
+
+
+def k2_line(what, k2, card=None):
+    """The line of one check_k2 result."""
+    print(f"K2 {what}: diverged {k2[0]:.5f}, max|d| {k2[1]:.3g}, kernel "
+          f"{k2[2]:.3f} ms, plain {k2[3]:.1f} ms, bound {k2[4][0]:.4f} ms "
+          f"({k2[4][1]}); walk warp efficiency {k2[5][0]:.3f} "
+          f"({k2[5][1]:.3f} lobes apart), modelled from the count pass"
+          + (f" [{card}]" if card else ""), flush=True)
 
 
 def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
@@ -572,14 +586,10 @@ def nee_phase(dev, card, flagship_rate):
           f"{wk_ms + k1[1]:.3f} ms", flush=True)
     k2 = check_k2(scene, cfg, pool, t, tri, parity=True, runs=(10, 1),
                   opt=opt)
-    print(f"K2 tex+nee parity {t.shape[0]} lanes: diverged {k2[0]:.5f}, "
-          f"max|d| {k2[1]:.3g}, kernel {k2[2]:.3f} ms, plain {k2[3]:.1f} ms "
-          f"(once)", flush=True)
+    k2_line(f"tex+nee parity {t.shape[0]} lanes (plain once)", k2)
     k2t = check_k2(scene, cfg, pool, t, tri, parity=False, runs=(3, 1),
                    opt=opt)
-    print(f"K2 tex+nee threefry: diverged {k2t[0]:.5f}, max|d| "
-          f"{k2t[1]:.3g}, kernel {k2t[2]:.3f} ms, plain {k2t[3]:.1f} ms "
-          f"(once)", flush=True)
+    k2_line("tex+nee threefry (plain once)", k2t)
     del probe, pool, out, opt, mat, ffm, nmap
 
     # K2 on a scene of <= 512 triangles (the TPU kernel's tri_sel form)
@@ -597,10 +607,8 @@ def nee_phase(dev, card, flagship_rate):
                  bounce=torch.zeros(n, dtype=torch.int32, device=dev))
     k2s = check_k2(probe.scene, cfg, spool, ts, tris, parity=True,
                    runs=(3, 1))
-    print(f"K2 on a {small.num_triangles}-triangle scene (tri_sel class), "
-          f"{n} lanes: diverged {k2s[0]:.5f}, max|d| {k2s[1]:.3g}, kernel "
-          f"{k2s[2]:.3f} ms, plain {k2s[3]:.1f} ms (once), bound "
-          f"{k2s[4][0]:.4f} ms ({k2s[4][1]})", flush=True)
+    k2_line(f"on a {small.num_triangles}-triangle scene (tri_sel class), "
+            f"{n} lanes (plain once)", k2s)
     del probe, spool
 
     # (c) the NEE main path
@@ -659,7 +667,7 @@ def nee_phase(dev, card, flagship_rate):
     print(f"NEE card vs CPU 64x64 2+2 spp: {close.mean():.5f} of pixels "
           f"close", flush=True)
     assert close.mean() >= IMG_FRAC, "NEE card and CPU renders disagree"
-    return {"k1": (*k1[:3], k1[5]), "worklist": k1[6], "k2": k2[1:],
+    return {"k1": (*k1[:3], k1[5]), "worklist": k1[6], "k2": k2,
             "modes": modes, "prepass": counts["worklist_prepass"][0]}
 
 
@@ -1144,12 +1152,9 @@ def main(argv=None) -> int:
                                       pool["direction"], eps=cfg.eps,
                                       tile=tile)
     k2 = check_k2(scene, cfg, pool, t, tri, parity=True)
-    print(f"K2 parity {pool['alive'].shape[0]} lanes: diverged "
-          f"{k2[0]:.5f}, max|d| {k2[1]:.3g}, kernel {k2[2]:.3f} ms, "
-          f"plain {k2[3]:.1f} ms", flush=True)
+    k2_line(f"parity {pool['alive'].shape[0]} lanes", k2, card)
     k2t = check_k2(scene, cfg, pool, t, tri, parity=False, runs=(3, 1))
-    print(f"K2 threefry: diverged {k2t[0]:.5f}, max|d| {k2t[1]:.3g}, "
-          f"kernel {k2t[2]:.3f} ms", flush=True)
+    k2_line("threefry (plain once)", k2t)
     k3 = check_k3(dev)
     print(f"K3 2^18 retired of 2^20 rows into 1024^2: max|d| {k3[0]:.3g}, "
           f"bit-identical repeat, events around one call: kernel "
@@ -1232,9 +1237,9 @@ def main(argv=None) -> int:
             compact_intersect.PREPASS_REPLACES, nee["prepass"], nee_run,
             pool, *nee["worklist"]),
         row("shade", shade.SOURCE, shade.REPLACES, counts["shade"][0],
-            main_run, pool, *k2[1:]),
+            main_run, pool, *k2[1:5]),
         row("shade[tex+nee]", shade.SOURCE, shade.REPLACES,
-            nee["modes"]["tex+nee"], nee_run, pool, *nee["k2"]),
+            nee["modes"]["tex+nee"], nee_run, pool, *nee["k2"][1:5]),
         row("flush", flush.SOURCE, flush.REPLACES, counts["flush"][0],
             main_run, pool, *k3[:3], k3[3], k3[4]),
     ]
@@ -1245,8 +1250,8 @@ def main(argv=None) -> int:
     # Beside the contract's keys: "run", the run whose launches are
     # counted, and "pool", the rays (lanes, rows) that max_abs_err, ms,
     # plain_ms and the bound were measured on; on K3's, the device times
-    # of device_ms.  The worklist rows' plain_ms is the
-    # plain version on the card, the prepass the earlier route ran.
+    # of device_ms.  The worklist rows' plain_ms is the plain version on
+    # the card, the prepass the earlier route ran.
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

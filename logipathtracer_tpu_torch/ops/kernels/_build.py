@@ -155,7 +155,12 @@ def stream_ptr(device) -> ctypes.c_void_p:
 
 def require(t, name: str, dtype, shape, device):
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
-    on ``device`` (None in ``shape`` matches any extent)."""
+    on ``device`` (None in ``shape`` matches any extent).  A shape given
+    in full takes one fused test, a few hundred nanoseconds: the
+    wrappers call this for every input of every launch."""
+    if (t.dtype is dtype and t.shape == shape and t.is_contiguous()
+            and t.device == device):
+        return
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -38,13 +38,12 @@ path (``render/megakernel.py::shade_step``, the oracle the Pallas
 kernel is held to); the CUDA kernel repeats its arithmetic lane by
 lane.
 
-On the card: one thread per lane; dead lanes copy through, miss lanes
-only write the environment.  Bound: operations — the walk's
-transcendentals (log, sin, cos, pow, and exp for the NEE hook per
-order) and ~600 flops per order, with heavy divergence between lanes of
-a warp (lobe, walk length).  The simple design does nothing about the
-divergence; the 256-byte row read per lane, the light row and the
-override rows are small beside it.
+On the card (csrc/shade.cu): one thread a lane.  A dead lane copies
+through and a miss writes the environment, neither reading tri_shade; a
+hit lane shades whole in registers (its tri_shade row in float4 loads,
+the walk, Russian roulette).  Bound: instruction issue (the walk's log,
+sin/cos, divides and draws); the counted bound is ``tools/harness.py``
+``shade_ops`` (operations) beside the bytes.
 """
 
 from __future__ import annotations
@@ -270,7 +269,11 @@ def shade(tri_shade, origin, direction, acc, mask, alive, seed, bounce, t,
     r = origin.shape[0]
     f32 = torch.float32
     nee = light_tris is not None
-    _build.require(tri_shade, "tri_shade", f32, (None, 64), dev)
+    _build.require(tri_shade, "tri_shade", f32, (tri_shade.shape[0], 64),
+                   dev)
+    if tri_shade.data_ptr() % 16:
+        raise ValueError("shade: tri_shade rows must be 16-byte aligned "
+                         "(float4 loads)")
     for name, x in (("origin", origin), ("direction", direction),
                     ("acc", acc), ("mask", mask)):
         _build.require(x, name, f32, (r, 3), dev)
@@ -295,12 +298,15 @@ def shade(tri_shade, origin, direction, acc, mask, alive, seed, bounce, t,
         _build.require(light_tris, "light_tris", f32, (n_lights, 16), dev)
         _build.require(light_cdf, "light_cdf", f32, (n_lights,), dev)
         _build.require(prev_pdf, "prev_pdf", f32, (r,), dev)
-        nee_outs = (torch.empty_like(prev_pdf), torch.empty_like(origin),
-                    torch.empty_like(direction), torch.empty_like(prev_pdf),
-                    torch.empty_like(origin))
-    outs = (torch.empty_like(origin), torch.empty_like(direction),
-            torch.empty_like(acc), torch.empty_like(mask),
-            torch.empty_like(alive), torch.empty_like(seed))
+    # The float outputs in two allocations, as contiguous views: [R, 3]
+    # origin, direction, acc, mask (and with NEE shadow origin, shadow
+    # direction, contribution), [R] prev_pdf' and t_lim.
+    rows3 = torch.empty((7 if nee else 4, r, 3), dtype=f32,
+                        device=dev).unbind(0)
+    outs = (*rows3[:4], torch.empty_like(alive), torch.empty_like(seed))
+    if nee:
+        pdf_out, t_lim = torch.empty((2, r), dtype=f32, device=dev).unbind(0)
+        nee_outs = (pdf_out, rows3[4], rows3[5], t_lim, rows3[6])
     if r == 0:
         return outs + nee_outs
     _build.launch("shade", "lpt_shade", tri_shade, origin, direction, acc,
@@ -315,6 +321,17 @@ def shade(tri_shade, origin, direction, acc, mask, alive, seed, bounce, t,
                                            ("nee", nee)) if on)
                   or "base"] += 1
     return outs + nee_outs
+
+
+def sincos_mismatches(device) -> int:
+    """The floats, of all 2^32 bit patterns, whose ``sincosf`` on the
+    card differs in a bit from their ``sinf`` or ``cosf``: K2 takes
+    ``sincosf`` where it needs both, which changes no bit only if this
+    is 0."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    _build.launch("shade", "lpt_sincos_probe", bad,
+                  _build.stream_ptr(device))
+    return int(bad.item())
 
 
 # Agreement rule between two shading answers (kernel vs plain on the

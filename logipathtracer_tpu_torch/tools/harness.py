@@ -1,6 +1,6 @@
 """What ``chip_smoke.py`` and ``tools/kernel_times.py`` share: the main
 paths' ray pools, a runner per intersect kernel with its front end, the
-K3 input tail and the timers.
+K3 input tail, K2's pools and its count pass, and the timers.
 
 The module imports no part of the package at its top: each function
 imports what it needs when called, so ``tools/kernel_times.py --root``
@@ -9,6 +9,7 @@ builds the same inputs with another checkout's package.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -155,6 +156,47 @@ def pools(host, cfg, dev, tile):
     return out
 
 
+def _megakernel_bounce(renderer, seed_xy, bounces=1):
+    """The megakernel's first bounces at the renderer's size, as
+    ``trace_rays`` makes them: (the primary rays, the parked rays of
+    bounce ``bounces``, that bounce's pool and hits)."""
+    from logipathtracer_tpu_torch.render import megakernel as mk
+    cfg, dev, scene = renderer.config, renderer.device, renderer.scene
+    pix, _ = mk.block_pixels(cfg, scene, 0, cfg.render_height, dev)
+    cam = torch.from_numpy(renderer.camera_world).to(dev)
+    o, d, seed = mk.camera_rays(cfg, cam, renderer.fov_y,
+                                torch.tensor(seed_xy, device=dev), pix)
+    o, d = o.contiguous(), d.contiguous()
+    isect = mk.pick_intersect(cfg, scene)
+    n = o.shape[0]
+    t, obj, tri = mk.sorted_intersect(isect, scene, o, d, cfg.eps)
+    state = (o, d, torch.zeros_like(o), torch.ones_like(o),
+             torch.ones(n, dtype=torch.bool, device=dev), seed, None)
+    for b in range(bounces):
+        o1, d1, acc, mask, alive, seed, prev = mk.shade_step(
+            scene, cfg, *state[:6], b, t, obj, tri, prev_pdf=state[6])
+        state = (o1, d1, acc, mask, alive, seed, prev)
+        oi = torch.where(alive[:, None], o1, 1e30)
+        di = torch.where(alive[:, None], d1, 1.0)
+        t, obj, tri = mk.sorted_intersect(isect, scene, oi, di, cfg.eps)
+    pool = dict(zip(("origin", "direction", "acc", "mask", "alive", "seed",
+                     "prev_pdf"), state))
+    pool["bounce"] = torch.full((n,), bounces, dtype=torch.int32,
+                                device=dev)
+    return (o, d), (oi, di), pool, t, tri
+
+
+def megakernel_shade_args(renderer, bounce=4, seed_xy=(48271, 16807)):
+    """(args, kwargs) of the megakernel's K2 call at bounce ``bounce``
+    (default the fifth, after two of Russian roulette): every pixel in
+    the route's block-major order, the lanes dead by then among the
+    live ones (``trace_rays`` shades the whole frame every bounce)."""
+    cfg = renderer.config
+    _, _, pool, t, tri = _megakernel_bounce(renderer, seed_xy, bounce)
+    return shade_args(renderer.scene, cfg, pool, t.contiguous(),
+                      tri.to(torch.int32).contiguous(), cfg.parity_rng)
+
+
 def megakernel_pools(renderer, seed_xy=(48271, 16807)):
     """The megakernel's intersect inputs at the renderer's size: the
     primary pool (every pixel's camera ray in the route's block-major
@@ -165,37 +207,21 @@ def megakernel_pools(renderer, seed_xy=(48271, 16807)):
     direction[, t_max]); then the second bounce's alive lanes."""
     from logipathtracer_tpu_torch.ops.kernels import shade as sk
     from logipathtracer_tpu_torch.render import megakernel as mk
-    cfg, dev, scene = renderer.config, renderer.device, renderer.scene
-    pix, _ = mk.block_pixels(cfg, scene, 0, cfg.render_height, dev)
-    cam = torch.from_numpy(renderer.camera_world).to(dev)
-    o, d, seed = mk.camera_rays(cfg, cam, renderer.fov_y,
-                                torch.tensor(seed_xy, device=dev), pix)
-    o, d = o.contiguous(), d.contiguous()
+    cfg, scene = renderer.config, renderer.scene
+    (o, d), (oi, di), pool, t, tri = _megakernel_bounce(renderer, seed_xy)
 
     def in_key_order(o, d):
         _, perm = torch.sort(mk.ray_sort_key(scene, o, d), stable=True)
         return o[perm].contiguous(), d[perm].contiguous()
 
-    isect = mk.pick_intersect(cfg, scene)
-    n = o.shape[0]
-    t, obj, tri = mk.sorted_intersect(isect, scene, o, d, cfg.eps)
-    o1, d1, acc, mask, alive, seed, prev = mk.shade_step(
-        scene, cfg, o, d, torch.zeros_like(o), torch.ones_like(o),
-        torch.ones(n, dtype=torch.bool, device=dev), seed, 0, t, obj, tri)
-    oi = torch.where(alive[:, None], o1, 1e30)
-    di = torch.where(alive[:, None], d1, 1.0)
-    t, obj, tri = mk.sorted_intersect(isect, scene, oi, di, cfg.eps)
-    out = sk.shade(scene.tri_shade, o1, d1, acc, mask, alive, seed,
-                   torch.ones(n, dtype=torch.int32, device=dev), t, tri,
-                   env=cfg.env_color, rr_threshold=cfg.rr_threshold,
-                   rr_bounces=cfg.rr_bounces, max_order=cfg.heitz_max_order,
-                   parity=cfg.parity_rng, light_tris=scene.light_tris,
-                   light_cdf=scene.light_cdf, prev_pdf=prev,
-                   nee_mis=cfg.nee_mis,
-                   total_light_area=float(scene.total_light_area))
+    args, kw = shade_args(scene, cfg, pool, t, tri, cfg.parity_rng, dict(
+        light_tris=scene.light_tris, light_cdf=scene.light_cdf,
+        prev_pdf=pool["prev_pdf"], nee_mis=cfg.nee_mis,
+        total_light_area=float(scene.total_light_area)))
+    out = sk.shade(*args, **kw)
     return (in_key_order(o, d), in_key_order(oi, di),
             (out[7].contiguous(), out[8].contiguous(), out[9].contiguous()),
-            int(alive.sum()))
+            int(pool["alive"].sum()))
 
 
 def scene_tables(scene):
@@ -273,3 +299,246 @@ def timed_steps(renderer, timed=(2, 2)):
     wall = time.perf_counter() - t0
     rays = renderer.total_rays - rays0
     return sum(timed) / wall, rays / wall / 1e6, iters, renderer.radiance()
+
+
+# ---- K2 (the shade kernel) ---------------------------------------------
+
+def shade_args(scene, cfg, pool, t, tri, parity, opt=None):
+    """(args, kwargs) of one ``shade`` / ``shade_plain`` call on a pool
+    (a dict of origin, direction, acc, mask, alive, seed, bounce) with
+    its hits; ``opt`` adds the texture / NEE inputs."""
+    args = (scene.tri_shade, pool["origin"], pool["direction"], pool["acc"],
+            pool["mask"], pool["alive"], pool["seed"], pool["bounce"], t,
+            tri)
+    kw = dict(env=cfg.env_color, rr_threshold=cfg.rr_threshold,
+              rr_bounces=cfg.rr_bounces, max_order=cfg.heitz_max_order,
+              parity=parity, **(opt or {}))
+    return args, kw
+
+
+def shade_pools(dev, cfg=None):
+    """K2's inputs on the main paths under ``cfg`` (default: 1024^2, 2^20
+    lanes each), from fixed seeds:
+    {name: (args, kwargs)} — the flagship box's bounce pool
+    (``bounce_pool``, hits by the sweep) with parity and with Threefry
+    draws, the textured box's NEE bounce pool with the texture
+    prologue's overrides (tex+nee), the megakernel's fifth bounce
+    (every pixel in block-major order, dead lanes interleaved) and the
+    primary pool of a 92-triangle box (the TPU kernel's tri_sel
+    class)."""
+    from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
+                                          compile_scene)
+    from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
+    from logipathtracer_tpu_torch.render.megakernel import \
+        resolve_tex_prologue
+    from logipathtracer_tpu_torch.scene.procedural import make_box_scene
+    cfg = cfg or RenderConfig(width=1024, height=1024)
+    out = {}
+
+    def bounce(host, cfg):
+        probe = ProgressiveRenderer(host, cfg, host_seed=1, device=dev)
+        pool = bounce_pool(probe)
+        t, obj, tri = intersect_scene_sweep(
+            probe.scene, pool["origin"], pool["direction"], eps=cfg.eps,
+            tile=cfg.compact_tile)
+        return probe.scene, pool, t, obj, tri
+
+    box = compile_scene(make_box_scene(spheres=10, subdiv=3))
+    scene, pool, t, _, tri = bounce(box, cfg)
+    for name, parity in (("bounce", True), ("bounce threefry", False)):
+        out[name] = shade_args(scene, cfg, pool, t, tri, parity)
+    ncfg = cfg.replace(nee=True)
+    scene, pool, t, obj, tri = bounce(
+        compile_scene(make_box_scene(spheres=10, subdiv=3, textured=True)),
+        ncfg)
+    mat, ffm, nmap = resolve_tex_prologue(scene, ncfg, pool["origin"],
+                                          pool["direction"], t, obj, tri)
+    out["tex+nee"] = shade_args(scene, ncfg, pool, t, tri, True, dict(
+        mat=mat, ff_mapped=ffm, has_nmap=nmap, light_tris=scene.light_tris,
+        light_cdf=scene.light_cdf, prev_pdf=pool["prev_pdf"],
+        nee_mis=ncfg.nee_mis,
+        total_light_area=float(scene.total_light_area)))
+    mcfg = cfg.replace(renderer="megakernel")
+    probe = ProgressiveRenderer(box, mcfg, host_seed=1, device=dev)
+    args, kw = megakernel_shade_args(probe)
+    out["megakernel"] = (args, kw)
+    probe = ProgressiveRenderer(
+        compile_scene(make_box_scene(spheres=1, subdiv=1)), cfg, host_seed=1,
+        device=dev)
+    o, d, seed = (x.contiguous() for x in primary_pool(probe))
+    t, _, tri = intersect_scene_sweep(probe.scene, o, d, eps=cfg.eps,
+                                      tile=cfg.compact_tile)
+    n = o.shape[0]
+    spool = dict(origin=o, direction=d, seed=seed, acc=torch.zeros_like(o),
+                 mask=torch.ones_like(o),
+                 alive=torch.ones(n, dtype=torch.bool, device=o.device),
+                 bounce=torch.zeros(n, dtype=torch.int32, device=o.device))
+    out["tri_sel"] = shade_args(probe.scene, cfg, spool, t, tri, True)
+    return out
+
+
+@contextlib.contextmanager
+def shade_counted():
+    """K2's count pass: ``shade_plain`` runs with the mask of every draw
+    it makes observed (the ``get_rand`` it calls is wrapped) and its lobe
+    pick and the walk's NEE hook read (``ops/bsdf.py``
+    ``determine_interaction`` and ``heitz_sample`` wrapped) and its miss
+    lanes noted; nothing it computes changes.  Call ``shade_plain`` as
+    ``ops.kernels.shade.shade_plain`` inside.  Yields a list that
+    receives one record per call, for ``shade_work``."""
+    from logipathtracer_tpu_torch.ops import bsdf
+    from logipathtracer_tpu_torch.ops.kernels import shade as sk
+    calls = []
+    get_rand, plain = sk.get_rand, sk.shade_plain
+    interaction, heitz = bsdf.determine_interaction, bsdf.heitz_sample
+
+    def counted_plain(tri_shade, origin, direction, acc, mask, alive, seed,
+                      bounce, t, tri, **kw):
+        out = plain(tri_shade, origin, direction, acc, mask, alive, seed,
+                    bounce, t, tri, **kw)
+        calls[-1]["miss"] = alive & (t >= sk.INF)
+        calls[-1]["n_lights"] = (0 if kw.get("light_tris") is None
+                                 else int(kw["light_tris"].shape[0]))
+        return out
+
+    def counted_get_rand(parity):
+        rand = get_rand(parity)
+        calls.append({"parity": bool(parity), "draws": [],
+                      "eval_on": None})
+
+        def counted(seed, mask):
+            calls[-1]["draws"].append(mask.clone())
+            return rand(seed, mask)
+        return counted
+
+    def counted_interaction(*a, **kw):
+        lobe, seed = interaction(*a, **kw)
+        calls[-1]["lobe"] = lobe.clone()
+        return lobe, seed
+
+    def counted_heitz(*a, **kw):
+        if kw.get("eval_mask") is not None:
+            calls[-1]["eval_on"] = kw["eval_mask"] & (kw["eval_dir"][..., 2]
+                                                      > 0.0)
+        return heitz(*a, **kw)
+
+    sk.get_rand, sk.shade_plain = counted_get_rand, counted_plain
+    bsdf.determine_interaction = counted_interaction
+    bsdf.heitz_sample = counted_heitz
+    try:
+        yield calls
+    finally:
+        sk.get_rand, sk.shade_plain = get_rand, plain
+        bsdf.determine_interaction, bsdf.heitz_sample = interaction, heitz
+
+
+# K2's operations, counted from csrc/shade.cu: each +, -, *, /, sqrt,
+# compare, min/max, fabs, integer add/xor/shift/multiply and each libm
+# call (logf, expf, sinf, cosf, powf; sincosf as its two) is one; moves,
+# selects and negations are none.  "hit": a hit lane's prologue (hit
+# point, barycentrics, srgb by its powf branch, lobe weights, normal,
+# frame, view), "nee_hit" what NEE adds to it (the emission's MIS
+# weight), "nee_lane" a light sample without its binary search
+# ("search_step" an iteration of that), "trans" the two ior quotients
+# of a transmission lane; per walk order: "height" (every order),
+# "vndf" (an order past the height test: the micro-normal and v.m),
+# then its lobe's "tail" (diffuse, metallic, transmission by its
+# reflection branch, the cheaper), "eval" the NEE hook of a diffuse
+# step; "epilogue" (direction, weight, the roulette test), with NEE
+# "nee_epilogue" (the pdf) and "contrib"; "rr" a drawn roulette's
+# compare; "miss" the environment; a draw by its RNG.  A dead lane
+# copies through: no operation.
+K2_OPS = {"miss": 4, "hit": 228, "nee_hit": 19, "nee_lane": 103,
+          "search_step": 4, "trans": 2, "height": 18, "vndf": 102,
+          "tail": (72, 15, 33), "eval": 22, "epilogue": 26,
+          "nee_epilogue": 3, "contrib": 6, "rr": 1,
+          "draw": {True: 13, False: 122}}
+
+
+def shade_ops(work) -> int:
+    """K2's operations on one pool, from its ``shade_work`` (K2_OPS)."""
+    k = K2_OPS
+    lobe = work["lobe"]
+    live = work["live"]
+    tail = torch.tensor(k["tail"], dtype=torch.int64, device=lobe.device)
+    steps = 1
+    while (1 << steps) <= work["n_lights"]:
+        steps += 1
+    nee_mode = work["n_lights"] > 0
+    per_lane = (
+        k["miss"] * work["miss"]
+        + live * (k["hit"] + k["epilogue"]
+                  + (k["nee_hit"] if nee_mode else 0)
+                  + k["trans"] * (lobe == 2).to(torch.int64))
+        + work["nee"] * (k["nee_lane"] + k["search_step"] * steps
+                         + k["nee_epilogue"])
+        + work["eval_steps"] * k["eval"]
+        + work["eval_on"] * k["contrib"]
+        + work["orders"] * k["height"]
+        + work["steps"] * (k["vndf"] + tail[lobe])
+        + work["rr"] * k["rr"]
+        + work["draws"] * k["draw"][work["parity"]])
+    return int(per_lane.sum())
+
+
+# Draws of one order's lobe tail: diffuse 2 (the concentric disk),
+# metallic 0, transmission 1 (the Fresnel choice).
+TAIL_DRAWS = (2, 0, 1)
+
+
+def shade_work(rec):
+    """Per lane (int64 tensors) from one ``shade_counted`` record: miss,
+    live (a hit that shades: the lobe pick's mask), lobe, orders (the height
+    draws its walk took), steps (the orders that passed the height test
+    and sampled a micro-normal and the lobe), nee (took a light sample),
+    eval_on (the NEE hook on: a light above the surface), eval_steps
+    (steps with the hook on), rr (Russian roulette drew)
+    and draws (every draw).  shade_plain draws the lobe, then with NEE
+    three light draws, then per order six masked draws (height, two
+    micro-normal, two diffuse, one Fresnel), then Russian roulette.
+    Beside them: parity (the RNG) and n_lights."""
+    draws = rec["draws"]
+    nee = rec["eval_on"] is not None
+    head = 4 if nee else 1
+    walk = draws[head:-1]
+    assert len(walk) % 6 == 0, "shade_plain's draws out of order"
+    i64 = torch.int64
+    zero = torch.zeros_like(draws[0], dtype=i64)
+    orders = sum((walk[j].to(i64) for j in range(0, len(walk), 6)), zero)
+    steps = sum((walk[j].to(i64) for j in range(1, len(walk), 6)), zero)
+    live = draws[0].to(i64)
+    lobe = rec["lobe"].to(i64) * live
+    on = rec["eval_on"].to(i64) if nee else zero
+    work = {"miss": rec["miss"].to(i64), "n_lights": rec["n_lights"],
+            "parity": rec["parity"],
+            "live": live, "lobe": lobe, "orders": orders, "steps": steps,
+            "nee": draws[1].to(i64) if nee else zero,
+            "eval_on": on * live * (lobe == 0).to(i64),
+            "eval_steps": steps * on * live * (lobe == 0).to(i64),
+            "rr": draws[-1].to(i64),
+            "draws": sum((m.to(i64) for m in draws), zero)}
+    tail = torch.tensor(TAIL_DRAWS, dtype=i64, device=lobe.device)[lobe]
+    assert torch.equal(
+        work["draws"], live + 3 * work["nee"] + orders
+        + (2 + tail) * steps + work["rr"]), "draws do not add up"
+    return work
+
+
+def walk_efficiency(orders, lobe, warp=32):
+    """(efficiency, efficiency with the lobes apart) of the Heitz walk's
+    warps, one thread a lane in pool order (K2's form): the sum of the
+    lanes' orders over what the warps pay.  A warp pays 32 x its longest
+    walk, or, with the lobes apart, 32 x the longest walk of each lobe
+    it holds (its branches run one after another)."""
+    orders = np.asarray(orders, np.int64)
+    lobe = np.asarray(lobe, np.int64)
+    total = int(orders.sum())
+    if total == 0:
+        return 1.0, 1.0
+    pad = -orders.shape[0] % warp
+    o = np.concatenate([orders, np.zeros(pad, np.int64)]).reshape(-1, warp)
+    lb = np.concatenate([lobe, np.zeros(pad, np.int64)]).reshape(-1, warp)
+    cost = warp * int(o.max(1).sum())
+    cost_l = warp * sum(int(np.where(lb == l, o, 0).max(1).sum())
+                        for l in range(3))
+    return total / cost, total / cost_l

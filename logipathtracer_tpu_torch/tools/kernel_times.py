@@ -1,10 +1,13 @@
 """Kernel times on the card for this checkout's package or another's:
-K3 beside ``index_add_`` (``flush``), and the compacted-visit intersect
-kernels K1, K4-K7 with the rates of the routes they serve (``isect``).
+K3 beside ``index_add_`` (``flush``), the compacted-visit intersect
+kernels K1, K4-K7 with the rates of the routes they serve (``isect``),
+and the shade kernel K2 on the main paths' pools (``shade``).
 
     python logipathtracer_tpu_torch/tools/kernel_times.py flush
         [--root DIR] [--label NAME] [--runs 50]
     python logipathtracer_tpu_torch/tools/kernel_times.py isect
+        [--root DIR] [--label NAME] [--runs 10] [--main-runs N]
+    python logipathtracer_tpu_torch/tools/kernel_times.py shade
         [--root DIR] [--label NAME] [--runs 10] [--main-runs N]
     python logipathtracer_tpu_torch/tools/kernel_times.py ptxas
         [--root DIR] [--label NAME]
@@ -52,6 +55,28 @@ time is the median of ``--runs`` single calls between two CUDA events.
               with ``stream_worklist=False`` (K6 cap > 0), the flagship
               wavefront and megakernel with ``compact_worklist=False``
               (K7).
+
+``shade``: K2 on ``harness.shade_pools``' 2^20-lane pools from fixed
+seeds — the flagship box's bounce pool with parity and with Threefry
+draws, the textured box's NEE bounce pool (tex+nee), the megakernel's
+fifth bounce (dead lanes among the live ones) and a 92-triangle box's
+camera rays (the tri_sel class).  Per pool:
+
+  event_ms, device_ms, stream_ms, host_us: as in ``flush`` (device_ms
+             and host_us over ``--runs`` x 5 calls);
+  digest:    sha256 of every output, in order, so that two checkouts'
+             runs show whether they agree bit for bit;
+  diverged:  shade_agreement against the plain version (the count
+             pass's call);
+  ops, bound_ms, bound_by: the count pass (``harness.shade_ops``)
+             beside the bytes;
+  walk:      the walk's warp efficiency and with the lobes apart, one
+             thread a lane in pool order as K2 runs it
+             (``harness.walk_efficiency``); the lanes that hit, the mean
+             orders of their walks and the lanes walking more than 2;
+  main:      with ``--main-runs N``, as in ``isect``: the flagship, the
+             NEE + textured box, the outside class and the megakernel,
+             each at its defaults (K2 on each).
 
 ``ptxas``: each source built as the package builds it, with ``-Xptxas
 -v``: per kernel, ptxas's lines on its registers, spills and shared
@@ -162,20 +187,94 @@ def isect_times(h, dev, runs, main_runs):
         kernel = h.runner("K7", probe.scene, rays8, btile, **kw)[0]
         out["k7"][name] = h.event_ms(kernel, runs)
     del probe, primary, bounce, shadow
+    out["main"] = main_routes(h, dev, MAIN_ROUTES, main_runs,
+                              {"outside": outside, "box": box})
+    return out
+
+
+# The main paths K2 serves: (scene, RenderConfig fields).
+SHADE_ROUTES = {
+    "flagship": ("box", {}),
+    "nee+textured": ("textured", dict(nee=True)),
+    "outside": ("outside", {}),
+    "megakernel": ("box", dict(renderer="megakernel")),
+}
+
+
+def main_routes(h, dev, routes, main_runs, scenes=None):
+    """{route: [samples/s, Mrays/s, iterations, mean radiance, rays of
+    each run]}: ``main_runs`` fresh renderers (host seed 0) a route, each
+    a warm-up step(1), then step(2) twice, timed.  ``scenes``: the host
+    scenes already compiled, by name ("box", "textured", "outside")."""
+    from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
+                                          compile_scene)
+    from logipathtracer_tpu_torch.scene.procedural import (make_box_scene,
+                                                           make_outside_scene)
+    scenes = dict(scenes or {})
+
+    def scene(which):
+        if which not in scenes:
+            scenes[which] = compile_scene(
+                make_outside_scene() if which == "outside" else
+                make_box_scene(spheres=10, subdiv=3,
+                               textured=which == "textured"))
+        return scenes[which]
+
+    cfg = RenderConfig(width=1024, height=1024)
     main = {}
-    for route, (which, kw) in MAIN_ROUTES.items():
+    for route, (which, kw) in routes.items():
         main[route] = []
         for _ in range(main_runs):
-            r = ProgressiveRenderer(outside if which == "outside" else box,
-                                    cfg.replace(**kw), host_seed=0,
-                                    device=dev)
+            r = ProgressiveRenderer(scene(which), cfg.replace(**kw),
+                                    host_seed=0, device=dev)
             sps, mrays, iters, rad = h.timed_steps(r)
             main[route].append({
                 "samples_per_s": sps, "mrays_per_s": mrays,
                 "iterations": iters, "mean_radiance": float(rad.mean()),
                 "rays": int(r.total_rays)})
             del r
-    out["main"] = main
+    return main
+
+
+def shade_times(h, dev, runs):
+    """{pool: times, digest, count pass} of K2 (module docstring)."""
+    import hashlib
+
+    from logipathtracer_tpu_torch.ops.kernels import _build
+    from logipathtracer_tpu_torch.ops.kernels import shade as sk
+    _build.load_all(("compact_intersect", "shade", "flush"))
+    out = {}
+    for name, (args, kw) in h.shade_pools(dev).items():
+        got = sk.shade(*args, **kw)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for x in got:
+            digest.update(x.cpu().numpy().tobytes())
+        with h.shade_counted() as calls:
+            ref = sk.shade_plain(*args, **kw)
+        work = h.shade_work(calls[0])
+        diverged, _ = sk.shade_agreement([x.cpu() for x in ref],
+                                         [x.cpu() for x in got])
+        ops = h.shade_ops(work)
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (*args, *kw.values(), *got)
+                      if isinstance(t, torch.Tensor))
+        t_ops, t_bytes = ops / 67e12 * 1e3, n_bytes / 3.35e12 * 1e3
+        fn = (lambda: sk.shade(*args, **kw))
+        ev = h.event_ms(fn, runs)
+        d, st, us = h.device_ms(fn, 5 * runs)
+        orders, lobe = work["orders"].cpu(), work["lobe"].cpu()
+        live = work["live"].cpu().bool()
+        out[name] = {
+            "lanes": int(live.shape[0]), "hit": int(live.sum()),
+            "event_ms": ev, "device_ms": d, "stream_ms": st, "host_us": us,
+            "digest": digest.hexdigest(), "diverged": diverged,
+            "ops": ops, "bytes": n_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "walk": {"thread_a_lane": h.walk_efficiency(orders, lobe),
+                     "mean_orders": float(orders[live].float().mean()),
+                     "over_2": int((orders > 2).sum())}}
+        del got, ref, args, kw
     return out
 
 
@@ -197,14 +296,14 @@ def ptxas_report():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernels", choices=("flush", "isect", "ptxas"))
+    ap.add_argument("kernels", choices=("flush", "isect", "shade", "ptxas"))
     ap.add_argument("--root", default=_ROOT,
                     help="checkout whose logipathtracer_tpu_torch to time")
     ap.add_argument("--label", default=None)
     ap.add_argument("--runs", type=int, default=None,
-                    help="calls per time (flush: 50, isect: 10)")
+                    help="calls per time (flush: 50, isect and shade: 10)")
     ap.add_argument("--main-runs", type=int, default=0,
-                    help="isect: runs of each main route")
+                    help="isect, shade: runs of each main route")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_times: needs a CUDA card")
@@ -226,6 +325,10 @@ def main(argv=None):
     elif args.kernels == "flush":
         runs = args.runs or 50
         res = flush_times(h, dev, runs)
+    elif args.kernels == "shade":
+        runs = args.runs or 10
+        res = {"shade": shade_times(h, dev, runs),
+               "main": main_routes(h, dev, SHADE_ROUTES, args.main_runs)}
     else:
         runs = args.runs or 10
         res = isect_times(h, dev, runs, args.main_runs)

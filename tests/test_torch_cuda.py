@@ -2,8 +2,10 @@
 on the card, at small shapes, in every mode (the intersect kernels'
 t_max / any-hit shadow queries, K1 bit for bit and on crafted ties,
 K3's edges, K6's cap 0 and cap > 0 bodies, K8's sub-tile body, K2
-with textures and NEE), and the render on the card against the CPU, the
-wavefront and the megakernel on each route.  Marked ``cuda``: they need
+in every mode with both RNGs on its edges: mixed lobes, 16-order walks,
+dead and missed blocks, odd lane counts, 600 lights, and sincosf's
+bits), and the render on the card against the CPU, the wavefront and
+the megakernel on each route.  Marked ``cuda``: they need
 an NVIDIA card with nvcc and skip elsewhere.  On the card (which has no JAX, imported by the suite's
 conftest):
 
@@ -261,6 +263,162 @@ def test_k2_matches_plain(scene, dev, parity):
     got = shade.shade(*args, **kw)
     ref = shade.shade_plain(*args, **kw)
     shade.shade_agreement([x.cpu() for x in ref], [x.cpu() for x in got])
+
+
+# K2 on a synthetic table: a triangle on the plane z = 0 (identity
+# transforms, tilted vertex normals) per material — diffuse, metallic,
+# glass (ior 1.5) and a diffuse emitter — and rays from either side.
+K2_MATERIALS = ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                (0.0, 0.0, 2.0))    # metallic, transmission, emission
+
+
+def _k2_table(dev, rough):
+    rows = []
+    for (met, trans, emit), r in zip(K2_MATERIALS, rough):
+        ts, os_ = np.zeros(32, np.float32), np.zeros(32, np.float32)
+        ts[0:9] = [0, 0, 1, 0.1, 0, 1, 0, 0.1, 1]
+        ts[15:24] = [-2, -2, 0, 6, -2, 0, -2, 6, 0]
+        os_[0:9] = np.eye(3).ravel()
+        os_[9:21] = np.hstack([np.eye(3), np.zeros((3, 1))]).ravel()
+        os_[21:28] = [0.8, 0.5, 0.03, 1.0, emit, emit, emit]
+        os_[28:32] = [met, r, trans, 1.5]
+        rows.append(np.concatenate([ts, os_]))
+    return torch.from_numpy(np.stack(rows)).to(dev)
+
+
+def _k2_call(dev, n, mode, parity, seed=0, rough=(0.9, 0.3, 0.2, 0.5),
+             tri=None, lights=3):
+    """(args, kwargs) of K2 on n lanes of the synthetic table in mode
+    base, tex, nee or tex+nee: lanes cycle through the materials (every
+    warp holds all three lobes), 10% dead, 10% missing, a quarter below
+    the plane (inside the glass)."""
+    r = np.random.default_rng(seed)
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    side = np.where(r.random(n) < 0.25, -1.0, 1.0)
+    o = np.stack([r.uniform(-0.5, 0.5, n), r.uniform(-0.5, 0.5, n),
+                  side], 1).astype(np.float32)
+    d = np.stack([r.normal(0, 0.4, n), r.normal(0, 0.4, n), -side],
+                 1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = (1.0 / np.abs(d[:, 2])).astype(np.float32)
+    t[r.random(n) < 0.1] = 3.4e38                      # misses
+    tri = (np.arange(n) % 4 if tri is None else tri).astype(np.int32)
+    args = (_k2_table(dev, rough), g(o), g(d),
+            g(r.random((n, 3)).astype(np.float32) * 0.1),
+            g((0.2 + r.random((n, 3))).astype(np.float32)),
+            g(r.random(n) < 0.9),
+            g(r.integers(0, 2 ** 32, (n, 2), dtype=np.int64)),
+            g(r.integers(0, 8, n).astype(np.int32)), g(t), g(tri))
+    kw = dict(env=0.2, rr_threshold=0.5, rr_bounces=2, max_order=16,
+              parity=parity)
+    if "tex" in mode:
+        met_tr = np.array([m[:2] for m in K2_MATERIALS])[tri % 3]
+        mat = np.concatenate([
+            r.random((n, 4)), r.random((n, 3)) * (tri[:, None] == 3),
+            met_tr[:, :1], np.asarray(rough, np.float32)[tri][:, None],
+            met_tr[:, 1:]], 1).astype(np.float32)
+        nm = np.stack([r.normal(0, 0.2, n), r.normal(0, 0.2, n),
+                       side], 1).astype(np.float32)
+        nm /= np.linalg.norm(nm, axis=1, keepdims=True)
+        kw.update(mat=g(mat), ff_mapped=g(nm), has_nmap=g(r.random(n) < 0.5))
+    if "nee" in mode:
+        lt = np.zeros((lights, 16), np.float32)
+        lt[:, 0:3] = np.stack([r.uniform(-2, 1, lights),
+                               r.uniform(-2, 1, lights),
+                               r.uniform(1.5, 3, lights)], 1)
+        lt[:, 3:6] = r.uniform(0.1, 1, (lights, 3)) * [1, 0, 0.1]
+        lt[:, 6:9] = r.uniform(0.1, 1, (lights, 3)) * [0, 1, 0.1]
+        lt[:, 9:12] = r.uniform(1, 5, (lights, 3))
+        area = 0.5 * np.linalg.norm(np.cross(lt[:, 3:6], lt[:, 6:9]), axis=1)
+        cdf = (np.cumsum(area) / area.sum()).astype(np.float32)
+        cdf[-1] = 1.0
+        pdf = (r.random(n) * 0.3).astype(np.float32)
+        pdf[r.random(n) < 0.3] = 0.0
+        kw.update(light_tris=g(lt), light_cdf=g(cdf), prev_pdf=g(pdf),
+                  nee_mis=True, total_light_area=float(area.sum()))
+    return args, kw
+
+
+def _k2_long_call(dev, mode, parity):
+    """Lanes whose walks take all 16 orders, found by the count pass
+    over 2^16 candidates on the rough table (diffuse and metallic 2.0,
+    glass 1.0), with a thousand of the others among them."""
+    from logipathtracer_tpu_torch.tools import harness
+    rough = (2.0, 2.0, 1.0, 2.0)
+    n = 1 << 16
+    args, kw = _k2_call(dev, n, mode, parity, seed=11, rough=rough,
+                        tri=np.arange(n) % 3)
+    with harness.shade_counted() as calls:
+        shade.shade_plain(*args, **kw)
+    work = harness.shade_work(calls[0])
+    long_ = work["orders"] == 16
+    keep = long_.clone()
+    keep[:1000] = True
+    idx = keep.nonzero().squeeze(1)
+    lobe, steps = work["lobe"][idx], work["steps"][idx]
+    assert bool(((lobe == 0) & (steps == 16)).any())   # exhausted diffuse
+    assert bool(((lobe == 1) & long_[idx]).any())
+    assert bool(((lobe == 2) & long_[idx]).any())
+    take = lambda x: x[idx].contiguous()
+    args = (args[0], *(take(x) for x in args[1:]))
+    kw = {k: take(v) if isinstance(v, torch.Tensor) and
+          k not in ("light_tris", "light_cdf") else v for k, v in kw.items()}
+    return args, kw
+
+
+def _k2_check(args, kw, mode):
+    n0 = shade.mode_launches[mode]
+    got = shade.shade(*args, **kw)
+    torch.cuda.synchronize()
+    assert shade.mode_launches[mode] == n0 + 1
+    ref = shade.shade_plain(*args, **kw)
+    shade.shade_agreement([x.cpu() for x in ref], [x.cpu() for x in got])
+    return got
+
+
+@pytest.mark.parametrize("parity", [True, False])
+@pytest.mark.parametrize("mode", ["base", "tex", "nee", "tex+nee"])
+@pytest.mark.parametrize("case", ["mixed", "long", "dead_and_miss_blocks",
+                                  "R=1", "R=31", "R=1000"])
+def test_k2_edges_match_plain(dev, case, mode, parity):
+    """K2 against its plain version in every mode and with both RNGs: a
+    warp mixing the three lobes, walks of all 16 orders (an exhausted
+    diffuse walk among them), a block of dead lanes and one of misses
+    (neither reads tri_shade), one lane, 31, and a count that is no
+    multiple of the block."""
+    if case == "long":
+        args, kw = _k2_long_call(dev, mode, parity)
+    else:
+        n = {"R=1": 1, "R=31": 31, "R=1000": 1000}.get(case, 4096)
+        args, kw = _k2_call(dev, n, mode, parity)
+        if case == "dead_and_miss_blocks":
+            args[5][:256] = False                # a block of dead lanes
+            args[5][256:512] = True              # a block of misses
+            args[8][256:512] = 3.4e38
+    got = _k2_check(args, kw, mode)
+    if case == "dead_and_miss_blocks":
+        for k in range(4):                       # copied through
+            assert torch.equal(got[k][:256], args[1 + k][:256])
+        assert torch.equal(got[2][256:512], args[4][256:512] * 0.2)
+        assert not bool(got[4][:512].any())
+    if case == "mixed":
+        assert 0 < int(got[4].sum()) < 4096
+
+
+@pytest.mark.parametrize("parity", [True, False])
+@pytest.mark.parametrize("mode", ["nee", "tex+nee"])
+def test_k2_many_lights_match_plain(dev, mode, parity):
+    """NEE over 600 lights: K2's binary search over the light table in
+    global memory has no cap on the lights."""
+    args, kw = _k2_call(dev, 4096, mode, parity, lights=600)
+    got = _k2_check(args, kw, mode)
+    assert bool((got[9] != 1.0).any())          # lanes sampled a light
+
+
+def test_k2_sincosf_bits(dev):
+    """K2 takes sincosf where the walk needs the sine and cosine of one
+    angle; on every float it gives the bits of sinf and cosf."""
+    assert shade.sincos_mismatches(dev) == 0
 
 
 def test_k3_matches_plain_and_repeats_exactly(dev):
