@@ -42,31 +42,33 @@ the root of a checkout it:
      bodies) against their plain versions on the whole 2^20-ray primary
      pool; K4, K5 and K6 cap > 0 on a bounce pool, and K4 and K6 cap > 0
      in their t_max / any-hit mode on the shadow pool of one NEE step,
+     K6 cap 0 on a bounce pool and in its t_max mode on the shadow pool,
      on as many tiles of those pools as the plain version covers in
      about 15 s (BOUNCE_TILES, SHADOW_TILES, K6_BOUNCE_TILES,
-     K6_SHADOW_TILES), and timed on the whole pool too.  K4, K5 and K6
-     cap > 0 (the compacted visit) must equal their plain versions bit
-     for bit (t, tri and obj; t alone in any-hit), K6 cap 0 agree under
-     hits_agree.  The count pass of each check prints what the compacted
-     visit rests on: the mean list a tile visits, the share of listed
-     clusters that some ray of a 256-ray block passes, and the cluster
-     blocks staged per launch by a ring that stages every listed cluster
-     (per 256-ray block) and by the kernel (what its blocks pass, or may
-     pass ahead with the prefetch); (b) the main path at 1024x1024,
+     K6_SHADOW_TILES), and timed on the whole pool too.  Each must equal
+     its plain version bit for bit (t, tri and obj; t alone in any-hit).
+     The count pass of each check prints what the visit rests on: the
+     mean list a tile visits, the share of listed clusters that some ray
+     of a block passes (256 rays for the compacted visit, a 128-ray
+     sub-tile for K6 cap 0), and the cluster blocks staged per launch by
+     a ring that stages every listed cluster and by the kernel (what its
+     blocks pass, or may pass ahead with the prefetch); (b) the main
+     path at 1024x1024,
      timed as in 4, which must run K4, K2 and K3, never K1 and no plain
      version; (c) each other route timed as in 4, each launching its
      kernel (``stream_granularity="chunk"``: K5;
      ``stream_worklist=False``: K6 cap > 0, also with NEE for its
-     any-hit mode; ``stream_compact=False``: K6 cap 0; ``nee=True``: K4
-     any-hit); (d) the 64x64 card-vs-CPU render of 5 on this path;
+     any-hit mode; ``stream_compact=False``: K6 cap 0, also with NEE
+     for its t_max mode; ``nee=True``: K4 any-hit); (d) the 64x64
+     card-vs-CPU render of 5 on this path;
   8. the lockstep megakernel renderer (``renderer="megakernel"``) on the
      flagship box — (a) K7 (``compact_worklist=False``) and K8
      (``intersect="sweep"``) against their plain versions on the
      megakernel's 2^20-ray primary pool (camera rays in each route's
      block-major order, sorted by coherence key) and on its bounce pool
      after one bounce; K7 in its t_max / any-hit mode and K8 in its t_max
-     mode on that bounce's NEE shadow pool, K7 (the compacted visit) bit
-     for bit, K8 under hits_agree, K7's count pass printed as phase 7's
+     mode on that bounce's NEE shadow pool, each bit for bit, their count
+     passes printed as phase 7's
      (and K7's plain version once more before and after its check,
      without the count pass, to show what that pass costs); (b) the
      megakernel main path
@@ -96,9 +98,11 @@ move (each input read once, each output written once) over 3.35 TB/s
 and its operations over 67 TFLOP/s (fp32 without tensor cores; NVIDIA's
 data sheet).  The intersect kernels' operations come from a count pass
 over the plain version's run on the same pool (``counted``): SLAB_OPS
-per slab test it made and MT_OPS per ray-triangle test its rays' own
-slab passes imply — S per pass, less, with any_hit, the tests after the
-first accepted triangle (``any_hit_saved``).  The worklist kernel makes
+per slab test it made and MT_OPS per ray-triangle test the kernel's
+contract implies — S per own slab pass for the compacted visit, less,
+with any_hit, the tests after the first accepted triangle
+(``any_hit_saved``); S per ray of every gated 128-ray sub-tile for K6's
+cap = 0 body and K8.  The worklist kernel makes
 WORLD_SLAB_OPS per (ray, box) slab test, every ray against every box as
 its plain version does.  K3 moves 4 bytes of pixel id per row, 12 of
 radiance per retired row and a read and a write of each pixel it
@@ -134,26 +138,31 @@ from logipathtracer_tpu_torch.tools.harness import (  # noqa: E402
     primary_pool, runner, scene_tables, shade_args, shade_counted,
     shade_ops, shade_work, shadow_pool, timed_steps, walk_efficiency)
 
-# Tolerances.  K1, K4, K5, K6's cap > 0 body and K7 (the compacted
-# visit) must equal their plain versions bit for bit; K2, K6's cap = 0
-# body and K8 use the rules kept beside their kernels
-# (compact_intersect.hits_agree: t within rtol 2e-6 / atol 1e-6, tri/obj
-# differing only on t ties; shade.shade_agreement: at most 0.5% of lanes
-# with another seed or alive flag, floats close on the rest).
+# Tolerances.  The intersect kernels K1 and K4-K8 must equal their plain
+# versions bit for bit (t, tri and obj; t alone in any-hit); K2 uses the
+# rule kept beside its kernel (shade.shade_agreement: at most 0.5% of
+# lanes with another seed or alive flag, floats close on the rest).
 K3_RTOL, K3_ATOL = 1e-6, 1e-6           # f32 reassociation
 
 # Bounds (module docstring).  Operation counts, a divide or a compare
 # counted as one: a slab test is 64, the local ray (33), three
 # reciprocals (3) and the slab table (28: 12 for the six plane
 # distances, 10 for t0 and t1, 6 compares); a ray-triangle test is
-# Möller–Trumbore with its acceptance (52).  K2's operations come from
-# its count pass over the compared plain call (``shade_counted``): per
-# lane its prologue, each walk order by lobe, the NEE block, Russian
-# roulette and every draw, at the counts of harness.K2_OPS (counted from
-# csrc/shade.cu); K3 one add per retired channel.
+# Möller–Trumbore with its acceptance (52).  The kernels build with
+# -fmad=false, so every operation is one instruction: the card issues
+# about half of PEAK_FLOPS, which counts an FMA as two.  K2's operations
+# come from its count pass over the compared plain call
+# (``shade_counted``): per lane its prologue, each walk order by lobe,
+# the NEE block, Russian roulette and every draw, at the counts of
+# harness.K2_OPS (counted from csrc/shade.cu); K3 one add per retired
+# channel.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SLAB_OPS, MT_OPS = 64, 52
+# The part of a triangle test up to its u decision (csrc/closest_hit.cuh
+# mt_u and the u test): the P vector (9), det and its reciprocal (6), the
+# T vector (3), u (6) and its two compares.
+MT_U_OPS = 26
 WORLD_SLAB_OPS = 28                     # the slab table alone
 DEVICE_RUNS = 50
 IMG_RTOL, IMG_ATOL, IMG_FRAC = 1e-4, 1e-6, 0.995  # test_wavefront.py:36-37
@@ -200,39 +209,47 @@ def bound(ops: float, n_bytes: float):
 
 
 @contextlib.contextmanager
-def counted(block=256, prefetch=False, chunk=16):
+def counted(block=256, prefetch=False, chunk=16, early_exit=False):
     """The count pass: the plain intersect versions run in the block with
-    every cluster visit's lanes observed (``PlainSweep.lanes``).  The
-    dict it yields holds, after the block, "slab": the slab tests made
-    (each visit's lanes, within its gate), and "own": the lanes whose own
-    slab test passed; and, per visit of a cluster by a tile, "listed":
-    the 256-ray blocks that visit it (within the gate), "passed": those
-    with some own pass, and "staged": the ``block``-ray blocks whose
-    compacted visit stages the cluster (closest_hit.cuh compact_visit) —
-    some own pass, or with ``prefetch`` some pass ahead: the slab against
-    the best before the previous cluster of the same visit (the first
-    cluster of a tile, or of a ``chunk``-cluster chunk behind a gate, is
-    staged on an own pass).  The sums stay on the device until the block
-    ends: no host read per visit."""
+    every cluster visit's lanes observed (``PlainSweep.lanes`` and
+    ``visit``).  The dict it yields holds, after the block, "slab": the
+    slab tests made (each visit's lanes, within its gate), "own": the
+    lanes whose own slab test passed, "subtile": the lanes of the 128-ray
+    sub-tiles some ray of which passed (visits with ``subtile``), and
+    "tested": the lanes that run the triangle test, the sub-tile's for a
+    visit with ``subtile``, else the own passes; and, per visit of a
+    cluster by a tile, "listed": the ``block``-ray blocks that visit it
+    (within the gate), "passed": those with some own pass, and "staged":
+    the blocks whose visit stages the cluster (closest_hit.cuh
+    compact_visit, subtile_visit) — some own pass, or with ``prefetch``
+    some pass ahead: the slab against the best before the previous
+    cluster of the same visit (the first cluster of a tile, or of a
+    ``chunk``-cluster chunk behind a gate, is staged on an own pass).
+    With ``early_exit`` (the sub-tile visit's exit after u), "rest": the
+    (lane, slot) tests of the gated sub-tiles that go on past the u
+    decision — u not rejected, or a best above kInf before the visit —
+    else None.  The sums stay on the device until the block ends: no
+    host read per visit."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     plain = ci.PlainSweep
-    slab, gated, own = [0], [], []
+    slab, gated, own, sub, tested, rest = [0], [], [], [], [], []
     listed, passed, staged = [], [], []
     last = {}
 
     class Counting(plain):
         def lanes(self, sl, c, gate=None):
             lo, ld, hit = super().lanes(sl, c, gate)
+            self.last = lo, ld, hit
             if gate is None:
                 slab[0] += hit.numel()
             else:
                 gated.append(gate.sum())
             own.append(hit.sum())
-            if not isinstance(sl, slice) or hit.numel() % max(block, 256):
-                return lo, ld, hit          # not a tile of K1, K4 or K5
+            if not isinstance(sl, slice) or hit.numel() % block:
+                return lo, ld, hit          # not a tile of K1, K4-K8
             g = torch.ones_like(hit) if gate is None else gate
-            listed.append(g.reshape(-1, 256).any(dim=1).sum())
-            passed.append(hit.reshape(-1, 256).any(dim=1).sum())
+            listed.append(g.reshape(-1, block).any(dim=1).sum())
+            passed.append(hit.reshape(-1, block).any(dim=1).sum())
             key = (id(self), sl.start)
             ahead = hit
             if prefetch and last.get("key") == key and not (
@@ -243,6 +260,22 @@ def counted(block=256, prefetch=False, chunk=16):
             last.update(key=key, best=self.best_t[sl].clone())
             return lo, ld, hit
 
+        def visit(self, sl, c, any_hit=False, gate=None, subtile=0):
+            best = self.best_t[sl].clone()
+            super().visit(sl, c, any_hit=any_hit, gate=gate,
+                          subtile=subtile)
+            lo, ld, hit = self.last
+            if not subtile:
+                tested.append(hit.sum())
+                return
+            lanes = hit.reshape(-1, subtile).any(dim=1).repeat_interleave(
+                subtile)
+            n = lanes.sum()
+            sub.append(n)
+            tested.append(n)
+            if early_exit:
+                rest.append(past_u(lo, ld, lanes, self.cl_tris[c], best))
+
     work = {}
     ci.PlainSweep = Counting
     try:
@@ -251,9 +284,27 @@ def counted(block=256, prefetch=False, chunk=16):
         ci.PlainSweep = plain
     total = lambda xs: int(torch.stack(xs).sum()) if xs else 0
     work["slab"] = slab[0] + total(gated)
-    work["own"] = total(own)
-    work.update(listed=total(listed), passed=total(passed),
-                staged=total(staged))
+    work.update(own=total(own), subtile=total(sub), tested=total(tested),
+                listed=total(listed), passed=total(passed),
+                staged=total(staged),
+                rest=total(rest) if early_exit else None)
+
+
+def past_u(lo, ld, lanes, trib, best):
+    """The (lane, slot) tests of one cluster visit that an exact early
+    exit after the u decision cannot leave: every slot of a ``lanes``
+    lane whose u is not rejected (a NaN u is not), and every slot of a
+    lane whose best is above kInf (it may accept a miss's kInf).  A 0-d
+    tensor."""
+    from logipathtracer_tpu_torch.ops.intersect import INF
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    idx = lanes.nonzero().squeeze(1)
+    n = torch.zeros((), dtype=torch.int64, device=best.device)
+    for part in idx.split(ci.MT_RAYS):
+        u = ci._mt_u([x[part] for x in lo], [x[part] for x in ld], trib)[4]
+        go_on = ~((u < 0.0) | (u > 1.0)) | (best[part] > INF)[:, None]
+        n = n + go_on.sum()
+    return n
 
 
 def plain_work(plain, **staging):
@@ -301,10 +352,18 @@ def any_hit_saved(rays8, tri, obj, tables, eps):
 
 def isect_bound(work, scene, inputs, r: int, saved: int = 0):
     """Bound of an intersect kernel on an R-ray pool: the count pass's
-    operations (``saved`` triangle tests fewer), its inputs read once and
-    (t, tri, obj) written once."""
+    operations — its slab tests and S triangle tests for every lane that
+    runs them ("tested": the own passes of the compacted visit, every
+    lane of a gated sub-tile), ``saved`` triangle tests fewer; with the
+    sub-tile visit's early exit MT_U_OPS for each and the rest only for
+    the "rest" — or its inputs read once and (t, tri, obj) written
+    once."""
     s = scene.cl_tris.shape[2]
-    ops = work["slab"] * SLAB_OPS + (work["own"] * s - saved) * MT_OPS
+    tests = work["tested"] * s - saved
+    ops = work["slab"] * SLAB_OPS + tests * MT_OPS
+    if work.get("rest") is not None:    # the sub-tile visit's early exit
+        ops = (work["slab"] * SLAB_OPS + tests * MT_U_OPS
+               + work["rest"] * (MT_OPS - MT_U_OPS))
     return bound(ops, nbytes(*inputs) + 12 * r)
 
 
@@ -676,16 +735,21 @@ def nee_phase(dev, card, flagship_rate):
 # clusters on the host; on bounce and shadow rays they take far longer
 # per tile (K4 plain: 55 s on 128 bounce tiles, 59 s on 64 shadow tiles,
 # H100 80GB HBM3, 700 W), so those pools are cut to the tiles that
-# finish in about 15 s, spread over the pool's live tiles.
+# finish in about 15 s, spread over the pool's live tiles.  K6 visits
+# every chunk, both bodies on the same sub-pools.
 BOUNCE_TILES = 32                       # 2^17 rays
 SHADOW_TILES = 16                       # 2^16 rays
-K6_BOUNCE_TILES = 16                    # K6 visits every chunk: 2^16 rays
+K6_BOUNCE_TILES = 16                    # 2^16 rays
 K6_SHADOW_TILES = 8                     # 2^15 rays
 
-# The compacted-visit kernels, held bit for bit, and whether the form
-# each source builds stages the next cluster ahead by cp.async (K5's and
-# K6's prefetch) or gates then loads (K4, K7).
+# The compacted-visit kernels and whether the form each source builds
+# stages the next cluster ahead by cp.async (K5's and K6's prefetch) or
+# gates then loads (K4, K7).
 COMPACTED = {"K4": False, "K5": True, "K6[cap>0]": True, "K7": False}
+# The sub-tile visit (K6's cap = 0 body, K8): 128-ray blocks, each
+# cluster staged after its gate, a slot left after its u test where
+# exact.
+SUBTILE = ("K6[cap=0]", "K8")
 
 
 def sub_pool(rays8, tile, n_live, tiles):
@@ -700,31 +764,29 @@ def sub_pool(rays8, tile, n_live, tiles):
 
 
 def staging(kind, r, tile):
-    """The count pass's ``staging`` for a compacted-visit kernel on an
-    R-ray pool: the block and prefetch of its compacted visit
-    (``COMPACTED``); {} for the others."""
+    """The count pass's ``staging`` for an intersect kernel on an R-ray
+    pool: the block and prefetch of its compacted visit (``COMPACTED``)
+    or the sub-tile visit's block, gate then load and early exit
+    (``SUBTILE``)."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    if kind not in COMPACTED:
-        return {}
+    if kind in SUBTILE:
+        return dict(block=128, prefetch=False, early_exit=True)
     return dict(block=ci._block_threads(r, tile, kind),
                 prefetch=COMPACTED[kind])
 
 
 def check_isect(kind, scene, rays8, tile, runs=10, **kw):
-    """An intersect kernel against its plain version on one packed pool:
-    the compacted-visit kernels (``COMPACTED``) bit for bit — t, tri and
-    obj; t alone with any_hit — the others under hits_agree, with any_hit
-    the visibility t < t_max on every lane.  Returns (max |dt|, kernel ms
+    """An intersect kernel (K4-K8) against its plain version on one
+    packed pool, bit for bit: t, tri and obj; with any_hit t, and the
+    visibility t < t_max on every lane.  Returns (max |dt|, kernel ms
     (median of ``runs``), plain ms (once), hit or blocked fraction,
-    bound, visits), all on that pool; visits (compacted kernels): the
-    count pass's listed / passed / staged block visits and the mean list
-    length "wn", else None."""
-    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    bound, visits), all on that pool; visits: the count pass's listed /
+    passed / staged block visits, the lanes it counted ("own", "tested")
+    and the mean list length "wn"."""
     kernel, plain, inputs, wn = runner(kind, scene, rays8, tile, **kw)
     got = kernel()
     stage = staging(kind, rays8.shape[1], tile)
     ref, p_ms, work = plain_work(plain, **stage)
-    exact = bool(stage)
     saved = 0
     if kw.get("any_hit"):
         saved = any_hit_saved(rays8, ref[1], ref[2], scene_tables(scene),
@@ -732,44 +794,46 @@ def check_isect(kind, scene, rays8, tile, runs=10, **kw):
         t_max = rays8[6]
         bad = int(((got[0] < t_max) != (ref[0] < t_max)).sum())
         assert bad == 0, f"{kind} any-hit: visibility differs on {bad} lanes"
-        assert not exact or torch.equal(got[0], ref[0]), \
+        assert torch.equal(got[0], ref[0]), \
             f"{kind} any-hit: t differs from the plain version"
         err = float((got[0] - ref[0]).abs().max())
         live = rays8[0] < 1e29
         frac = float((got[0] < t_max)[live].float().mean())
-    elif exact:
+    else:
         for name, g, p in zip(("t", "tri", "obj"), got, ref):
             assert torch.equal(g, p), \
                 f"{kind}: {name} differs from the plain version"
         err = float((got[0] - ref[0]).abs().max())
         frac = float((ref[1] >= 0).float().mean())
-    else:
-        err = ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
-        frac = float((ref[1] >= 0).float().mean())
     b = isect_bound(work, scene, inputs, rays8.shape[1], saved)
-    visits = None
-    if exact:
-        visits = {k: work[k] for k in ("listed", "passed", "staged")}
-        visits.update(wn=float(wn.float().mean()), **stage)
+    visits = {k: work[k] for k in ("listed", "passed", "staged", "own",
+                                   "tested", "rest")}
+    visits.update(wn=float(wn.float().mean()), **stage)
     return err, event_ms(kernel, runs), p_ms, frac, b, visits
 
 
 def print_visits(kind, what, visits, s):
-    """The numbers the compacted visit rests on (check_isect's visits):
-    the mean list a tile visits, the share of listed clusters some ray of
-    a 256-ray block passes, and the cluster blocks (9 x S floats each)
-    staged per launch by a ring that stages every listed cluster, per
-    256-ray block, and by the kernel."""
+    """The numbers a visit rests on (check_isect's visits): the mean list
+    a tile visits, the (block, cluster) visits listed, the share of them
+    some ray of the block passes, and the cluster blocks (9 x S floats
+    each) staged per launch by a ring that stages every listed cluster
+    and by the kernel; the lanes that run the triangle test against the
+    own slab passes."""
     blk = 36 * s
     v = visits
-    unit = "chunks" if kind in ("K5", "K6[cap>0]") else "clusters"
+    unit = "chunks" if kind in ("K5", "K6[cap>0]", "K6[cap=0]") else \
+        "clusters"
     print(f"{kind} {what}: mean list {v['wn']:.1f} {unit} a tile; "
-          f"{v['listed']} (256-ray block, cluster) visits listed, "
-          f"{v['passed'] / max(v['listed'], 1):.4f} of them passed by some "
-          f"ray of the block; staged per launch: {v['listed'] * blk / 1e9:.3f}"
-          f" GB by a ring staging every listed cluster, "
-          f"{v['staged'] * blk / 1e9:.3f} GB by the kernel ({v['block']}-ray "
-          f"blocks, prefetch {v['prefetch']})", flush=True)
+          f"{v['listed']} ({v['block']}-ray block, cluster) visits listed, "
+          f"{v['passed']} ({v['passed'] / max(v['listed'], 1):.4f}) passed "
+          f"by some ray of the block, {v['staged']} staged; staged per "
+          f"launch: {v['listed'] * blk / 1e9:.3f} GB by a ring staging every "
+          f"listed cluster, {v['staged'] * blk / 1e9:.3f} GB by the kernel "
+          f"(prefetch {v['prefetch']}); lanes tested "
+          f"{v['tested'] / max(v['own'], 1):.2f}x the own passes"
+          + ("" if v.get("rest") is None else
+             f", {v['rest'] / max(v['tested'] * s, 1):.4f} of their slot "
+             f"tests past the u decision (early exit)"), flush=True)
 
 
 def outside_phase(dev, card):
@@ -811,16 +875,16 @@ def outside_phase(dev, card):
     full8, _ = ci.pack_rays8(o, d, tile)
     for kind in ("K4", "K5", "K6[cap=0]", "K6[cap>0]"):
         err, k_ms, p_ms, frac, b, _ = check(kind, kind, full8)
-        print(f"{kind} primary pool {full8.shape[1]} rays: "
-              f"{'bit-equal, ' if kind in COMPACTED else ''}max|dt| "
-              f"{err:.3g}, hit {frac:.3f}, kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.1f} ms (once), bound {b[0]:.4f} ms ({b[1]})",
+        print(f"{kind} primary pool {full8.shape[1]} rays: bit-equal, "
+              f"max|dt| {err:.3g}, hit {frac:.3f}, kernel {k_ms:.3f} ms, "
+              f"plain {p_ms:.1f} ms (once), bound {b[0]:.4f} ms ({b[1]})",
               flush=True)
     pool = bounce_pool(probe)
     n_alive = int(pool["alive"].sum())
     full8, _ = ci.pack_rays8(pool["origin"], pool["direction"], tile)
     for kind, tiles in (("K4", BOUNCE_TILES), ("K5", BOUNCE_TILES),
-                        ("K6[cap>0]", K6_BOUNCE_TILES)):
+                        ("K6[cap>0]", K6_BOUNCE_TILES),
+                        ("K6[cap=0]", K6_BOUNCE_TILES)):
         sub8 = sub_pool(full8, tile, n_alive, tiles)
         k_full = event_ms(runner(kind, scene, full8, tile)[0], 10)
         err, k_ms, p_ms, _, b, _ = check(f"{kind} bounce", kind, sub8)
@@ -834,19 +898,24 @@ def outside_phase(dev, card):
                                 device=dev)
     scene = probe.scene
     so, sd, t_max, n_alive = shadow_pool(probe)
-    shadow = dict(has_tmax=True, any_hit=True)
     full8, _ = ci.pack_rays8(so, sd, tile, t_max=t_max)
-    for kind, tiles in (("K4", SHADOW_TILES), ("K6[cap>0]", K6_SHADOW_TILES)):
+    # K6's cap = 0 body ignores any_hit: its t_max mode, t, tri and obj.
+    for kind, tiles, any_hit in (("K4", SHADOW_TILES, True),
+                                 ("K6[cap>0]", K6_SHADOW_TILES, True),
+                                 ("K6[cap=0]", K6_SHADOW_TILES, False)):
+        shadow = dict(has_tmax=True, any_hit=any_hit)
         k_full = event_ms(runner(kind, scene, full8, tile, **shadow)[0], 10)
         sub8 = sub_pool(full8, tile, n_alive, tiles)
-        err, k_ms, p_ms, frac, b, _ = check(f"{kind} any_hit", kind, sub8,
-                                            **shadow)
-        print(f"{kind} t_max+any-hit shadow pool ({n_alive} lanes alive): "
+        key = f"{kind} {'any_hit' if any_hit else 'tmax'}"
+        err, k_ms, p_ms, frac, b, _ = check(key, kind, sub8, **shadow)
+        what = ("t_max+any-hit", "t", "blocked") if any_hit else \
+            ("t_max", "t, tri and obj", "hit")
+        print(f"{kind} {what[0]} shadow pool ({n_alive} lanes alive): "
               f"kernel {k_full:.3f} ms on {full8.shape[1]} lanes; on "
-              f"{sub8.shape[1]} lanes the plain t on every lane, {frac:.3f} "
-              f"blocked, max|dt| {err:.3g}, kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.1f} ms (once), bound {b[0]:.4f} ms ({b[1]}) [{card}]",
-              flush=True)
+              f"{sub8.shape[1]} lanes the plain {what[1]} on every lane, "
+              f"{frac:.3f} {what[2]}, max|dt| {err:.3g}, kernel {k_ms:.3f} "
+              f"ms, plain {p_ms:.1f} ms (once), bound {b[0]:.4f} ms "
+              f"({b[1]}) [{card}]", flush=True)
     del probe, so, sd, t_max, full8, sub8
 
     # (b) the main path
@@ -883,6 +952,8 @@ def outside_phase(dev, card):
              "octant_chunk", "cap/any_hit"),
             ("K6[cap=0]", dict(stream_compact=False), "octant_chunk",
              "cap0/closest"),
+            ("K6[cap=0] tmax", dict(stream_compact=False, nee=True),
+             "octant_chunk", "cap0/any_hit"),
             ("K4 any_hit", dict(nee=True), "stream_cluster", "any_hit")):
         r = ProgressiveRenderer(host, cfg.replace(**kw), host_seed=0,
                                 device=dev)
@@ -927,6 +998,10 @@ def outside_phase(dev, card):
                  ci.WORKLIST_REPLACES, "K5", "K5 bounce"),
                 ("octant_chunk[cap=0]", k6.SOURCE, k6.REPLACES, "K6[cap=0]",
                  "K6[cap=0]"),
+                ("octant_chunk[cap=0 bounce]", k6.SOURCE, k6.REPLACES,
+                 "K6[cap=0]", "K6[cap=0] bounce"),
+                ("octant_chunk[cap=0 tmax]", k6.SOURCE, k6.REPLACES,
+                 "K6[cap=0] tmax", "K6[cap=0] tmax"),
                 ("octant_chunk[cap>0]", k6.SOURCE, k6.REPLACES_CAP,
                  "K6[cap>0]", "K6[cap>0]"),
                 ("octant_chunk[cap>0 bounce]", k6.SOURCE, k6.REPLACES_CAP,
@@ -1007,7 +1082,7 @@ def megakernel_phase(dev, card):
             print(f"{kind} megakernel {pool} pool {rays8.shape[1]} rays"
                   + (f" ({n_alive} alive)" if pool == "bounce" else "")
                   + (f" {json.dumps(kw)}" if kw else "")
-                  + (": bit-equal" if kind in COMPACTED else "")
+                  + ": bit-equal"
                   + f": max|dt| {r[0]:.3g}, {what} {r[3]:.3f}, kernel "
                   f"{r[1]:.3f} ms, plain {r[2]:.1f} ms (once), bound "
                   f"{r[4][0]:.4f} ms ({r[4][1]})", flush=True)
@@ -1095,6 +1170,8 @@ def megakernel_phase(dev, card):
                  ci.ORDER_REPLACES, "K7 any_hit", "K7", "shadow"),
                 ("dense_sweep", k8.SWEEP_SOURCE, k8.SWEEP_REPLACES, "K8",
                  "K8", "primary"),
+                ("dense_sweep[bounce]", k8.SWEEP_SOURCE, k8.SWEEP_REPLACES,
+                 "K8", "K8", "bounce"),
                 ("dense_sweep[tmax]", k8.SWEEP_SOURCE, k8.SWEEP_REPLACES,
                  "K8 tmax", "K8", "shadow"))]
     return rows

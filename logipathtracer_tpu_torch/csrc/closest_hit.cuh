@@ -7,7 +7,7 @@
 // the same compacted visit for K4-K7 as a device function
 // (compact_visit), and the sub-tile visit of K6's cap = 0 body and K8,
 // where every ray of a 128-ray block runs a cluster's triangle test once
-// one of them passes its slab (visit_clusters).
+// one of them passes its slab (subtile_visit).
 //
 // Per ray and visited cluster: transform the ray into the cluster
 // object's space; slab-test the cluster AABB against the running best t
@@ -106,46 +106,51 @@ __device__ __forceinline__ bool slab_inv(const Ray& l, float ix, float iy,
   return slab_pass(t0, t1, best);
 }
 
+// One triangle of a cluster block: v0.xyz, e1.xyz, e2.xyz.
+struct Tri {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+};
+
+// Moller-Trumbore in two parts, so that a caller may decide on u before
+// the rest: mt_u computes the P vector, 1 / det, the T vector and u;
+// mt_t the Q vector, v and t, and returns kInf on a barycentric miss.
+struct MtU {
+  float det, tx, ty, tz, u;
+};
+__device__ __forceinline__ MtU mt_u(const Tri& g, const Ray& l) {
+  const float px = l.dy * g.e2z - l.dz * g.e2y;
+  const float py = l.dz * g.e2x - l.dx * g.e2z;
+  const float pz = l.dx * g.e2y - l.dy * g.e2x;
+  MtU m;
+  m.det = 1.0f / (g.e1x * px + g.e1y * py + g.e1z * pz);
+  m.tx = l.ox - g.v0x;
+  m.ty = l.oy - g.v0y;
+  m.tz = l.oz - g.v0z;
+  m.u = (m.tx * px + m.ty * py + m.tz * pz) * m.det;
+  return m;
+}
+__device__ __forceinline__ float mt_t(const Tri& g, const Ray& l,
+                                      const MtU& m) {
+  const float qx = m.ty * g.e1z - m.tz * g.e1y;
+  const float qy = m.tz * g.e1x - m.tx * g.e1z;
+  const float qz = m.tx * g.e1y - m.ty * g.e1x;
+  const float v = (l.dx * qx + l.dy * qy + l.dz * qz) * m.det;
+  const float t = (g.e2x * qx + g.e2y * qy + g.e2z * qz) * m.det;
+  return (m.u < 0.0f || m.u > 1.0f || v < 0.0f || m.u + v > 1.0f) ? kInf
+                                                                   : t;
+}
+
 // Moller-Trumbore of ray l against slot s of a [9, S] cluster block;
 // kInf on a barycentric miss.
 __device__ __forceinline__ float mt(const float* tri, int S, int s,
                                     const Ray& l) {
-  const float v0x = tri[0 * S + s], v0y = tri[1 * S + s],
-              v0z = tri[2 * S + s];
-  const float e1x = tri[3 * S + s], e1y = tri[4 * S + s],
-              e1z = tri[5 * S + s];
-  const float e2x = tri[6 * S + s], e2y = tri[7 * S + s],
-              e2z = tri[8 * S + s];
-  const float px = l.dy * e2z - l.dz * e2y;
-  const float py = l.dz * e2x - l.dx * e2z;
-  const float pz = l.dx * e2y - l.dy * e2x;
-  const float det = 1.0f / (e1x * px + e1y * py + e1z * pz);
-  const float tx = l.ox - v0x, ty = l.oy - v0y, tz = l.oz - v0z;
-  const float u = (tx * px + ty * py + tz * pz) * det;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float v = (l.dx * qx + l.dy * qy + l.dz * qz) * det;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * det;
-  return (u < 0.0f || u > 1.0f || v < 0.0f || u + v > 1.0f) ? kInf : t;
+  const Tri g{tri[0 * S + s], tri[1 * S + s], tri[2 * S + s],
+              tri[3 * S + s], tri[4 * S + s], tri[5 * S + s],
+              tri[6 * S + s], tri[7 * S + s], tri[8 * S + s]};
+  return mt_t(g, l, mt_u(g, l));
 }
 
-// The S triangles of one staged cluster against ray l: accept t > eps
-// strictly closer than best (lowest slot on ties).
-__device__ __forceinline__ void closest_in_cluster(
-    const float* tri, int S, const Ray& l, float eps, int base, int obj,
-    float& best, int& btri, int& bobj) {
-  for (int s = 0; s < S; ++s) {
-    const float t = mt(tri, S, s, l);
-    if (t > eps && t < best) {
-      best = t;
-      btri = base + s;
-      bobj = obj;
-    }
-  }
-}
-
-// ---- staging: cp.async (K5, K6) or plain loads (K1, K4, K7, K8) ---------
+// ---- staging: cp.async (K5, K6, K8) or plain loads (K1, K4, K7) ---------
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -160,67 +165,142 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The sub-tile visit (K6's cap = 0 body, K8): visit n clusters, the
-// k-th being cluster_at(k), for the block's rays, one thread per ray.
-// Every thread of the block makes the same n trips (n and cluster_at are
-// block-uniform), so __syncthreads_or and the shared memory stay
-// uniform.  Once some ray of the block passes a cluster's slab (the
-// block-uniform __syncthreads_or gate), every ray of the block runs its
-// triangle test, not only the rays whose own slab passed.  The cluster's
-// [9, S] block reaches shared memory in one of two ways:
-//   kStages == 0 (gate before load, K8): copied into `ring` after the
-//     gate passes, so a cluster no ray passes is never read;
-//   kStages >= 2 (ring, K6): copied into ring stage k % kStages with
-//     cp.async kStages - 1 trips ahead, while the block tests the
-//     clusters before it; every listed cluster is loaded, tested or not.
-// ring holds ring_bytes<kStages>(S) bytes, 16-byte aligned; with a ring,
-// S is a multiple of 4.
-template <int kStages, class ClusterAt>
-__device__ __forceinline__ void visit_clusters(
-    ClusterAt cluster_at, int n, float* ring, const float* __restrict__ tris,
-    int S, const int* __restrict__ meta, const float* __restrict__ inv,
-    const float* __restrict__ aabb, const Ray& w, float eps, float& best,
-    int& btri, int& bobj) {
-  static_assert(kStages == 0 || kStages >= 2, "gate-first or a ring");
+// ---- the sub-tile visit (K6's cap = 0 body, K8) ---------------------------
+
+// Slot s of the sub-tile visit for ray l: the triangle test and the
+// sequential loop's acceptance (t > eps and strictly closer than the
+// best: the lowest slot wins ties), left once u is rejected where that
+// changes nothing: a rejected u makes the slot's t kInf, accepted only
+// when kInf > eps (inf_eps) and kInf < best, a best that is still an
+// infinite t_max.  A NaN u is not rejected.
+__device__ __forceinline__ void subtile_slot(const Tri& g, const Ray& l,
+                                             float eps, bool inf_eps, int s,
+                                             float& best, int& slot) {
+  const MtU m = mt_u(g, l);
+  if ((m.u < 0.0f || m.u > 1.0f) && !(inf_eps && kInf < best)) return;
+  const float t = mt_t(g, l, m);
+  if (t > eps && t < best) {
+    best = t;
+    slot = s;
+  }
+}
+
+// The S slots of a staged [9, S] block against ray l, four at a time
+// from nine 16-byte loads (S a multiple of 4): the accepted slot (its t
+// now the best) or -1.
+__device__ __forceinline__ int test_staged(const float* st, int S,
+                                           const Ray& l, float eps,
+                                           bool inf_eps, float& best) {
+  const float4* st4 = reinterpret_cast<const float4*>(st);
+  const int S4 = S >> 2;
+  int slot = -1;
+  for (int s4 = 0; s4 < S4; ++s4) {
+    float g[9][4];
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      const float4 q = st4[j * S4 + s4];
+      g[j][0] = q.x;
+      g[j][1] = q.y;
+      g[j][2] = q.z;
+      g[j][3] = q.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      subtile_slot(Tri{g[0][i], g[1][i], g[2][i], g[3][i], g[4][i], g[5][i],
+                       g[6][i], g[7][i], g[8][i]},
+                   l, eps, inf_eps, 4 * s4 + i, best, slot);
+  }
+  return slot;
+}
+
+// Visit n clusters, the k-th being cluster_at(k), for a block of 128
+// rays, one thread a ray: the sub-tile visit of K6's cap = 0 body and K8.
+// n and cluster_at are block-uniform.  Once some ray of the block passes
+// a cluster's slab against its running best, every ray of the block runs
+// the cluster's triangle test over all S slots, not only the rays that
+// pass.  Per batch of kBatch clusters k .. k + g - 1:
+//   1. every thread decides its slab of each against its running best
+//      (bit i for cluster k + i), the local ray and its reciprocals kept
+//      while consecutive clusters share an object;
+//   2. one barrier publishes the bits, ORed over each warp, in the row of
+//      the batch's parity: a thread going on to the next batch writes
+//      the other row while slower ones still read this one;
+//   3. no ray passes any of them: the next batch.  Else the first
+//      cluster some ray passes, f: no best changed on the clusters
+//      before it, so each was decided against the best after the ones
+//      before it, as the sequential loop decides.  Cluster f's [9, S]
+//      block is copied by cp.async (16-byte pieces), a barrier publishes
+//      it, and every thread tests the S slots four at a time
+//      (test_staged).  The next batch starts after f.
+// The stage is rewritten only after the next batch's barrier, which
+// every thread reaches after its tests.  A cluster no ray of the block
+// passes is never read.  The same slab decisions, the same
+// Moller-Trumbore arithmetic and the same acceptance as the sequential
+// loop: bit-identical results.  stage holds subtile_bytes(S) bytes,
+// 16-byte aligned, S a multiple of 4 and tris 16-byte aligned; flags 64
+// ints.
+template <int kBatch, class ClusterAt>
+__device__ __forceinline__ void subtile_visit(
+    ClusterAt cluster_at, int n, float* stage, int* flags,
+    const float* __restrict__ tris, int S, const int* __restrict__ meta,
+    const float* __restrict__ inv, const float* __restrict__ aabb,
+    const Ray& w, float eps, float& best, int& btri, int& bobj) {
+  static_assert(kBatch >= 1 && kBatch <= 32, "a batch of 1 to 32 gates");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
   const int blk = 9 * S;
-  auto issue = [&](int k) {
-    const float* src = tris + static_cast<size_t>(cluster_at(k)) * blk;
-    float* dst = ring + (k % (kStages > 0 ? kStages : 1)) * blk;
-    for (int i = 4 * threadIdx.x; i < blk; i += 4 * blockDim.x)
-      cp_async16(dst + i, src + i);
-  };
-  if constexpr (kStages > 0) {
-    for (int k = 0; k < kStages - 1; ++k) {
-      if (k < n) issue(k);
-      cp_async_commit();
+  const bool inf_eps = kInf > eps;
+  int cached = -1;
+  float ix = 0.0f, iy = 0.0f, iz = 0.0f;
+  Ray lc{};
+  int batches = 0;
+  for (int k = 0; k < n;) {
+    const int g = min(kBatch, n - k);
+    unsigned bits = 0;
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (i < g) {
+        const int c = cluster_at(k + i);
+        const int obj = meta[2 * c];
+        if (obj != cached) {
+          cached = obj;
+          lc = local_ray(inv + 12 * obj, w);
+          ix = 1.0f / lc.dx;
+          iy = 1.0f / lc.dy;
+          iz = 1.0f / lc.dz;
+        }
+        float t0, t1;
+        slab_range(lc, ix, iy, iz, aabb + 8 * c, t0, t1);
+        bits |= slab_pass(t0, t1, best) ? 1u << i : 0u;
+      }
     }
-  }
-  for (int k = 0; k < n; ++k) {
-    if constexpr (kStages > 0) {
-      if (k + kStages - 1 < n) issue(k + kStages - 1);
-      cp_async_commit();  // possibly empty: keeps the group count uniform
+    int* f = flags + 32 * (batches++ & 1);
+    const unsigned wb = __reduce_or_sync(0xffffffffu, bits);
+    if (lane == 0) f[warp] = static_cast<int>(wb);
+    __syncthreads();
+    unsigned any = 0;
+    for (int i = 0; i < nwarps; ++i) any |= static_cast<unsigned>(f[i]);
+    if (!any) {  // block-uniform: no ray passes any of the g clusters
+      k += g;
+      continue;
     }
+    k += __ffs(any) - 1;
     const int c = cluster_at(k);
+    const float* src = tris + static_cast<size_t>(c) * blk;
+    for (int i = 4 * threadIdx.x; i < blk; i += 4 * blockDim.x)
+      cp_async16(stage + i, src + i);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
     const int obj = meta[2 * c];
-    const int base = meta[2 * c + 1];
-    const Ray l = local_ray(inv + 12 * obj, w);
-    const bool hit = slab_inv(l, 1.0f / l.dx, 1.0f / l.dy, 1.0f / l.dz,
-                              aabb + 8 * c, best);
-    if constexpr (kStages > 0)
-      cp_async_wait<kStages - 1>();  // this thread's copies of cluster k
-    if (!__syncthreads_or(hit)) continue;  // also publishes ring copies
-    const float* staged = ring;
-    if constexpr (kStages > 0) {
-      staged = ring + (k % kStages) * blk;
-    } else {
-      const float* src = tris + static_cast<size_t>(c) * blk;
-      for (int i = threadIdx.x; i < blk; i += blockDim.x) ring[i] = src[i];
-      __syncthreads();
+    const Ray l = obj == cached ? lc : local_ray(inv + 12 * obj, w);
+    const int slot = test_staged(stage, S, l, eps, inf_eps, best);
+    if (slot >= 0) {
+      btri = meta[2 * c + 1] + slot;
+      bobj = obj;
     }
-    closest_in_cluster(staged, S, l, eps, base, obj, best, btri, bobj);
-    __syncthreads();  // the staged block is rewritten on a later trip
+    ++k;
   }
-  if constexpr (kStages > 0) cp_async_wait<0>();
 }
 
 // ---- compacted visits (K1, K4-K7) ----------------------------------------
@@ -616,11 +696,9 @@ inline size_t visit_bytes(int S, int threads, bool prefetch, int batch) {
                           9 * static_cast<size_t>(threads) + 64 * batch);
 }
 
-// Dynamic shared memory of visit_clusters: one [9, S] block, or kStages.
-template <int kStages>
-inline size_t ring_bytes(int S) {
-  return sizeof(float) * (kStages > 0 ? kStages : 1) * 9 *
-         static_cast<size_t>(S);
+// Dynamic shared memory of subtile_visit: one [9, S] block.
+inline size_t subtile_bytes(int S) {
+  return sizeof(float) * 9 * static_cast<size_t>(S);
 }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory.

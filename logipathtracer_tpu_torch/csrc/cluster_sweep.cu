@@ -23,18 +23,20 @@
 // a 128-ray sub-tile passes a cluster's slab, every ray of the sub-tile
 // runs the triangle test; any_hit is ignored; t is the best as it stands
 // without has_tmax, INF where no hit was accepted with it.  The tile is
-// sweep_tile (1024 rays); blocks of 128 rays, so a block is a sub-tile
-// and its __syncthreads_or is the sub-tile gate (closest_hit.cuh
-// visit_clusters, gate before load).  The TPU kernel's tile-wide gate
-// contains the sub-tile gate, so it decides nothing more.
+// sweep_tile (1024 rays); blocks of 128 rays, so a block is a sub-tile:
+// closest_hit.cuh subtile_visit, its gate the sub-tile gate, taken for
+// four clusters a barrier, each gated cluster's block copied by cp.async
+// after its gate.  The TPU kernel's tile-wide gate contains the sub-tile
+// gate, so it decides nothing more.
 //
 // The octant belongs to the tile, not to the block: the host side
 // computes oct [tiles] from each tile's first ray (a parked lane, with
 // direction (1, 1, 1), gives octant 7; a pad ray, (0, 0, 1), octant 1).
-// No tile is skipped.  Each cluster's 9 x S floats (9 KB at S = 256) are
-// staged in shared memory once some ray of the block passes its slab:
-// all 86 blocks of the flagship box sit in L2.  Bound: operations (~64
-// per slab test, ~52 per ray-triangle test).
+// No tile is skipped.  Each cluster's 9 x S floats (9 KB at S = 256)
+// reach shared memory only for a block some ray of which passes its
+// slab: all 86 blocks of the flagship box sit in L2.  Bound: operations
+// (~64 per slab test, ~52 per ray-triangle test of every ray of a gated
+// sub-tile).
 
 #include "closest_hit.cuh"
 
@@ -47,6 +49,11 @@ using lpt::kInf;
 // measured).
 constexpr bool kPrefetch = false;
 constexpr int kBatch = 4;
+
+// K8's form of subtile_visit (PERF.md: the forms measured): 4 gates a
+// barrier, at most 64 registers a thread (8 blocks an SM).
+constexpr int kSubtileBatch = 4;
+constexpr int kSubtileMinBlocks = 8;
 
 // K7: a block of blockDim.x <= 256 consecutive rays of one `tile`-ray
 // tile visits all C clusters order[oct[ti], :].  Launch bounds as K1's
@@ -80,28 +87,30 @@ __global__ void __launch_bounds__(256, 4)
 }
 
 // K8: a block of 128 consecutive rays of one `tile`-ray tile visits all C
-// clusters order[oct[ti], :] through the sub-tile visit, gate before
-// load.
-__global__ void cluster_order_kernel(const float* __restrict__ rays8, int R,
-                                     const int* __restrict__ oct,
-                                     const int* __restrict__ order, int C,
-                                     int tile, const int* __restrict__ meta,
-                                     const float* __restrict__ inv,
-                                     const float* __restrict__ aabb,
-                                     const float* __restrict__ tris, int S,
-                                     float eps, int has_tmax,
-                                     float* __restrict__ t_out,
-                                     int* __restrict__ tri_out,
-                                     int* __restrict__ obj_out) {
-  extern __shared__ __align__(16) float ring[];
+// clusters order[oct[ti], :] through the sub-tile visit.  Shared memory:
+// subtile_bytes.
+__global__ void __launch_bounds__(128, kSubtileMinBlocks)
+    cluster_order_kernel(const float* __restrict__ rays8, int R,
+                         const int* __restrict__ oct,
+                         const int* __restrict__ order, int C, int tile,
+                         const int* __restrict__ meta,
+                         const float* __restrict__ inv,
+                         const float* __restrict__ aabb,
+                         const float* __restrict__ tris, int S, float eps,
+                         int has_tmax, float* __restrict__ t_out,
+                         int* __restrict__ tri_out,
+                         int* __restrict__ obj_out) {
+  extern __shared__ __align__(16) float stage[];  // [9, S]
+  __shared__ int flags[64];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const int ti = (blockIdx.x * blockDim.x) / tile;
   const lpt::Ray w = lpt::load_ray(rays8, R, r);
   float best = has_tmax ? rays8[6 * R + r] : kInf;
   int btri = -1, bobj = -1;
   const int* ord = order + static_cast<size_t>(oct[ti]) * C;
-  lpt::visit_clusters<0>([ord](int k) { return ord[k]; }, C, ring, tris, S,
-                         meta, inv, aabb, w, eps, best, btri, bobj);
+  lpt::subtile_visit<kSubtileBatch>(
+      [ord](int k) { return ord[k]; }, C, stage, flags, tris, S, meta, inv,
+      aabb, w, eps, best, btri, bobj);
   t_out[r] = !has_tmax || btri >= 0 ? best : kInf;
   tri_out[r] = btri;
   obj_out[r] = bobj;
@@ -110,8 +119,9 @@ __global__ void cluster_order_kernel(const float* __restrict__ rays8, int R,
 }  // namespace
 
 // Per-tile octant oct [tiles], per-octant cluster order [8, C]; subtile
-// selects K8 (threads must be 128; any_hit is ignored), else K7 (threads
-// 128 or 256, a divisor of tile).
+// selects K8 (threads must be 128; any_hit is ignored; S a multiple of 4
+// and tris 16-byte aligned), else K7 (threads 128 or 256, a divisor of
+// tile).
 extern "C" int lpt_cluster_order_intersect(
     const void* rays8, int R, const void* oct, const void* order, int C,
     int tile, const void* meta, const void* inv, const void* aabb,
@@ -129,7 +139,7 @@ extern "C" int lpt_cluster_order_intersect(
   int* tri_out = static_cast<int*>(tri);
   int* obj_out = static_cast<int*>(obj);
   if (subtile) {
-    const size_t smem = lpt::ring_bytes<0>(S);
+    const size_t smem = lpt::subtile_bytes(S);
     const int e = lpt::prepare(cluster_order_kernel, smem);
     if (e) return e;
     cluster_order_kernel<<<R / threads, threads, smem, st>>>(

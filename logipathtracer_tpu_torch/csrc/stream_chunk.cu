@@ -20,10 +20,11 @@
 // design (the rays that pass a member's slab compacted before the
 // triangle tests): the passing rays are queued, whole warps test one
 // queued ray each, and a member no ray passes is never read.  K6's
-// cap = 0 body visits them through the sub-tile visit (visit_clusters),
-// each member's 9 x S floats staged in a cp.async ring (a whole
-// 16-cluster chunk is 288 KB at S = 512, beyond a block's shared
-// memory).
+// cap = 0 body visits them through the sub-tile visit (subtile_visit):
+// the gates of eight members are published by one barrier, and a
+// member's 9 x S floats (18 KB at S = 512) are copied by cp.async only
+// once some ray of the block passes its slab (a whole 16-cluster chunk
+// is 288 KB, beyond a block's shared memory).
 //
 // K5 and K6 with cap > 0 keep K1's contract: best t starts at
 // min(rays8[6], BIG) with has_tmax, else BIG; any-hit parking; miss
@@ -38,9 +39,10 @@
 // taken over the block's rays.  The two differ only where a ray misses
 // a chunk's world box but passes a member cluster's local box, which
 // rounding alone can cause.
-// Bound: operations, as for K1, plus each cluster block's load latency,
-// which the prefetch (K5, K6 cap > 0) or the ring (K6 cap = 0) hides
-// behind the previous member's tests.
+// Bound: operations, as for K1 (for the cap = 0 body every ray of a
+// gated sub-tile runs the triangle test), plus each cluster block's load
+// latency, which the prefetch of K5 and K6's cap > 0 body hides behind
+// the previous member's tests (the cap = 0 body copies after the gate).
 
 #include "closest_hit.cuh"
 
@@ -49,7 +51,11 @@ namespace {
 using lpt::kBig;
 using lpt::kInf;
 
-constexpr int kStages = 3;  // the cap = 0 body's cp.async ring
+// The cap = 0 body's form of subtile_visit (PERF.md: the forms
+// measured): 8 gates a barrier, at most 80 registers a thread (6 blocks
+// an SM).
+constexpr int kSubtileBatch = 8;
+constexpr int kSubtileMinBlocks = 6;
 
 // K5's and K6's (cap > 0) form of compact_visit: the next member staged
 // by cp.async a cluster ahead (PERF.md: <true, 1> and <false, 4>
@@ -156,16 +162,17 @@ __global__ void __launch_bounds__(256, 4)
 
 // K6's cap = 0 body: a block of 128 rays (a sub-tile) of one tile visits
 // all NC chunks order[oct[ti], :], none when live[ti] == 0; each chunk's
-// members through the sub-tile visit and the cp.async ring.
-__global__ void octant_chunk_kernel(const float* __restrict__ rays8, int R,
-                                    const int* __restrict__ oct,
-                                    const int* __restrict__ order,
-                                    const int* __restrict__ live, int NC,
-                                    int tile, Scene sc, int has_tmax,
-                                    float* __restrict__ t_out,
-                                    int* __restrict__ tri_out,
-                                    int* __restrict__ obj_out) {
-  extern __shared__ __align__(16) float ring[];  // [kStages, 9, S]
+// members through the sub-tile visit.  Shared memory: subtile_bytes.
+__global__ void __launch_bounds__(128, kSubtileMinBlocks)
+    octant_chunk_kernel(const float* __restrict__ rays8, int R,
+                        const int* __restrict__ oct,
+                        const int* __restrict__ order,
+                        const int* __restrict__ live, int NC, int tile,
+                        Scene sc, int has_tmax, float* __restrict__ t_out,
+                        int* __restrict__ tri_out,
+                        int* __restrict__ obj_out) {
+  extern __shared__ __align__(16) float stage[];  // [9, S]
+  __shared__ int flags[64];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const int ti = (blockIdx.x * blockDim.x) / tile;
   const lpt::Ray w = lpt::load_ray(rays8, R, r);
@@ -178,10 +185,10 @@ __global__ void octant_chunk_kernel(const float* __restrict__ rays8, int R,
       const int jc = ord[j];
       if (!chunk_passes(jc, sc, w, wix, wiy, wiz, best)) continue;
       const int c0 = jc * sc.chunk;
-      lpt::visit_clusters<kStages>(
-          [c0](int k) { return c0 + k; }, chunk_members(jc, sc), ring,
-          sc.tris, sc.S, sc.meta, sc.inv, sc.aabb, w, sc.eps, best, btri,
-          bobj);
+      lpt::subtile_visit<kSubtileBatch>(
+          [c0](int k) { return c0 + k; }, chunk_members(jc, sc), stage,
+          flags, sc.tris, sc.S, sc.meta, sc.inv, sc.aabb, w, sc.eps, best,
+          btri, bobj);
     }
   }
   t_out[r] = !has_tmax || btri >= 0 ? best : kInf;
@@ -247,7 +254,7 @@ extern "C" int lpt_octant_chunk_intersect(
   int* tri_out = static_cast<int*>(tri);
   int* obj_out = static_cast<int*>(obj);
   if (subtile) {
-    const size_t smem = lpt::ring_bytes<kStages>(S);
+    const size_t smem = lpt::subtile_bytes(S);
     const int e = lpt::prepare(octant_chunk_kernel, smem);
     if (e) return e;
     octant_chunk_kernel<<<R / threads, threads, smem, st>>>(

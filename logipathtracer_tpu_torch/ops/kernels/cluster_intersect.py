@@ -27,6 +27,13 @@ hold it by construction:
     the rays that pass (``_mt_subtile_update``);
   * ``any_hit`` is ignored (the closest hit gives the same t < t_max).
 
+The kernel keeps that contract on the card (csrc/closest_hit.cuh
+``subtile_visit``): one thread a ray, a block a sub-tile; the gates of
+several members are published by one barrier, a member's block reaches
+shared memory by cp.async only when some ray of the sub-tile passes its
+slab, and every thread tests the staged slots four at a time.  Its
+result is bit-equal to the plain version.
+
 The chunk test is taken over each CUDA block's rays (128 rays with
 cap = 0, else 256), not over the whole tile as on the TPU; the plain
 version takes it the same way.  The two differ only where a ray misses
@@ -38,7 +45,8 @@ Kernel K8 sits here too, as in the JAX package: ``dense_sweep_intersect``
 (``_kernel`` → ``_mt_subtile_update``), the dense resident sweep of
 ``intersect="sweep"``: every cluster in ``cl_order[octant of the tile's
 first ray]``, with the cap = 0 body's per-ray contract above (no chunks,
-no tile skipped).  It counts its launches in ``sweep_launches`` /
+no tile skipped), on the same sub-tile visit, bit-equal to its plain
+version.  It counts its launches in ``sweep_launches`` /
 ``sweep_plain_calls``.  ``cluster_intersect_jnp`` is the port of the JAX
 package's jnp twin (``intersect="sweep_jnp"``): plain torch, every
 cluster in index order, every ray tested, no slab.
@@ -226,7 +234,8 @@ def dense_sweep_intersect(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
     """Kernel K8: closest hit for rays8 [8, R] (R a multiple of ``tile``,
     itself of 128) visiting every cluster in order[oct_[tile]] with the
     cap = 0 body's contract (module docstring).  A CPU tensor takes the
-    plain version, a CUDA tensor the kernel."""
+    plain version, a CUDA tensor the kernel (S a multiple of 4, cl_tris
+    16-byte aligned)."""
     global sweep_launches
     dev = rays8.device
     if dev.type == "cpu":

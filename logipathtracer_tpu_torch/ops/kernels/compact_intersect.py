@@ -267,10 +267,10 @@ def _order_fired(fired, chunk_min, chunk_max, rays8, tile: int):
     return wl.contiguous(), wn.contiguous()
 
 
-def _mt(lo, ld, trib):
-    """Möller–Trumbore of rays [n] (components) against one cluster
-    [9, S]: t [n, S], INF on a barycentric miss (cluster_intersect.py
-    _mt_cluster with the exact divide)."""
+def _mt_u(lo, ld, trib):
+    """The first part of Möller–Trumbore (csrc/closest_hit.cuh mt_u) for
+    rays [n] (components) against one cluster [9, S]: the P vector,
+    1 / det, the T vector and u, each [n, S]."""
     v0x, v0y, v0z = trib[0][None], trib[1][None], trib[2][None]
     e1x, e1y, e1z = trib[3][None], trib[4][None], trib[5][None]
     e2x, e2y, e2z = trib[6][None], trib[7][None], trib[8][None]
@@ -284,6 +284,17 @@ def _mt(lo, ld, trib):
     ty = oy - v0y
     tz = oz - v0z
     u = (tx * px + ty * py + tz * pz) * det
+    return det, tx, ty, tz, u
+
+
+def _mt(lo, ld, trib):
+    """Möller–Trumbore of rays [n] (components) against one cluster
+    [9, S]: t [n, S], INF on a barycentric miss (cluster_intersect.py
+    _mt_cluster with the exact divide)."""
+    det, tx, ty, tz, u = _mt_u(lo, ld, trib)
+    e1x, e1y, e1z = trib[3][None], trib[4][None], trib[5][None]
+    e2x, e2y, e2z = trib[6][None], trib[7][None], trib[8][None]
+    dx, dy, dz = (x[:, None] for x in ld)
     qx = ty * e1z - tz * e1y
     qy = tz * e1x - tx * e1z
     qz = tx * e1y - ty * e1x
@@ -361,8 +372,10 @@ class PlainSweep:
               subtile: int = 0):
         """Visit cluster ``c`` with the rays of tile ``sl``: local ray,
         slab against the running best, Möller–Trumbore where it passes,
-        t > eps strictly closer than the best, lowest slot on ties.
-        ``gate`` masks the lanes that take part.  ``subtile`` > 0: K6's
+        t > eps strictly closer than the best, lowest slot on ties (a
+        NaN t is never accepted, a miss's INF is where the best is +inf,
+        as in the sequential loop).  ``gate`` masks the lanes that take
+        part.  ``subtile`` > 0: K6's
         cap=0 rule, every ray of a ``subtile``-ray sub-tile with some
         passing ray is tested.  ``any_hit`` parks an accepted lane's best
         t at -BIG."""
@@ -376,7 +389,7 @@ class PlainSweep:
         for part in idx.split(MT_RAYS):
             t = _mt([x[part] for x in lo], [x[part] for x in ld],
                     self.cl_tris[c])
-            t = torch.where(t > self.eps, t, INF)
+            t = torch.where(t > self.eps, t, float("inf"))
             tmin = t.amin(dim=1)
             slot = torch.where(t == tmin[:, None], self.slot_ids,
                                t.shape[1]).amin(dim=1)
@@ -573,10 +586,12 @@ def launch_order(rays8, oct_, order, cl_meta, cl_inv, cl_aabb, cl_tris,
                  tile: int, eps: float, threads: int, subtile: bool,
                  has_tmax: bool, any_hit: bool):
     """Check the inputs of K7 / K8 (csrc/cluster_sweep.cu) and launch one
-    of them on the current stream."""
+    of them on the current stream (K8 copies 16-byte pieces of
+    cl_tris)."""
     dev = rays8.device
     r = rays8.shape[1]
-    c, s = require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, dev)
+    c, s = require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, dev,
+                         stream=subtile)
     _build.require(rays8, "rays8", torch.float32, (8, r), dev)
     _build.require(oct_, "oct", torch.int32, (r // tile,), dev)
     _build.require(order, "order", torch.int32, (8, c), dev)

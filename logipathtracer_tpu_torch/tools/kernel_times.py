@@ -1,12 +1,13 @@
 """Kernel times on the card for this checkout's package or another's:
-K3 beside ``index_add_`` (``flush``), the compacted-visit intersect
-kernels K1, K4-K7 with the rates of the routes they serve (``isect``),
-and the shade kernel K2 on the main paths' pools (``shade``).
+K3 beside ``index_add_`` (``flush``), the intersect kernels K1 and
+K4-K8 with the rates of the routes they serve (``isect``), and the shade
+kernel K2 on the main paths' pools (``shade``).
 
     python logipathtracer_tpu_torch/tools/kernel_times.py flush
         [--root DIR] [--label NAME] [--runs 50]
     python logipathtracer_tpu_torch/tools/kernel_times.py isect
         [--root DIR] [--label NAME] [--runs 10] [--main-runs N]
+        [--kinds k4,k6,k5,k6cap0,k1,k7,k8] [--routes NAME,...]
     python logipathtracer_tpu_torch/tools/kernel_times.py shade
         [--root DIR] [--label NAME] [--runs 10] [--main-runs N]
     python logipathtracer_tpu_torch/tools/kernel_times.py ptxas
@@ -40,21 +41,29 @@ seeds (``harness.pools``): on ``make_outside_scene()`` under the default
 RenderConfig at 1024^2, which routes it to K4, the primary pool, the
 bounce pool after one step and that bounce's NEE shadow pool (t_max +
 any-hit); on the flagship box ``make_box_scene(spheres=10, subdiv=3)``
-(K1) the same three, and the megakernel's three pools of the route
-``compact_worklist=False`` (K7; ``harness.megakernel_pools``).  Each
-time is the median of ``--runs`` single calls between two CUDA events.
+(K1) the same three, and the megakernel's three pools of the routes
+``compact_worklist=False`` (K7) and ``intersect="sweep"`` (K8;
+``harness.megakernel_pools``).  Each time is the median of ``--runs``
+single calls between two CUDA events.  ``--kinds`` times only the
+kernels it names, ``--routes`` runs only the main routes it names
+(default: all of each).
 
-  k4, k6, k5, k1, k7: ms per pool (K6 is its cap > 0 body, the route
-              ``stream_worklist=False``; K5 on the outside primary and
-              bounce pools), with the mean list length wn of K4's, K5's
-              and K6's pools;
+  k4, k6, k5, k6cap0, k1, k7, k8: ms per pool (k6 is K6's cap > 0 body,
+              the route ``stream_worklist=False``, k6cap0 its cap = 0
+              body, the route ``stream_compact=False``, in its t_max
+              mode on the shadow pool; K5 on the outside primary and
+              bounce pools; K8 in its t_max mode on the shadow pool),
+              with the mean list length wn of K4's, K5's and K6's pools;
+  digest:     sha256 of each kernel's (t, tri, obj) per pool, so that two
+              checkouts' runs show whether they agree bit for bit;
   main:       with ``--main-runs N``: each route N times, each a fresh
               renderer (host seed 0): a warm-up step(1), then step(2)
               twice, timed — samples/s, Mrays/s, mean radiance and ray
               count.  Routes: the outside main path (K4), the outside
-              with ``stream_worklist=False`` (K6 cap > 0), the flagship
+              with ``stream_worklist=False`` (K6 cap > 0) and with
+              ``stream_compact=False`` (K6 cap = 0), the flagship
               wavefront and megakernel with ``compact_worklist=False``
-              (K7).
+              (K7), and the megakernel with ``intersect="sweep"`` (K8).
 
 ``shade``: K2 on ``harness.shade_pools``' 2^20-lane pools from fixed
 seeds — the flagship box's bounce pool with parity and with Threefry
@@ -140,16 +149,49 @@ MAIN_ROUTES = {
     "outside": ("outside", {}),
     "outside stream_worklist=False": ("outside",
                                       dict(stream_worklist=False)),
+    "outside stream_compact=False": ("outside",
+                                     dict(stream_compact=False)),
     "wavefront compact_worklist=False": ("box",
                                          dict(compact_worklist=False)),
     "megakernel compact_worklist=False": (
         "box", dict(renderer="megakernel", compact_worklist=False)),
+    "megakernel intersect=sweep": (
+        "box", dict(renderer="megakernel", intersect="sweep")),
 }
 
+# The kernels ``isect`` times: its output key -> the harness runner's
+# kind.
+ISECT_KINDS = {"k4": "K4", "k6": "K6[cap>0]", "k5": "K5",
+               "k6cap0": "K6[cap=0]", "k1": "K1", "k7": "K7", "k8": "K8"}
 
-def isect_times(h, dev, runs, main_runs):
-    """{"k4", "k6", "k5", "k1", "k7": ms per pool, "wn": mean list per K4
-    / K5 / K6 pool, "main": each of MAIN_ROUTES' runs}."""
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: two checkouts' runs agree
+    bit for bit where their digests do."""
+    import hashlib
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def pick(routes, names):
+    """``routes`` restricted to the comma-separated ``names`` (None: all)."""
+    if names is None:
+        return routes
+    names = names.split(",")
+    unknown = set(names) - set(routes)
+    if unknown:
+        sys.exit(f"kernel_times: unknown routes {sorted(unknown)}")
+    return {k: routes[k] for k in names}
+
+
+def isect_times(h, dev, runs, main_runs, kinds=tuple(ISECT_KINDS),
+                routes=MAIN_ROUTES):
+    """{kind: ms per pool for each of ``kinds`` (ISECT_KINDS' keys), "wn":
+    mean list per K4 / K5 / K6 pool, "main": each of ``routes``'
+    runs}."""
     from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
                                           compile_scene)
     from logipathtracer_tpu_torch.ops.kernels import _build
@@ -158,37 +200,58 @@ def isect_times(h, dev, runs, main_runs):
                                                            make_outside_scene)
     _build.load_all(("compact_intersect", "shade", "flush", "stream_cluster",
                      "stream_chunk", "cluster_sweep"))
-    out = {"k4": {}, "k6": {}, "k5": {}, "k1": {}, "k7": {}, "wn": {}}
+    out = {k: {} for k in (*kinds, "wn", "digest")}
     cfg = RenderConfig(width=1024, height=1024)
-    outside = compile_scene(make_outside_scene())
-    scene = outside.to(dev)
-    tile = cfg.stream_tile
-    for name, (rays8, kw) in h.pools(outside, cfg, dev, tile).items():
-        for kind in (("K4", "K6[cap>0]", "K5") if name != "shadow" else
-                     ("K4", "K6[cap>0]")):
-            kernel, _, _, wn = h.runner(kind, scene, rays8, tile, **kw)
-            out[kind[:2].lower()][name] = h.event_ms(kernel, runs)
-            out["wn"][f"{kind} {name}"] = float(wn.float().mean())
-    box = compile_scene(make_box_scene(spheres=10, subdiv=3))
-    btile = cfg.compact_tile
-    bscene = box.to(dev)
-    for name, (rays8, kw) in h.pools(box, cfg, dev, btile).items():
-        kernel = h.runner("K1", bscene, rays8, btile, **kw)[0]
-        out["k1"][name] = h.event_ms(kernel, runs)
-    probe = ProgressiveRenderer(
-        box, cfg.replace(renderer="megakernel", compact_worklist=False),
-        host_seed=1, device=dev)
-    primary, bounce, shadow, _ = h.megakernel_pools(probe)
-    for name, (o, d, *t_max) in (("primary", primary), ("bounce", bounce),
-                                 ("shadow", shadow)):
-        kw = dict(has_tmax=True, any_hit=True) if t_max else {}
-        rays8, _ = ci.pack_rays8(o, d, btile,
-                                 t_max=t_max[0] if t_max else None)
-        kernel = h.runner("K7", probe.scene, rays8, btile, **kw)[0]
-        out["k7"][name] = h.event_ms(kernel, runs)
-    del probe, primary, bounce, shadow
-    out["main"] = main_routes(h, dev, MAIN_ROUTES, main_runs,
-                              {"outside": outside, "box": box})
+    scenes = {}
+    streamed = [k for k in ("k4", "k6", "k5", "k6cap0") if k in kinds]
+    if streamed:
+        outside = scenes["outside"] = compile_scene(make_outside_scene())
+        scene = outside.to(dev)
+        tile = cfg.stream_tile
+        for name, (rays8, kw) in h.pools(outside, cfg, dev, tile).items():
+            for key in streamed:
+                kind = ISECT_KINDS[key]
+                if name == "shadow" and key == "k5":
+                    continue
+                # K6's cap = 0 body ignores any_hit: its t_max mode.
+                kwk = dict(kw, any_hit=False) if key == "k6cap0" and kw \
+                    else kw
+                kernel, _, _, wn = h.runner(kind, scene, rays8, tile, **kwk)
+                out[key][name] = h.event_ms(kernel, runs)
+                out["digest"][f"{key} {name}"] = digest(kernel())
+                out["wn"][f"{kind} {name}"] = float(wn.float().mean())
+    if {"k1", "k7", "k8"} & set(kinds):
+        box = scenes["box"] = compile_scene(
+            make_box_scene(spheres=10, subdiv=3))
+    if "k1" in kinds:
+        btile = cfg.compact_tile
+        bscene = box.to(dev)
+        for name, (rays8, kw) in h.pools(box, cfg, dev, btile).items():
+            kernel = h.runner("K1", bscene, rays8, btile, **kw)[0]
+            out["k1"][name] = h.event_ms(kernel, runs)
+            out["digest"][f"k1 {name}"] = digest(kernel())
+    for key, route in (("k7", dict(compact_worklist=False)),
+                       ("k8", dict(intersect="sweep"))):
+        if key not in kinds:
+            continue
+        rcfg = cfg.replace(renderer="megakernel", **route)
+        tile = rcfg.compact_tile if key == "k7" else rcfg.sweep_tile
+        probe = ProgressiveRenderer(box, rcfg, host_seed=1, device=dev)
+        primary, bounce, shadow, _ = h.megakernel_pools(probe)
+        for name, (o, d, *t_max) in (("primary", primary),
+                                     ("bounce", bounce), ("shadow", shadow)):
+            kw = {}
+            if t_max:       # K8 answers the closest hit under t_max
+                kw = (dict(has_tmax=True, any_hit=True) if key == "k7"
+                      else dict(has_tmax=True))
+            rays8, _ = ci.pack_rays8(o, d, tile,
+                                     t_max=t_max[0] if t_max else None)
+            kernel = h.runner(ISECT_KINDS[key], probe.scene, rays8, tile,
+                              **kw)[0]
+            out[key][name] = h.event_ms(kernel, runs)
+            out["digest"][f"{key} {name}"] = digest(kernel())
+        del probe, primary, bounce, shadow
+    out["main"] = main_routes(h, dev, routes, main_runs, scenes)
     return out
 
 
@@ -238,18 +301,12 @@ def main_routes(h, dev, routes, main_runs, scenes=None):
 
 def shade_times(h, dev, runs):
     """{pool: times, digest, count pass} of K2 (module docstring)."""
-    import hashlib
-
     from logipathtracer_tpu_torch.ops.kernels import _build
     from logipathtracer_tpu_torch.ops.kernels import shade as sk
     _build.load_all(("compact_intersect", "shade", "flush"))
     out = {}
     for name, (args, kw) in h.shade_pools(dev).items():
         got = sk.shade(*args, **kw)
-        torch.cuda.synchronize()
-        digest = hashlib.sha256()
-        for x in got:
-            digest.update(x.cpu().numpy().tobytes())
         with h.shade_counted() as calls:
             ref = sk.shade_plain(*args, **kw)
         work = h.shade_work(calls[0])
@@ -268,7 +325,7 @@ def shade_times(h, dev, runs):
         out[name] = {
             "lanes": int(live.shape[0]), "hit": int(live.sum()),
             "event_ms": ev, "device_ms": d, "stream_ms": st, "host_us": us,
-            "digest": digest.hexdigest(), "diverged": diverged,
+            "digest": digest(got), "diverged": diverged,
             "ops": ops, "bytes": n_bytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "walk": {"thread_a_lane": h.walk_efficiency(orders, lobe),
@@ -304,6 +361,11 @@ def main(argv=None):
                     help="calls per time (flush: 50, isect and shade: 10)")
     ap.add_argument("--main-runs", type=int, default=0,
                     help="isect, shade: runs of each main route")
+    ap.add_argument("--kinds", default=",".join(ISECT_KINDS),
+                    help="isect: the kernels to time, comma-separated")
+    ap.add_argument("--routes", default=None,
+                    help="isect, shade: the main routes to run, "
+                    "comma-separated (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_times: needs a CUDA card")
@@ -328,10 +390,16 @@ def main(argv=None):
     elif args.kernels == "shade":
         runs = args.runs or 10
         res = {"shade": shade_times(h, dev, runs),
-               "main": main_routes(h, dev, SHADE_ROUTES, args.main_runs)}
+               "main": main_routes(h, dev, pick(SHADE_ROUTES, args.routes),
+                                   args.main_runs)}
     else:
         runs = args.runs or 10
-        res = isect_times(h, dev, runs, args.main_runs)
+        kinds = tuple(args.kinds.split(","))
+        unknown = set(kinds) - set(ISECT_KINDS)
+        if unknown:
+            sys.exit(f"kernel_times: unknown kinds {sorted(unknown)}")
+        res = isect_times(h, dev, runs, args.main_runs, kinds,
+                          pick(MAIN_ROUTES, args.routes))
     print(json.dumps({"label": args.label or root, "card": card,
                       "kernels": args.kernels, "runs": runs, **res,
                       "seconds": time.perf_counter() - t0}), flush=True)

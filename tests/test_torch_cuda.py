@@ -581,8 +581,9 @@ def _stream_call(kernel, scene, rays8, tile, plain, **kw):
 @pytest.mark.parametrize("kernel", ["k4", "k5", "k6", "k6_cap0"])
 def test_stream_kernels_match_plain(outside, dev, kernel):
     """K4, K5 and K6 (both bodies) against their plain versions: closest
-    hits under hits_agree, and the shadow query's visibility on every
-    lane."""
+    hits under hits_agree (K6's cap = 0 body bit for bit), and the shadow
+    query's visibility on every lane (the cap = 0 body, which ignores
+    any_hit, bit for bit)."""
     from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
     from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
     o, d, t_max = _outside_rays(4096, dev)
@@ -594,6 +595,7 @@ def test_stream_kernels_match_plain(outside, dev, kernel):
     assert sum(counts()) == n0 + 1
     ref = _stream_call(kernel, outside, rays8, tile, plain=True)
     ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
+    assert kernel != "k6_cap0" or _same(got, ref, False)
     assert float((got[1] >= 0).float().mean()) > 0.2
     rays8, _ = ci.pack_rays8(o, d, tile, t_max=t_max)
     kw = dict(has_tmax=True, any_hit=True)
@@ -601,6 +603,7 @@ def test_stream_kernels_match_plain(outside, dev, kernel):
     ref = _stream_call(kernel, outside, rays8, tile, plain=True, **kw)
     blocked = got[0] < t_max
     assert torch.equal(blocked, ref[0] < t_max)
+    assert kernel != "k6_cap0" or _same(got, ref, False)
     assert 0 < int(blocked.sum()) < 4096
 
 
@@ -670,12 +673,13 @@ def test_k4_k5_empty_worklists(outside, dev):
 
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("two_clusters", [False, True])
-@pytest.mark.parametrize("kernel", ["k4", "k5", "k6", "k7"])
+@pytest.mark.parametrize("kernel", ["k4", "k5", "k6", "k7", "k6_cap0", "k8"])
 def test_k4_k5_ties_on_card(dev, kernel, two_clusters, any_hit):
-    """test_k1_ties_on_card through K4, K5 and K6's cap > 0 body (one
-    cluster a chunk; each visits the nearer cluster first) and K7 (in the
-    order cluster 0, 1): the lowest slot of the earlier-visited cluster,
-    as the plain version."""
+    """test_k1_ties_on_card through K4, K5 and K6's two bodies (one
+    cluster a chunk; each visits the nearer cluster first), K7 and K8 (in
+    the order cluster 0, 1): the lowest slot of the earlier-visited
+    cluster, as the plain version.  K6's cap = 0 body and K8 ignore
+    any_hit: the closest hit under t_max."""
     from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
     from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
     bounds, tables = _tie_tables(dev, two_clusters)
@@ -701,15 +705,21 @@ def test_k4_k5_ties_on_card(dev, kernel, two_clusters, any_hit):
         fn = ci.worklist_chunk_intersect
         plain = ci.worklist_chunk_intersect_plain
         assert wl[:, 0].tolist() == [1, 1] and wn.tolist() == [2, 2]
-    elif kernel == "k6":
+    elif kernel in ("k6", "k6_cap0"):
         oct_, live = k6.tile_front(rays8, 128)
         order = k6.octant_chunk_order(*bounds)
         args = (rays8, oct_, order, live, torch.cat(bounds, 1).contiguous(),
                 *tables, 128, 1, 1e-4)
         fn, plain = k6.octant_chunk_intersect, k6.octant_chunk_intersect_plain
-        kw["cap"] = 32
+        kw["cap"] = 32 if kernel == "k6" else 0
         assert order[oct_.long()].tolist() == [[1, 0]] * 2
         assert live.tolist() == [1, 1]
+    elif kernel == "k8":
+        order = torch.tensor([[0, 1]] * 8, dtype=torch.int32, device=dev)
+        args = (rays8, ci.tile_octants(rays8, 128), order, *tables, 128,
+                1e-4)
+        fn, plain = k6.dense_sweep_intersect, k6.dense_sweep_intersect_plain
+        kw = dict(has_tmax=True)
     else:
         order = torch.tensor([[0, 1]] * 8, dtype=torch.int32, device=dev)
         args = (rays8, ci.tile_octants(rays8, 128), order, *tables, 128,
@@ -718,12 +728,14 @@ def test_k4_k5_ties_on_card(dev, kernel, two_clusters, any_hit):
         plain = ci.compact_order_intersect_plain
     ref = plain(*args, **kw)
     got = fn(*args, **kw)
-    assert _same(got, ref, any_hit)
-    if any_hit:
+    parked = any_hit and kernel not in ("k6_cap0", "k8")
+    assert _same(got, ref, parked)
+    if parked:
         assert (got[0] == -ci.BIG).all()
     else:
-        nearer_first = two_clusters and kernel != "k7"
+        nearer_first = two_clusters and kernel not in ("k7", "k8")
         assert (got[1] == (130 if nearer_first else 5)).all()
+        assert (got[0] == 2.0).all()
 
 
 @pytest.mark.parametrize("kernel", ["k4", "k5", "k6", "k7"])
@@ -786,8 +798,9 @@ def _order_call(kernel, scene, rays8, tile, plain, **kw):
 @pytest.mark.parametrize("kernel,tile", [("k7", 4096), ("k8", 1024)])
 def test_k7_k8_match_plain(scene, dev, kernel, tile):
     """K7 and K8 against their plain versions: closest hits under
-    hits_agree (with a tile whose first ray is parked), and the t_max
-    query's visibility on every lane (K7 also with any-hit)."""
+    hits_agree (with a tile whose first ray is parked; K8 bit for bit),
+    and the t_max query's visibility on every lane (K7 also with
+    any-hit)."""
     from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k8
     o, d = _rays(8192, dev, seed=9)
     o[tile:tile + 50] = 1e30                  # a tile led by parked lanes
@@ -799,6 +812,7 @@ def test_k7_k8_match_plain(scene, dev, kernel, tile):
     assert counts() == (n0[0] + (kernel == "k7"), n0[1] + (kernel == "k8"))
     ref = _order_call(kernel, scene, rays8, tile, plain=True)
     ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
+    assert kernel != "k8" or _same(got, ref, False)
     assert float((got[1] >= 0).float().mean()) > 0.2
     t_max = torch.from_numpy(np.random.default_rng(4).uniform(
         0.05, 4.0, 8192).astype(np.float32)).to(dev)
@@ -812,6 +826,85 @@ def test_k7_k8_match_plain(scene, dev, kernel, tile):
         assert 0 < int(blocked.sum()) < 8192
         if not kw.get("any_hit"):
             ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
+            assert kernel != "k8" or _same(got, ref, False)
+
+
+def _degenerate(scene):
+    """The scene with slots 1-3 of every cluster degenerate where they
+    lie: e1 = 0 (det = 1/0), e2 = e1 (det = 0) and a point (e1 = e2 =
+    0)."""
+    tris = scene.cl_tris.clone()
+    tris[:, 3:6, 1] = 0.0
+    tris[:, 6:9, 2] = tris[:, 3:6, 2]
+    tris[:, 3:9, 3] = 0.0
+    import dataclasses
+    return dataclasses.replace(scene, cl_tris=tris.contiguous())
+
+
+def _subtile_edge_rays(n, dev, seed, spread, centre, second, t_scale):
+    """n rays with every edge of the sub-tile visit: axis-aligned (1/0 =
+    inf) and NaN directions, parked lanes (origin 1e30) and a parked
+    tail, and two sub-tiles of the first tile looking from ``centre``
+    along +x and about ``second`` (so that they gate different clusters);
+    t_max random in (0, t_scale) with +inf (some with NaN directions), 0
+    and NaN lanes."""
+    r = np.random.default_rng(seed)
+    o = (centre + r.uniform(-spread, spread, (n, 3))).astype(np.float32)
+    d = r.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o[0:256] = centre
+    d[0:128] = (1.0, 0.0, 0.0)
+    d[128:256] = second + r.uniform(-0.05, 0.05, (128, 3))
+    axes = np.concatenate([np.eye(3), -np.eye(3)]).astype(np.float32)
+    d[300:400] = axes[r.integers(0, 6, 100)]
+    d[400:410, 0] = np.nan
+    d[600:640, :] = np.nan
+    o[700:760] = 1e30
+    o[n - n // 4:] = 1e30
+    d[n - n // 4:] = 1.0
+    t_max = r.uniform(0.01, t_scale, n).astype(np.float32)
+    t_max[0:64] = np.inf
+    t_max[500:540] = np.inf
+    d[520:530] = np.nan                 # NaN t in every slot: no hit
+    t_max[540:545] = 0.0
+    t_max[545:550] = np.nan
+    as_t = lambda a: torch.from_numpy(a).to(dev)
+    return as_t(o), as_t(d), as_t(t_max)
+
+
+@pytest.mark.parametrize("has_tmax", [False, True])
+@pytest.mark.parametrize("kernel", ["k6_cap0", "k8"])
+def test_subtile_visit_edges_bit_equal_to_plain(request, dev, kernel,
+                                                has_tmax):
+    """K6's cap = 0 body and K8 (the sub-tile visit) equal their plain
+    versions bit for bit — t, tri and obj — with and without t_max, on a
+    pool with axis-aligned and NaN directions, parked lanes, degenerate
+    triangles, t_max = +inf lanes (a miss accepts kInf at slot 0), and
+    two sub-tiles of one tile that gate different clusters."""
+    if kernel == "k8":
+        scene = _degenerate(request.getfixturevalue("scene"))
+        centre, second, spread, t_scale = 0.0, (-1, 0, 0), 0.8, 4.0
+    else:
+        scene = _degenerate(request.getfixturevalue("outside"))
+        centre, second, spread, t_scale = (0, 2, 0), (0, -1, 0), 25.0, 40.0
+    n, tile = 8192, 1024
+    o, d, t_max = _subtile_edge_rays(n, dev, 31, spread, np.array(
+        centre, np.float32), np.array(second, np.float32), t_scale)
+    rays8, _ = ci.pack_rays8(o, d, tile, t_max=t_max if has_tmax else None)
+    kw = dict(has_tmax=has_tmax)
+    call = _order_call if kernel == "k8" else _stream_call
+    got = call(kernel, scene, rays8, tile, False, **kw)
+    ref = call(kernel, scene, rays8, tile, True, **kw)
+    assert _same(got, ref, False)
+    tri = got[1].cpu()
+    a, b = set(tri[0:128].tolist()) - {-1}, set(tri[128:256].tolist()) - {-1}
+    assert a and b and not a & b       # the two sub-tiles hit apart
+    hit = got[1] >= 0
+    assert 0 < int(hit.sum()) < n
+    assert not bool(hit[n - n // 4:].any())
+    if has_tmax:        # a lane of a gated sub-tile under an infinite
+        inf = torch.isinf(t_max) & hit      # t_max hits, kInf at worst
+        assert bool(inf[0:64].any()) and bool((got[0][inf] <= 3.4e38).all())
 
 
 @pytest.mark.parametrize("route", [

@@ -94,3 +94,111 @@ def test_refuses_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         kernel_times.main(["isect"])
+
+
+def _one_cluster_pool(s=128):
+    """One cluster (identity object, box z in [1.9, 2.1]; every slot the
+    triangle (0, 0, 2) + u x + v y) and 256 rays from z = 0: ray 5
+    (sub-tile 0) looks up +z through the box, every other ray down -z,
+    so exactly one ray of sub-tile 0 and none of sub-tile 1 passes the
+    cluster's slab.  Rays 64-127 start at x = 2, so their u (2) is
+    rejected in every slot; the others' (0.25) is not."""
+    tris = torch.zeros((1, 9, s), dtype=torch.float32)
+    tris[0, 2] = 2.0                                  # v0 on z = 2
+    tris[0, 3] = 1.0                                  # e1 = +x
+    tris[0, 7] = 1.0                                  # e2 = +y
+    meta = torch.tensor([[0, 0]], dtype=torch.int32)
+    inv = torch.tensor([[1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0]],
+                       dtype=torch.float32)
+    aabb = torch.tensor([[-1, -1, 1.9, 1, 1, 2.1, 0, 0]],
+                        dtype=torch.float32)
+    o = torch.full((256, 3), 0.25)
+    o[:, 2] = 0.0
+    o[64:128, 0] = 2.0
+    d = torch.zeros((256, 3))
+    d[:, 2] = -1.0
+    d[5, 2] = 1.0
+    rays8, _ = ci.pack_rays8(o, d, 256)
+    return rays8, (meta, inv, aabb, tris)
+
+
+def _counted_bound(kind, rays8, tables, early_exit=False):
+    """The count pass over one plain call of ``kind`` on a 256-ray tile
+    (``early_exit``: the sub-tile visit's), and chip_smoke.isect_bound of
+    it."""
+    import chip_smoke
+    from types import SimpleNamespace
+    meta, inv, aabb, tris = tables
+    order = torch.zeros((8, 1), dtype=torch.int32)
+    oct_ = ci.tile_octants(rays8, 256)
+    if kind == "K8":
+        args = (rays8, oct_, order, meta, inv, aabb, tris, 256, 1e-4)
+        call = lambda: k6.dense_sweep_intersect_plain(*args)
+    elif kind == "K7":
+        args = (rays8, oct_, order, meta, inv, aabb, tris, 256, 1e-4)
+        call = lambda: ci.compact_order_intersect_plain(*args)
+    else:
+        bounds = ci.padded_chunk_bounds(meta, aabb, torch.eye(4)[None], 1)
+        live = torch.ones(1, dtype=torch.int32)
+        args = (rays8, oct_, order, live, torch.cat(bounds, 1), meta, inv,
+                aabb, tris, 256, 1, 1e-4)
+        cap = 0 if kind == "K6[cap=0]" else 32
+        call = lambda: k6.octant_chunk_intersect_plain(*args, cap=cap)
+    stage = (dict(block=128, prefetch=False, early_exit=early_exit)
+             if kind in chip_smoke.SUBTILE
+             else dict(block=256, prefetch=chip_smoke.COMPACTED[kind]))
+    with chip_smoke.counted(**stage) as work:
+        _, tri, _ = call()
+    assert tri.tolist() == [-1] * 5 + [0] + [-1] * 250
+    inputs = args[:7] if kind in ("K7", "K8") else args[:9]
+    scene = SimpleNamespace(cl_tris=tris)
+    return work, chip_smoke.isect_bound(work, scene, inputs, 256), inputs
+
+
+@pytest.mark.parametrize("kind", ["K8", "K6[cap=0]", "K7", "K6[cap>0]"])
+def test_count_pass_charges_the_sub_tile_contract(kind):
+    """The count pass over a hand-built pool whose gated lanes are known:
+    one ray of sub-tile 0 passes, none of sub-tile 1.  K8 and K6's cap = 0
+    body run the triangle test on every ray of sub-tile 0 (128 lanes x S
+    slots), the compacted visits (K7, K6's cap > 0 body) on the one ray
+    that passes; isect_bound charges each that many tests."""
+    import chip_smoke
+    rays8, tables = _one_cluster_pool()
+    s = tables[3].shape[2]
+    work, b, inputs = _counted_bound(kind, rays8, tables)
+    subtile = kind in chip_smoke.SUBTILE
+    # K8 and K7 slab-test every ray; K6's member test runs within the
+    # block-wide chunk gate: the 128 rays of sub-tile 0 (a 128-ray block
+    # with cap = 0), all 256 of the 256-ray block with cap > 0.
+    slab = {"K6[cap=0]": 128, "K6[cap>0]": 256}.get(kind, 256)
+    assert work["slab"] == slab
+    assert work["own"] == 1
+    assert work["subtile"] == (128 if subtile else 0)
+    assert work["tested"] == (128 if subtile else 1)
+    if subtile:
+        assert (work["listed"], work["passed"], work["staged"]) == (
+            1 if kind == "K6[cap=0]" else 2, 1, 1)
+    n_bytes = chip_smoke.nbytes(*inputs) + 12 * 256
+    ops = slab * chip_smoke.SLAB_OPS + work["tested"] * s * chip_smoke.MT_OPS
+    assert b == chip_smoke.bound(ops, n_bytes)
+    # The sub-tile contract makes these kernels operations-bound here; the
+    # compacted visits' one tested lane leaves them bytes-bound, as the
+    # own-pass count always did.
+    assert b[1] == ("operations" if subtile else "bytes")
+
+
+@pytest.mark.parametrize("kind", ["K8", "K6[cap=0]"])
+def test_count_pass_early_exit(kind):
+    """With the sub-tile visit's early exit the count pass charges
+    MT_U_OPS for every (lane, slot) test of the gated sub-tile and the
+    rest of the test only where u is not rejected: the 64 rays of
+    sub-tile 0 whose u is 0.25, in all S slots."""
+    import chip_smoke
+    rays8, tables = _one_cluster_pool()
+    s = tables[3].shape[2]
+    work, b, inputs = _counted_bound(kind, rays8, tables, early_exit=True)
+    assert work["tested"] == 128 and work["rest"] == 64 * s
+    ops = (work["slab"] * chip_smoke.SLAB_OPS
+           + 128 * s * chip_smoke.MT_U_OPS
+           + 64 * s * (chip_smoke.MT_OPS - chip_smoke.MT_U_OPS))
+    assert b == chip_smoke.bound(ops, chip_smoke.nbytes(*inputs) + 12 * 256)
