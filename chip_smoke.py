@@ -79,7 +79,25 @@ the root of a checkout it:
      one step(1); (e) beside phase 4, in the same call: the flagship
      wavefront with ``compact_worklist=False`` (K7, no per-ray prepass),
      timed the same way; (f) the 64x64 card-vs-CPU render of 5 on the
-     megakernel through K1, K8 and K7.
+     megakernel through K1, K8 and K7;
+  9. the basic BSDF (``use_microfacet=False``, shaded by the plain-torch
+     basic route: the JAX package has no kernel for it) and the command
+     line — (a) the basic main path at 1024x1024, timed as in 4, which
+     must run the worklist kernel, K1, K3 and the basic route, never K2
+     and no plain version (phase 3 holds those kernels to their plain
+     versions at the same shapes), with the route's ms per iteration
+     from one more step(2) with every stage between device syncs
+     (``tools/stages.py`` ``stage_timers``); (b) one
+     1024x1024 step(1) with NEE, which must run K1 in its any-hit mode;
+     (c) one 1024x1024 step(1) of the megakernel; (d) the 64x64
+     card-vs-CPU render of 5, NEE off and on;
+     (e) ``python -m logipathtracer_tpu_torch.cli.main`` as subprocesses,
+     each with a time limit, on the box written by ``tools/glb.py``:
+     ``render`` at 1024x1024, 4 spp, with and without ``--basic`` (the
+     JSON report, a 1024x1024 PNG, finite radiance of the report's spp,
+     the EXR of that radiance), ``compare`` on the two, and ``web`` at
+     256x256 for 3 frames with /stats and /frame.raw fetched while it
+     serves.
 
 The scene is the glTF given with --scene, else the procedural box
 ``make_box_scene(spheres=10, subdiv=3)`` (12,812 triangles, 86 clusters,
@@ -1177,6 +1195,235 @@ def megakernel_phase(dev, card):
     return rows
 
 
+# Phase 9's command-line runs: each subprocess's time limit (seconds).
+CLI_TIMEOUT = 180
+
+
+def _cli(*argv, cwd):
+    """Start ``python -m logipathtracer_tpu_torch.cli.main *argv`` from the
+    checkout's root, its output in pipes."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen(
+        [sys.executable, "-m", "logipathtracer_tpu_torch.cli.main", *argv],
+        cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _finish(proc, what):
+    """Wait for a CLI subprocess (killing it past CLI_TIMEOUT); fail on a
+    non-zero exit.  Returns its standard output."""
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what}: no exit within {CLI_TIMEOUT} s")
+    assert proc.returncode == 0, \
+        f"{what}: exit {proc.returncode}\n{err[-4000:]}"
+    return out
+
+
+def _fetch(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.read(), dict(r.headers)
+
+
+def cli_runs(card):
+    """Phase 9e: the command line on the card, as subprocesses: the box
+    written with tools/glb.write_glb; ``render`` at 1024x1024, 4 spp, with
+    and without ``--basic`` (JSON report, PNG, radiance .npz and EXR
+    checked), ``compare`` on the two, and ``web`` at 256x256 for 3 frames
+    with /stats and /frame.raw fetched while it serves."""
+    import tempfile
+
+    from logipathtracer_tpu_torch.film.exr import encode_exr
+    from logipathtracer_tpu_torch.film.png import decode_png
+    from logipathtracer_tpu_torch.scene.procedural import make_box_scene
+    from logipathtracer_tpu_torch.tools.glb import write_glb
+
+    res, web_res = 1024, 256
+
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            glb = write_glb(make_box_scene(spheres=10, subdiv=3),
+                            os.path.join(tmp, "box.glb"))
+            renders = {}
+            for name, flags in (("heitz", ()), ("basic", ("--basic",))):
+                paths = {k: os.path.join(tmp, f"{name}.{k}")
+                         for k in ("npz", "exr", "png")}
+                proc = _cli("render", glb, "--width", str(res), "--height",
+                            str(res), "--spp", "4", "--radiance",
+                            paths["npz"], "--exr", paths["exr"], "-o",
+                            paths["png"], *flags, cwd=tmp)
+                procs.append(proc)
+                renders[name] = (proc, paths)
+            port_file = os.path.join(tmp, "port")
+            web = _cli("web", glb, "--width", str(web_res), "--height",
+                       str(web_res), "--frames", "3", "--port", "0",
+                       "--port-file", port_file, "--linger", "2", cwd=tmp)
+            procs.append(web)
+
+            # /stats and /frame.raw once, while web serves its frames.
+            t0 = time.perf_counter()
+            stats = raw = None
+            while time.perf_counter() - t0 < CLI_TIMEOUT:
+                assert web.poll() is None, "web exited before a frame " \
+                    f"was fetched: {web.communicate()[1][-4000:]}"
+                if os.path.exists(port_file) and open(port_file).read():
+                    base = f"http://127.0.0.1:{open(port_file).read()}"
+                    stats = json.loads(_fetch(base + "/stats")[0])
+                    if not stats["compiling"] and stats["frame_gen"] > 0:
+                        raw = _fetch(base + "/frame.raw")
+                        break
+                time.sleep(0.05)
+            assert raw is not None, f"web served no frame: {stats}"
+            body, head = raw
+            size = tuple(int(head[f"X-{k}"]) for k in (
+                "Frame-Width", "Frame-Height", "Display-Width",
+                "Display-Height"))
+            assert size == (web_res,) * 4, size
+            frame = np.frombuffer(body, np.uint8).reshape(web_res, web_res,
+                                                          4)
+            assert frame[..., 3].min() == 255 and frame[..., :3].max() > 0
+            _finish(web, "web")
+            print(f"CLI web {web_res}x{web_res} --frames 3: /stats spp "
+                  f"{stats['spp']} ({stats['mode']}), /frame.raw "
+                  f"{len(body)} bytes, {size[0]}x{size[1]} frame and "
+                  "display", flush=True)
+
+            for name, (proc, paths) in renders.items():
+                report = json.loads(
+                    _finish(proc, f"render {name}").strip().splitlines()[-1])
+                png = decode_png(open(paths["png"], "rb").read())
+                assert png.shape[:2] == (res, res), png.shape
+                data = np.load(paths["npz"])
+                rad = data["radiance"]
+                assert rad.shape == (res, res, 3) and np.isfinite(rad).all()
+                assert int(data["sample_count"]) == report["spp"] == 4
+                assert report["total_rays"] > 0 and rad.mean() > 1e-3
+                assert open(paths["exr"], "rb").read() == encode_exr(rad), \
+                    f"render {name}: the EXR is not the radiance's"
+                print(f"CLI render {name} {res}x{res} 4 spp: "
+                      f"{json.dumps(report)} mean radiance "
+                      f"{float(rad.mean()):.6f} [{card}]", flush=True)
+            cmp = _cli("compare", renders["heitz"][1]["npz"],
+                       renders["basic"][1]["npz"], cwd=tmp)
+            procs.append(cmp)
+            result = json.loads(_finish(cmp, "compare").strip())
+            assert result["shape"] == [res, res, 3] \
+                and np.isfinite(result["rmse"])
+            print(f"CLI compare heitz basic: {json.dumps(result)}",
+                  flush=True)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+
+def basic_phase(dev, card, flagship_rate):
+    """Phase 9: the basic BSDF and the command line (module docstring).
+    The kernels it launches are held to their plain versions in phase 3
+    at the same shapes."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    from logipathtracer_tpu_torch.ops.kernels import shade as sk
+    from logipathtracer_tpu_torch.tools.stages import stage_timers
+
+    t_phase = time.perf_counter()
+    host = load_scene(None)
+    cfg = RenderConfig(width=1024, height=1024, use_microfacet=False)
+
+    # (a) the basic main path: the worklist kernel, K1, K3, never K2
+    renderer = ProgressiveRenderer(host, cfg, host_seed=0, device=dev)
+    reset_counts()
+    sk.basic_calls = 0
+    sps, mrays, iters, rad = timed_steps(renderer)
+    counts = read_counts(FLAGSHIP)
+    basic_calls = sk.basic_calls
+    assert rad.shape == (1024, 1024, 3) and np.isfinite(rad).all()
+    mean = float(rad.mean())
+    assert 1e-3 < mean < 10.0, f"implausible mean radiance {mean}"
+    for k in ("compact_intersect", "worklist_prepass", "flush"):
+        assert counts[k][0] > 0, f"basic path never launched kernel {k}"
+    assert counts["shade"][0] == 0, "the basic path launched K2"
+    assert basic_calls > 0, "the basic path never ran the basic route"
+    assert_no_plain()
+    # The basic route's time per iteration: one more step(2) with every
+    # stage between device syncs (tools/stages.py).
+    seconds = {}
+    with stage_timers(dev, seconds):
+        renderer.step(2)
+    route_s, calls = seconds["basic route"]
+    it_s, n_it = seconds["iteration total"]
+    print(f"basic main path 1024x1024 spp 4: {sps:.3f} samples/s, "
+          f"{mrays:.2f} Mrays/s, iterations per chunk {iters}, mean "
+          f"radiance {mean:.6f}; flagship {flagship_rate[0]:.3f} samples/s, "
+          f"{flagship_rate[1]:.2f} Mrays/s [{card}]", flush=True)
+    print(f"basic route: {1e3 * route_s / calls:.3f} ms per iteration, "
+          f"{route_s / it_s:.1%} of a step(2)'s {n_it} iterations of "
+          f"{1e3 * it_s / n_it:.3f} ms with every stage synced", flush=True)
+    print(f"basic launches: {json.dumps(counts)}, basic route calls "
+          f"{basic_calls}", flush=True)
+    del renderer
+
+    # (b) NEE: K1 in its any-hit mode too; (c) the megakernel
+    for label, kw in (("NEE", dict(nee=True)),
+                      ("megakernel", dict(renderer="megakernel"))):
+        r = ProgressiveRenderer(host, cfg.replace(**kw), host_seed=2,
+                                device=dev)
+        reset_counts()
+        sk.basic_calls = 0
+        t0 = time.perf_counter()
+        r.step(1)
+        rad = r.radiance()              # the wavefront drains its pool
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        assert counts["compact_intersect"][0] > 0, f"{label}: K1 never ran"
+        assert counts["worklist_prepass"][0] > 0, \
+            f"{label}: the worklist kernel never ran"
+        assert counts["shade"][0] == 0, f"{label}: K2 launched"
+        assert sk.basic_calls > 0, f"{label}: the basic route never ran"
+        if label == "NEE":
+            assert ci.mode_launches["any_hit"] > 0, "NEE: no K1 any-hit"
+        else:
+            assert counts["flush"][0] == 0, "megakernel: K3 launched"
+        assert_no_plain()
+        assert np.isfinite(rad).all() and rad.mean() > 1e-3
+        print(f"basic {label} 1024x1024 step(1) and radiance(): "
+              f"{wall:.3f} s, "
+              f"{1e-6 * r.total_rays / wall:.2f} Mrays/s, mean radiance "
+              f"{float(rad.mean()):.6f}; K1 by mode "
+              f"{json.dumps(dict(ci.mode_launches))}, basic route calls "
+              f"{sk.basic_calls}", flush=True)
+        del r
+
+    # (d) card vs CPU, NEE off and on
+    for nee in (False, True):
+        small = RenderConfig(width=64, height=64, pool_size=4096,
+                             use_microfacet=False, nee=nee)
+        img_gpu, rg = render_radiance(host, small, dev, 7, (2, 2))
+        img_cpu, rc = render_radiance(host, small, "cpu", 7, (2, 2))
+        close = np.isclose(img_gpu, img_cpu, rtol=IMG_RTOL,
+                           atol=IMG_ATOL).all(-1)
+        print(f"basic nee={nee} card vs CPU 64x64 2+2 spp: "
+              f"{close.mean():.5f} of pixels close, rays "
+              f"{rg.total_rays:.0f} / {rc.total_rays:.0f}", flush=True)
+        assert close.mean() >= IMG_FRAC, \
+            f"basic nee={nee}: card and CPU renders disagree"
+        assert rg.total_rays == rc.total_rays
+
+    # (e) the command line
+    t_cli = time.perf_counter()
+    cli_runs(card)
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s (CLI "
+          f"{time.perf_counter() - t_cli:.1f} s)", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default=None,
@@ -1283,6 +1530,9 @@ def main(argv=None) -> int:
 
     # ---- 8. the megakernel renderer (K7, K8, the BVH walk) ---------------
     order_rows = megakernel_phase(dev, card)
+
+    # ---- 9. the basic BSDF and the command line --------------------------
+    basic_phase(dev, card, flagship_rate)
 
     from logipathtracer_tpu_torch.ops.kernels import (compact_intersect,
                                                       flush, shade)

@@ -18,8 +18,10 @@ sweep (K8, ``intersect="sweep"``); for scenes beyond the resident
 budget a streamed intersect — the frustum cluster worklists (K4, the
 default), the chunk worklists (K5) or the octant chunk sweep (K6); then
 the fused shade (K2) and, in the wavefront, the radiance flush (K3).
-``intersect="bvh"`` walks the BVH in plain torch.  On CPU tensors every
-kernel's plain PyTorch version runs.
+``intersect="bvh"`` walks the BVH in plain torch, and the basic BSDF
+(``use_microfacet=False``) shades in plain torch.  On CPU tensors every
+kernel's plain PyTorch version runs.  The command line:
+``python -m logipathtracer_tpu_torch.cli.main render|view|web|compare``.
 """
 
 from logipathtracer_tpu_torch.config import RenderConfig

@@ -20,9 +20,8 @@ whether ``stream_cap`` is 0; render/megakernel.py ``pick_intersect``),
 with ``stream_tile`` rays per tile and ``stream_chunk`` clusters per
 chunk; the cap's block width itself is a TPU mechanism.  ``renderer``
 chooses the wavefront (``"auto"``, ``"wavefront"``) or the megakernel.
-Every field that changes results is honoured or, where its path is not
-ported yet, raises NotImplementedError (render/megakernel.py,
-render/progressive.py).
+Every field that changes results is honoured, ``use_microfacet=False``
+(the basic BSDF) too.
 """
 
 from __future__ import annotations

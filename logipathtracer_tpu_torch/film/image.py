@@ -19,10 +19,26 @@ def tonemap(accum: torch.Tensor, sample_count: float,
     return mapped
 
 
+def to_uint8(img) -> np.ndarray:
+    """[..., C] float image in [0, 1] (a numpy array or a tensor on any
+    device) -> uint8 numpy array, rounded half up and clipped."""
+    if isinstance(img, torch.Tensor):
+        img = img.detach().cpu().numpy()
+    arr = np.asarray(img)
+    return np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
 def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
     """Piecewise sRGB EOTF (shaders/common/util.glsl:4-16)."""
     return torch.where(c <= 0.04045, c / 12.92,
                        torch.pow((c + 0.055) / 1.055, 2.4))
+
+
+def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
+    """Piecewise sRGB OETF, the inverse of ``srgb_to_linear``."""
+    return torch.where(c <= 0.0031308, c * 12.92,
+                       1.055 * torch.pow(torch.clamp(c, min=1e-12), 1 / 2.4)
+                       - 0.055)
 
 
 def rmse(a, b) -> float:

@@ -1,5 +1,6 @@
 """BSDF sampling: the fused Heitz multiple-scattering microfacet walk
-(the JAX package's ``ops/bsdf.py``; shaders/heitz/BSDF.glsl).
+and the basic single-scatter lobes (the JAX package's ``ops/bsdf.py``;
+shaders/heitz/BSDF.glsl, shaders/basic/BSDF.glsl).
 
 Vectorized masked loop over [...] lanes.  Every iteration draws the
 height sample (1 rand) and the VNDF micro-normal (2 rands) on walking
@@ -12,8 +13,9 @@ results equal the JAX package's fixed ``max_order`` trip.
 Every sum of three products is written out in one fixed order; the
 CUDA shading kernel (csrc/shade.cu) repeats this arithmetic.
 
-lobe ∈ {0: diffuse, 1: metallic, 2: transmission}.  The basic BSDF
-(use_microfacet=False) is not ported yet (ROADMAP Queue 1).
+lobe ∈ {0: diffuse, 1: metallic, 2: transmission}.  ``basic_sample``
+(use_microfacet=False) draws a fixed number of rands per lobe, so its
+seeds equal the JAX package's on every lane.
 """
 
 from __future__ import annotations
@@ -240,4 +242,81 @@ def heitz_sample(base_color, view_dir, roughness, transmission, ior,
     weight = torch.where(is_trans[..., None], base_color, energy)
     if eval_dir is not None:
         return weight, light_dir, seed, f_eval
+    return weight, light_dir, seed
+
+
+# ---------------------------------------------------------------------------
+# Basic single-scatter BSDFs (shaders/basic/BSDF.glsl): the
+# use_microfacet=False lobes.
+# ---------------------------------------------------------------------------
+
+
+def _reflect(i, n):
+    return i - 2.0 * dot3(n, i)[..., None] * n
+
+
+def _glsl_refract(i, n, eta):
+    """GLSL refract(): the zero vector on total internal reflection."""
+    ndoti = dot3(n, i)
+    k = 1.0 - eta * eta * (1.0 - ndoti * ndoti)
+    refr = (eta[..., None] * i
+            - (eta * ndoti + torch.sqrt(torch.clamp(k, min=0.0)))[..., None]
+            * n)
+    return torch.where((k < 0.0)[..., None], 0.0, refr)
+
+
+def basic_sample(base_color, view_dir, transmission, ior, outside, lobe,
+                 seed, active, rand=rand_parity_masked):
+    """Fused basic lobes (basic/BSDF.glsl:3-49; the JAX package's
+    ``basic_sample``).
+
+    diffuse: cosine hemisphere (2 rands); metallic: mirror about +z (0
+    rands); transmission: Fresnel-weighted reflect or refract (1 rand).
+    The reference's Fresnel quirk is kept: nc = 1 and nt = ior at the
+    call site, the refraction taken against +z whatever side the ray
+    comes from, and the zero vector on total internal reflection.
+
+    Returns (weight [..., 3], light_dir [..., 3] tangent space, seed')."""
+    is_diff = active & (lobe == LOBE_DIFFUSE)
+    is_trans = active & (lobe == LOBE_TRANSMISSION)
+    z_axis = _unit(view_dir, 2)
+
+    # Diffuse (2 rands).
+    r1, seed = rand(seed, is_diff)
+    r2, seed = rand(seed, is_diff)
+    phi = 2.0 * PI * r1
+    r2s = torch.sqrt(r2)
+    diff_dir = torch.stack([torch.cos(phi) * r2s, torch.sin(phi) * r2s,
+                            torch.sqrt(1.0 - r2)], -1)
+    diff_w = base_color * diff_dir[..., 2:3]
+
+    # Specular mirror (0 rands).
+    spec_dir = _reflect(-view_dir, z_axis)
+
+    # Transmission (1 rand): basicFresnelReflectance(n = ±z, nl = +z,
+    # rayDirection = -viewDir, nc = 1, nt = ior), basic/BSDF.glsl:19-49.
+    normal = torch.where(outside[..., None], z_axis, -z_axis)
+    ray_dir = -view_dir
+    nc = torch.ones_like(ior)
+    nt = ior
+    nnt = torch.where(dot3(ray_dir, normal) < 0.0, nc / nt, nt / nc)
+    tdir = _glsl_refract(ray_dir, z_axis, nnt)
+    cos_inc = dot3(z_axis, ray_dir)
+    cos_tra = dot3(z_axis, tdir)
+    coef_para = (nt * cos_inc - nc * cos_tra) / (nt * cos_inc + nc * cos_tra)
+    coef_perp = (nc * cos_inc - nt * cos_tra) / (nc * cos_inc + nt * cos_tra)
+    re = (coef_para * coef_para + coef_perp * coef_perp) * 0.5
+    r_t, seed = rand(seed, is_trans)
+    reflect_choice = r_t < re
+    trans_dir = torch.where(reflect_choice[..., None],
+                            _reflect(-view_dir, normal), tdir)
+    trans_w = torch.where(reflect_choice[..., None], 1.0,
+                          base_color * transmission[..., None])
+
+    light_dir = torch.where(
+        is_diff[..., None], diff_dir,
+        torch.where(is_trans[..., None], trans_dir, spec_dir))
+    weight = torch.where(
+        is_diff[..., None], diff_w,
+        torch.where(is_trans[..., None], trans_w, base_color))
     return weight, light_dir, seed

@@ -36,7 +36,9 @@ rows in the kernel) is the gather form here: each lane reads its own
 The plain version below is the port of the JAX package's jnp shade
 path (``render/megakernel.py::shade_step``, the oracle the Pallas
 kernel is held to); the CUDA kernel repeats its arithmetic lane by
-lane.
+lane.  The same sequence with the basic BSDF is ``shade_basic``, the
+route of ``use_microfacet=False`` on every device, counted apart
+(``basic_calls``): the JAX package has no kernel for it either.
 
 On the card (csrc/shade.cu): one thread a lane.  A dead lane copies
 through and a miss writes the environment, neither reading tri_shade; a
@@ -62,6 +64,8 @@ from logipathtracer_tpu_torch.ops.rng import get_rand
 
 launches = 0
 plain_calls = 0
+# Calls of the basic-BSDF route (shade_basic), plain torch on any device.
+basic_calls = 0
 # Kernel launches by mode: "base", "tex", "nee", "tex+nee".
 mode_launches = collections.Counter()
 
@@ -93,17 +97,36 @@ def tangent_basis(ff):
     return u, cross3(ff, u)
 
 
-def shade_plain(tri_shade, origin, direction, acc, mask, alive, seed,
-                bounce, t, tri, *, env: float, rr_threshold: float,
-                rr_bounces: int, max_order: int, parity: bool, mat=None,
-                ff_mapped=None, has_nmap=None, light_tris=None,
-                light_cdf=None, prev_pdf=None, nee_mis: bool = True,
-                total_light_area: float = 0.0):
-    """Plain PyTorch shading step.  Returns (origin, direction, acc,
-    mask, alive, seed), and with a light table (prev_pdf', shadow
+def shade_plain(*args, **kw):
+    """Plain PyTorch shading step with the Heitz BSDF: K2's plain
+    version, with ``shade``'s arguments.  Returns (origin, direction,
+    acc, mask, alive, seed), and with a light table (prev_pdf', shadow
     origin, shadow direction, t_lim, contribution) after them."""
     global plain_calls
     plain_calls += 1
+    return _shade_step(*args, basic=False, **kw)
+
+
+def shade_basic(*args, **kw):
+    """The shading step with the basic BSDF (use_microfacet=False), in
+    plain PyTorch on any device: the JAX package shades this BSDF in jnp
+    and has no kernel for it.  Arguments and results as ``shade``'s,
+    without ``max_order``; with NEE the light sample's f is
+    base * max(cos, 0) / pi."""
+    global basic_calls
+    basic_calls += 1
+    return _shade_step(*args, max_order=0, basic=True, **kw)
+
+
+def _shade_step(tri_shade, origin, direction, acc, mask, alive, seed,
+                bounce, t, tri, *, env: float, rr_threshold: float,
+                rr_bounces: int, max_order: int, parity: bool, basic: bool,
+                mat=None, ff_mapped=None, has_nmap=None, light_tris=None,
+                light_cdf=None, prev_pdf=None, nee_mis: bool = True,
+                total_light_area: float = 0.0):
+    """The JAX package's jnp shading sequence, the BSDF step chosen by
+    ``basic``: the basic lobes, else the Heitz walk of at most
+    ``max_order`` orders."""
     rand = get_rand(parity)
     nee = light_tris is not None
     miss = alive & (t >= INF)
@@ -196,13 +219,22 @@ def shade_plain(tri_shade, origin, direction, acc, mask, alive, seed,
         p_bsdf_l = torch.clamp(cos_s, min=0.0) / bsdf.PI
         w_light = (p_light / (p_light + p_bsdf_l) if nee_mis
                    else torch.ones_like(p_light))
-        weight, ldir_t, seed, f_eval = bsdf.heitz_sample(
-            base_color[:, :3], view, roughness, transmission, ior, outside,
-            lobe, seed, alive, max_order=max_order, rand=rand,
-            eval_dir=wl_t, eval_mask=nee_mask)
-        # f_eval carries the surface cosine; the light side remains.
-        contrib = mask * le * f_eval * (
-            cos_l * total_light_area / dist2 * w_light)[:, None]
+        if basic:
+            weight, ldir_t, seed = bsdf.basic_sample(
+                base_color[:, :3], view, transmission, ior, outside, lobe,
+                seed, alive, rand=rand)
+            f_d = (base_color[:, :3] * torch.clamp(cos_s, min=0.0)[:, None]
+                   / bsdf.PI)
+            geom = cos_s * cos_l * total_light_area / dist2
+            contrib = mask * le * f_d * (geom * w_light)[:, None]
+        else:
+            weight, ldir_t, seed, f_eval = bsdf.heitz_sample(
+                base_color[:, :3], view, roughness, transmission, ior,
+                outside, lobe, seed, alive, max_order=max_order, rand=rand,
+                eval_dir=wl_t, eval_mask=nee_mask)
+            # f_eval carries the surface cosine; the light side remains.
+            contrib = mask * le * f_eval * (
+                cos_l * total_light_area / dist2 * w_light)[:, None]
         use = nee_mask & (cos_s > 0.0)
         contrib = torch.where(use[:, None], contrib, 0.0)
         shadow_o = torch.where(nee_mask[:, None], pos_w, PARK)
@@ -212,6 +244,10 @@ def shade_plain(tri_shade, origin, direction, acc, mask, alive, seed,
         # next vertex's emission MIS input.
         new_pdf = torch.where(
             nee_mask, torch.clamp(ldir_t[:, 2], min=0.0) / bsdf.PI, 0.0)
+    elif basic:
+        weight, ldir_t, seed = bsdf.basic_sample(
+            base_color[:, :3], view, transmission, ior, outside, lobe, seed,
+            alive, rand=rand)
     else:
         weight, ldir_t, seed = bsdf.heitz_sample(
             base_color[:, :3], view, roughness, transmission, ior, outside,

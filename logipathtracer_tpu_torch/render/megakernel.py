@@ -10,8 +10,8 @@ coherence key (not for the BVH walk), intersects them through the
 resolved backend — K1 (default), K7 (``compact_worklist=False``), K8
 (``intersect="sweep"``), the jnp twin or the BVH walk — and shades them
 with K2; on CPU tensors each kernel's plain version runs.  The basic
-BSDF (``use_microfacet=False``) is not ported and raises
-NotImplementedError naming its ROADMAP item.
+BSDF (``use_microfacet=False``) shades through ``shade.shade_basic``,
+plain torch on every device, as the JAX package shades it in jnp.
 """
 
 from __future__ import annotations
@@ -193,15 +193,13 @@ def sorted_intersect(isect, scene, origin, direction, eps):
 
 
 def resolve_shade_mode(cfg: RenderConfig, scene=None) -> str:
-    """Always 'kernel' (kernel K2 on CUDA tensors, its plain version on
-    CPU ones), for textured and untextured scenes, with or without NEE;
-    raises for the basic BSDF.  ``cfg.shade`` chooses between TPU
-    implementations and is ignored."""
-    if not cfg.use_microfacet:
-        raise NotImplementedError(
-            "use_microfacet=False (the basic BSDF) is not ported (ROADMAP "
-            "Queue 1: basic BSDF)")
-    return "kernel"
+    """'kernel' for the Heitz BSDF (kernel K2 on CUDA tensors, its plain
+    version on CPU ones), for textured and untextured scenes, with or
+    without NEE; 'basic' for ``use_microfacet=False``, which shades in
+    plain torch on every device (megakernel.py:260-273 sends it to the
+    jnp path).  ``cfg.shade`` chooses between TPU implementations and is
+    ignored."""
+    return "kernel" if cfg.use_microfacet else "basic"
 
 
 def resolve_tex_prologue(scene, cfg: RenderConfig, origin, direction, t,
@@ -300,15 +298,17 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
     (path_tracing.comp:219-323) given the intersection results.
     ``bounce`` may be a python int or a per-lane int32 tensor.
 
-    Textured scenes first run the texture prologue.  With ``cfg.nee``,
-    lights in the scene and ``isect`` given, K2 also samples a light per
+    Textured scenes first run the texture prologue.  The Heitz BSDF
+    shades through K2, the basic BSDF through ``shade.shade_basic``
+    (the same inputs and outputs).  With ``cfg.nee``, lights in the
+    scene and ``isect`` given, the step also samples a light per
     diffuse lane; the shadow rays then go through ``isect`` with t_max
     and any-hit, and the pending contribution is added where the light
     is visible (the post-kernel tail of megakernel.py:484-493).
     ``shadow_count`` (an int64 scalar tensor) is incremented in place by
     the number of shadow rays cast, without a host sync.
     Returns (origin, direction, acc, mask, alive, seed, prev_pdf)."""
-    resolve_shade_mode(cfg, scene)
+    basic = resolve_shade_mode(cfg, scene) == "basic"
     r = origin.shape[0]
     if prev_pdf is None:
         prev_pdf = torch.zeros(r, dtype=torch.float32, device=origin.device)
@@ -325,12 +325,16 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
         opt.update(light_tris=scene.light_tris, light_cdf=scene.light_cdf,
                    prev_pdf=prev_pdf.contiguous(), nee_mis=bool(cfg.nee_mis),
                    total_light_area=float(scene.total_light_area))
-    out = shade_kernel.shade(
+    if basic:
+        shade = shade_kernel.shade_basic
+    else:
+        shade = shade_kernel.shade
+        opt.update(max_order=int(cfg.heitz_max_order))
+    out = shade(
         scene.tri_shade, origin, direction, acc, mask, alive, seed,
         bounce.to(torch.int32), t, tri.to(torch.int32),
         env=float(cfg.env_color), rr_threshold=float(cfg.rr_threshold),
-        rr_bounces=int(cfg.rr_bounces), max_order=int(cfg.heitz_max_order),
-        parity=bool(cfg.parity_rng), **opt)
+        rr_bounces=int(cfg.rr_bounces), parity=bool(cfg.parity_rng), **opt)
     if not nee:
         # prev_pdf carries NEE state only; it passes through unchanged.
         return (*out, prev_pdf)

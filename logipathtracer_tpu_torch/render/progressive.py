@@ -23,8 +23,7 @@ import torch
 from logipathtracer_tpu_torch.config import RenderConfig
 from logipathtracer_tpu_torch.film.image import tonemap
 from logipathtracer_tpu_torch.render.megakernel import (accumulate_sample,
-                                                        pick_intersect,
-                                                        resolve_shade_mode)
+                                                        pick_intersect)
 from logipathtracer_tpu_torch.render.wavefront import (pix_layout,
                                                        unblock_accum,
                                                        wavefront_chunk,
@@ -92,8 +91,7 @@ class ProgressiveRenderer:
                 raise ValueError("scene has no camera; pass camera= "
                                  "explicitly (src/RendererRTX.cpp:53-55)")
             camera = scene.cameras[0]
-        # What the slice does not cover fails here, before any work.
-        resolve_shade_mode(config, scene)
+        # An unknown intersect mode fails here, before any work.
         pick_intersect(config, scene)
         # Commit the scene to the device once.
         self.scene = scene.to(self.device)

@@ -11,8 +11,9 @@ spheres=10, subdiv=3)``, procedural, from fixed seeds) with the default
 RenderConfig at ``--res`` (``--renderer``, ``--intersect`` and
 ``--no-worklist``, i.e. ``compact_worklist=False``, choose the route;
 ``--set`` any other RenderConfig field, its value read as JSON, e.g.
-``--set stream_worklist=false``), and prints one JSON line for each
-part:
+``--set stream_worklist=false``, or ``--set use_microfacet=false`` for
+the basic BSDF, whose plain-torch shading is the stage "basic route"),
+and prints one JSON line for each part:
 
   stages:   a warm-up step(1), then two step(2) chunks with every stage
             wrapped in device-synchronised timers (the syncs add a
@@ -90,6 +91,7 @@ STAGES = (
     (k6, "octant_chunk_intersect", lambda kw: "K6 kernel" + _shadow(kw)),
     (megakernel, "resolve_tex_prologue", lambda kw: "texture prologue"),
     (sk, "shade", lambda kw: "K2 kernel + wrapper"),
+    (sk, "shade_basic", lambda kw: "basic route"),
 )
 
 

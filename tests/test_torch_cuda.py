@@ -933,3 +933,66 @@ def test_megakernel_card_matches_cpu(dev, route):
     close = np.isclose(a, b, rtol=1e-4, atol=1e-6).all(-1)
     assert close.mean() >= 0.995
     assert ra == rb
+
+
+@pytest.mark.parametrize("renderer", ["wavefront", "megakernel"])
+@pytest.mark.parametrize("nee", [False, True])
+def test_basic_route_launches_no_k2(dev, nee, renderer):
+    """The basic BSDF on the card: the worklist kernel and K1 (with NEE
+    also in its any-hit mode) and, in the wavefront, K3 launch; K2 never
+    does, nor any plain version; the basic route shades.  The radiance
+    matches the CPU render under the pixel rule with equal ray counts."""
+    from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
+                                          compile_scene)
+    from logipathtracer_tpu_torch.scene.procedural import make_box_scene
+    cfg = RenderConfig(width=32, height=32, pool_size=1024,
+                       compact_tile=256, use_microfacet=False, nee=nee,
+                       renderer=renderer)
+    host = compile_scene(make_box_scene(spheres=2, subdiv=3), cfg)
+    before = dict(k1=ci.launches, wl=ci.prepass_launches,
+                  any_hit=ci.mode_launches["any_hit"], k3=flush.launches,
+                  k2=shade.launches, basic=shade.basic_calls,
+                  plain=(ci.plain_calls, ci.prepass_plain_calls,
+                         shade.plain_calls, flush.plain_calls))
+    r = ProgressiveRenderer(host, cfg, host_seed=5, device=dev)
+    r.step(2)
+    r.step(1)
+    a = r.radiance()
+    assert ci.launches > before["k1"] and ci.prepass_launches > before["wl"]
+    assert (ci.mode_launches["any_hit"] > before["any_hit"]) == nee
+    assert (flush.launches > before["k3"]) == (renderer == "wavefront")
+    assert shade.launches == before["k2"]
+    assert shade.basic_calls > before["basic"]
+    assert (ci.plain_calls, ci.prepass_plain_calls, shade.plain_calls,
+            flush.plain_calls) == before["plain"]
+    c = ProgressiveRenderer(host, cfg, host_seed=5, device="cpu")
+    c.step(2)
+    c.step(1)
+    close = np.isclose(a, c.radiance(), rtol=1e-4, atol=1e-6).all(-1)
+    assert close.mean() >= 0.995
+    assert r.total_rays == c.total_rays
+
+
+def test_cli_basic_render_card_matches_cpu(dev, tmp_path, capsys):
+    """``render --basic`` through the command line at 64x64 on the card
+    against ``--cpu``: the pixel rule, equal spp and total_rays."""
+    import json
+
+    from logipathtracer_tpu_torch.cli.main import main
+    from logipathtracer_tpu_torch.scene.procedural import make_box_scene
+    from logipathtracer_tpu_torch.tools.glb import write_glb
+    glb = write_glb(make_box_scene(spheres=2, subdiv=3),
+                    str(tmp_path / "box.glb"))
+    out = {}
+    for name, extra in (("card", []), ("cpu", ["--cpu"])):
+        npz = str(tmp_path / f"{name}.npz")
+        assert main(["render", glb, "--width", "64", "--height", "64",
+                     "--spp", "3", "--basic", "--radiance", npz, "-o",
+                     str(tmp_path / f"{name}.png"), *extra]) == 0
+        report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        out[name] = (report, np.load(npz)["radiance"])
+    (rg, a), (rc, b) = out["card"], out["cpu"]
+    assert rg["spp"] == rc["spp"] == 3
+    assert rg["total_rays"] == rc["total_rays"] > 0
+    close = np.isclose(a, b, rtol=1e-4, atol=1e-6).all(-1)
+    assert close.mean() >= 0.995

@@ -1,5 +1,6 @@
 """The port never imports JAX or the JAX package: in a fresh interpreter
-where ``import jax`` fails, importing logipathtracer_tpu_torch and a
+where ``import jax`` fails, importing logipathtracer_tpu_torch (its
+command line, web viewer, EXR writer, logger and .glb writer too) and a
 tiny CPU render both work, and no module of the package (nor
 ``chip_smoke.py``) has an import of either."""
 
@@ -18,6 +19,11 @@ sys.modules["jax"] = None          # any `import jax` now raises
 sys.modules["jaxlib"] = None
 import numpy as np
 import logipathtracer_tpu_torch as lpt
+import logipathtracer_tpu_torch.cli.main
+import logipathtracer_tpu_torch.cli.webview
+import logipathtracer_tpu_torch.film.exr
+import logipathtracer_tpu_torch.tools.glb
+import logipathtracer_tpu_torch.utils.log
 from logipathtracer_tpu_torch.scene.procedural import make_box_scene
 scene = lpt.compile_scene(make_box_scene(spheres=1, subdiv=2),
                           use_native=False)
@@ -49,6 +55,11 @@ def test_no_module_imports_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|logipathtracer_tpu)"
                      r"(\.|\s|$)", re.M)
     files = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    scanned = {p.relative_to(PKG).as_posix() for p in files
+               if PKG in p.parents}
+    for module in ("cli/main.py", "cli/webview.py", "utils/log.py",
+                   "film/exr.py", "tools/glb.py"):
+        assert module in scanned, module
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
     assert not offenders, offenders

@@ -260,10 +260,25 @@ def test_film_matches_jax():
 @pytest.mark.parametrize("field,value,item", [
     ("use_microfacet", False, "basic BSDF")])
 def test_unported_shading_raises(hit_state, field, value, item):
-    _, tscene, st = hit_state
+    """The field that raised until its route was ported (the basic BSDF)
+    now shades: through its own counted route, not K2 or K2's plain
+    twin, as the JAX package's jnp shade_step does."""
+    jscene, tscene, st = hit_state
     cfg = RenderConfig(width=32, height=32).replace(**{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        shade_step(tscene, cfg, *[torch.from_numpy(st[k]) for k in (
-            "origin", "direction", "acc", "mask", "alive")],
-            torch.from_numpy(st["seed"].astype(np.int64)), 0,
-            *[torch.from_numpy(st[k]) for k in ("t", "obj", "tri")])
+    counts = (tshade.basic_calls, tshade.plain_calls, tshade.launches)
+    got = shade_step(tscene, cfg, *[torch.from_numpy(st[k]) for k in (
+        "origin", "direction", "acc", "mask", "alive")],
+        torch.from_numpy(st["seed"].astype(np.int64)), 0,
+        *[torch.from_numpy(st[k]) for k in ("t", "obj", "tri")])
+    assert (tshade.basic_calls, tshade.plain_calls, tshade.launches) == (
+        counts[0] + 1, counts[1], counts[2]), item
+    jcfg = JaxConfig(width=32, height=32, shade="jnp").replace(
+        **{field: value})
+    ref = jax_shade_step(
+        jscene, jcfg, *(jnp.asarray(st[k]) for k in (
+            "origin", "direction", "acc", "mask", "alive", "seed")), 0,
+        *(jnp.asarray(st[k]) for k in ("t", "obj", "tri")),
+        prev_pdf=jnp.zeros((N,), jnp.float32))
+    ref = [np.asarray(x) for x in ref[:6]]
+    ref[5] = ref[5].astype(np.int64)
+    tshade.shade_agreement(ref, [x.numpy() for x in got[:6]])

@@ -131,9 +131,16 @@ def test_camera_moves_match_jax(renders):
 
 def test_unported_configs_raise(renders):
     js = renders["jscene"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: basic"):
-        ProgressiveRenderer(js, RenderConfig(**FIELDS).replace(
-            use_microfacet=False), device="cpu")
+    # The basic BSDF is ported: it constructs and renders through its
+    # own route, K2's plain twin never.
+    calls = (shade.basic_calls, shade.plain_calls)
+    basic = ProgressiveRenderer(js, RenderConfig(**FIELDS).replace(
+        use_microfacet=False, max_depth=3), host_seed=HOST_SEED,
+        device="cpu")
+    basic.step(1)
+    rad = basic.radiance()
+    assert np.isfinite(rad).all() and rad.mean() > 0.01
+    assert shade.basic_calls > calls[0] and shade.plain_calls == calls[1]
     # The megakernel, the BVH walk, K7 and K8 are ported: each constructs,
     # and so does every routing of the streamed intersect.
     for kw in (dict(renderer="megakernel"), dict(intersect="bvh"),

@@ -31,6 +31,10 @@ CASES = {
     "box": (lambda: make_box_scene(spheres=1, subdiv=2),
             dict(compact_tile=256),
             ("K1 worklist", "K1 kernel") + WAVEFRONT),
+    "box-basic": (lambda: make_box_scene(spheres=1, subdiv=2),
+                  dict(compact_tile=256, use_microfacet=False),
+                  ("K1 worklist", "K1 kernel", "ray pack",
+                   "sort + gather + K3 flush", "regen", "basic route")),
     "megakernel-k7": (lambda: make_box_scene(spheres=1, subdiv=2),
                       dict(renderer="megakernel", compact_tile=256,
                            compact_worklist=False),
@@ -56,6 +60,8 @@ def test_stage_split(name):
     for k in route:
         assert st[k][1] > 0 and st[k][0] >= 0.0, k
     assert 0.0 <= st["rest"][0] <= st["iteration total"][0]
+    # The basic BSDF shades through its own route, never K2.
+    assert ("K2 kernel + wrapper" in st) == cfg.use_microfacet
     assert wavefront._Body.__dict__["__call__"] is call
     assert k4.build_cluster_worklists is build
     assert megakernel.trace_rays is trace
