@@ -97,7 +97,24 @@ the root of a checkout it:
      JSON report, a 1024x1024 PNG, finite radiance of the report's spp,
      the EXR of that radiance), ``compare`` on the two, and ``web`` at
      256x256 for 3 frames with /stats and /frame.raw fetched while it
-     serves.
+     serves;
+ 10. ``render_wavefront`` and the device mesh (``parallel/mesh.py``) —
+     (a) one 1024x1024 frame of 1 spp through ``render_wavefront`` on
+     the flagship box, and its two 512-row slabs: the slabs concatenated
+     must equal the frame bit for bit, their rays sum to the frame's,
+     and the frame's call launches the worklist kernel, K1, K2 and K3
+     and no plain version; (b) the same on the textured box with NEE,
+     which must launch K1 any-hit, and one frame of
+     ``make_outside_scene()``, which must launch K4; (c) the single-shot
+     session, ``ProgressiveRenderer(pool_carryover=False)``, timed as
+     in 4, beside phase 4's carried-over pool; (d) a 1x1 mesh
+     (``make_mesh(["cuda:0"])``) and a (1, 2) mesh on ``["cuda:0"] * 2``
+     stepped three rounds must equal that session's three step(1) bit
+     for bit, rays too, and a 1x1 megakernel mesh the megakernel
+     session's; (e) a 64x64 (1, 2) wavefront mesh on the card against
+     the same mesh on the CPU (the pixel rule of 5), and a mesh of the
+     card and the CPU, a worker thread each, whose tiles equal theirs
+     bit for bit.
 
 The scene is the glTF given with --scene, else the procedural box
 ``make_box_scene(spheres=10, subdiv=3)`` (12,812 triangles, 86 clusters,
@@ -1424,6 +1441,169 @@ def basic_phase(dev, card, flagship_rate):
           f"{time.perf_counter() - t_cli:.1f} s)", flush=True)
 
 
+def _slabs_equal(scene, cfg, cam, fov, seeds, what, rows=512):
+    """render_wavefront of the full frame with the launch counts set to
+    0 just before it, then of its slabs of ``rows`` rows: the slabs
+    concatenated must equal the frame bit for bit and their rays add up.
+    Returns (frame, rays, iterations, ms, launches of the frame's call,
+    launches by mode)."""
+    from logipathtracer_tpu_torch import render_wavefront
+    h = cfg.render_height
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full, rays, iters = render_wavefront(scene, cfg, cam, fov, seeds)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts()
+    modes = {k: modes_of(k) for k in ("compact_intersect", "shade")}
+    assert_no_plain()
+    parts = [render_wavefront(scene, cfg, cam, fov, seeds, y0=y0, rows=rows)
+             for y0 in range(0, h, rows)]
+    tiled = torch.cat([p[0] for p in parts])
+    assert torch.equal(tiled, full), f"{what}: slabs differ from the frame"
+    assert sum(p[1] for p in parts) == rays, f"{what}: slab rays differ"
+    assert full.shape == (h, cfg.render_width, 3)
+    assert bool(torch.isfinite(full).all()) and float(full.mean()) > 1e-3
+    print(f"render_wavefront {what}: {ms:.1f} ms, {rays} rays, {iters} "
+          f"iterations, mean {float(full.mean()):.6f}; {h // rows} slabs of "
+          f"{rows} rows bit-equal, iterations "
+          f"{[p[2] for p in parts]}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v[0]})} by "
+          f"mode {json.dumps(modes)}", flush=True)
+    return full, rays, iters, ms, counts, modes
+
+
+def single_shot_phase(dev, card, flagship_rate):
+    """Phase 10: render_wavefront and the device mesh (module
+    docstring)."""
+    from logipathtracer_tpu_torch import (MeshRenderer, ProgressiveRenderer,
+                                          RenderConfig, compile_scene,
+                                          render_wavefront)
+    from logipathtracer_tpu_torch.parallel.mesh import make_mesh
+    from logipathtracer_tpu_torch.scene.procedural import make_outside_scene
+
+    t_phase = time.perf_counter()
+    host = load_scene(None)
+    cfg = RenderConfig(width=1024, height=1024)
+    cam_h = host.cameras[0]
+    cam = torch.from_numpy(np.asarray(cam_h.world_matrix,
+                                      np.float32)).to(dev)
+    fov = float(cam_h.yfov)
+    seeds = torch.tensor([[12345, 678]], dtype=torch.int64, device=dev)
+
+    # (a) the flagship: full frame and two 512-row slabs
+    *_, counts, _ = _slabs_equal(host.to(dev), cfg, cam, fov, seeds,
+                                 "flagship 1024^2 1 spp")
+    for k in FLAGSHIP:
+        assert counts[k][0] > 0, f"render_wavefront never launched {k}"
+
+    # (b) NEE on the textured box (K1 any-hit), then the outside class (K4)
+    tex = load_scene(None, textured=True)
+    *_, modes = _slabs_equal(tex.to(dev), cfg.replace(nee=True), cam, fov,
+                             seeds, "NEE+textured 1024^2 1 spp")
+    assert modes["compact_intersect"].get("any_hit", 0) > 0, \
+        "render_wavefront with NEE never launched K1 any-hit"
+    outside = compile_scene(make_outside_scene())
+    cam_o = outside.cameras[0]
+    reset_counts()
+    t0 = time.perf_counter()
+    img, rays, iters = render_wavefront(
+        outside.to(dev), cfg, torch.from_numpy(np.asarray(
+            cam_o.world_matrix, np.float32)).to(dev), float(cam_o.yfov),
+        seeds)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counts()
+    assert counts["stream_cluster"][0] > 0, "the outside frame never ran K4"
+    assert_no_plain()
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-3
+    print(f"render_wavefront outside 1024^2 1 spp: {ms:.1f} ms, {rays} "
+          f"rays, {iters} iterations, mean {float(img.mean()):.6f}; "
+          f"launches {json.dumps({k: v for k, v in counts.items() if v[0]})}",
+          flush=True)
+    del tex, outside, img
+
+    # (c) the single-shot session, timed as phase 4
+    single = cfg.replace(pool_carryover=False)
+    renderer = ProgressiveRenderer(host, single, host_seed=0, device=dev)
+    reset_counts()
+    sps, mrays, iters, rad = timed_steps(renderer)
+    counts = read_counts(FLAGSHIP)
+    assert_no_plain()
+    assert all(n > 0 for n, _ in counts.values())
+    assert np.isfinite(rad).all() and 1e-3 < float(rad.mean()) < 10.0
+    print(f"single-shot session (pool_carryover=False) 1024x1024 spp 4: "
+          f"{sps:.3f} samples/s, {mrays:.2f} Mrays/s, iterations per call "
+          f"{iters}, mean radiance {float(rad.mean()):.6f}; carried-over "
+          f"pool (phase 4): {flagship_rate[0]:.3f} samples/s, "
+          f"{flagship_rate[1]:.2f} Mrays/s [{card}]", flush=True)
+    print(f"single-shot launches: {json.dumps(counts)} (5 samples)",
+          flush=True)
+    del renderer
+
+    # (d) the mesh on the card against the single-device session
+    rounds = 3
+
+    def session(c, mesh=None):
+        if mesh is None:
+            r = ProgressiveRenderer(host, c, host_seed=5, device=dev)
+        else:
+            r = MeshRenderer(host, c, mesh, host_seed=5)
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            r.step(1)
+        rad = r.radiance()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        assert_no_plain()
+        assert counts["compact_intersect"][0] > 0, "K1 never launched"
+        return rad, r.total_rays, wall, counts
+
+    for label, c in (("wavefront", single),
+                     ("megakernel", cfg.replace(renderer="megakernel"))):
+        ref = session(c)
+        runs = [("1x1", make_mesh(["cuda:0"])),
+                ("1x2", make_mesh(["cuda:0"] * 2, samples=1, tiles=2))]
+        if label == "megakernel":
+            runs = runs[:1]
+        for shape, mesh in runs:
+            got = session(c, mesh)
+            assert np.array_equal(got[0], ref[0]), \
+                f"{label} mesh {shape} differs from the session"
+            assert got[1] == ref[1], f"{label} mesh {shape}: rays differ"
+            launched = {k: v for k, v in got[3].items() if v[0]}
+            print(f"mesh {shape} {label} 1024x1024, {rounds} rounds: "
+                  f"bit-equal to the session's {rounds} step(1), rays "
+                  f"{got[1]:.0f}; {got[2]:.3f} s against {ref[2]:.3f} s; "
+                  f"launches {json.dumps(launched)}", flush=True)
+
+    # (e) card against CPU on a 64x64 (1, 2) wavefront mesh, and one
+    # mesh over both (a worker thread each)
+    small = RenderConfig(width=64, height=64, pool_size=4096,
+                         renderer="wavefront")
+    meshes = {}
+    for key, devs in (("card", ["cuda:0"] * 2), ("cpu", ["cpu"] * 2),
+                      ("both", ["cuda:0", "cpu"])):
+        m = MeshRenderer(host, small, make_mesh(devs, samples=1, tiles=2),
+                         host_seed=7)
+        m.step(2)
+        meshes[key] = m
+    card_rad, cpu_rad = (meshes[k].radiance() for k in ("card", "cpu"))
+    close = np.isclose(card_rad, cpu_rad, rtol=IMG_RTOL,
+                       atol=IMG_ATOL).all(-1)
+    both = meshes["both"].accum[0]
+    assert torch.equal(both[0], meshes["card"].accum[0][0])
+    assert torch.equal(both[1], meshes["cpu"].accum[0][1])
+    print(f"mesh 1x2 card vs CPU 64x64 2 rounds: {close.mean():.5f} of "
+          f"pixels close, rays {meshes['card'].total_rays:.0f} / "
+          f"{meshes['cpu'].total_rays:.0f}; a mesh of the card and the CPU "
+          f"equals each tile bit for bit", flush=True)
+    assert close.mean() >= IMG_FRAC, "mesh: card and CPU renders disagree"
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default=None,
@@ -1533,6 +1713,9 @@ def main(argv=None) -> int:
 
     # ---- 9. the basic BSDF and the command line --------------------------
     basic_phase(dev, card, flagship_rate)
+
+    # ---- 10. render_wavefront and the device mesh -------------------------
+    single_shot_phase(dev, card, flagship_rate)
 
     from logipathtracer_tpu_torch.ops.kernels import (compact_intersect,
                                                       flush, shade)

@@ -10,9 +10,12 @@ The main path: ``load_gltf`` / a procedural scene → ``compile_scene`` →
 ``ProgressiveRenderer(scene, RenderConfig(...))`` → ``step(n)`` →
 ``radiance()`` / ``image()``, through the pooled wavefront renderer or,
 with ``renderer="megakernel"``, the lockstep megakernel
-(``render_sample`` renders one frame).  On CUDA tensors it runs
-hand-written kernels (csrc/): for resident-class scenes the compact
-worklist intersect (K1, the default), the compact sweep over every
+(``render_sample`` renders one frame; ``render_wavefront`` renders a
+batch of samples of a row slab in one pool; ``MeshRenderer`` shards a
+session over a (samples, tiles) mesh of devices, ``parallel/mesh.py``).
+On CUDA tensors it runs hand-written kernels (csrc/): for
+resident-class scenes the compact worklist intersect (K1, the
+default), the compact sweep over every
 cluster in octant order (K7, ``compact_worklist=False``) or the dense
 sweep (K8, ``intersect="sweep"``); for scenes beyond the resident
 budget a streamed intersect — the frustum cluster worklists (K4, the
@@ -35,6 +38,13 @@ def __getattr__(name):
         from logipathtracer_tpu_torch.render.progressive import \
             ProgressiveRenderer
         return ProgressiveRenderer
+    if name == "MeshRenderer":
+        from logipathtracer_tpu_torch.parallel.mesh import MeshRenderer
+        return MeshRenderer
+    if name == "render_wavefront":
+        from logipathtracer_tpu_torch.render.wavefront import \
+            render_wavefront
+        return render_wavefront
     if name == "render_sample":
         from logipathtracer_tpu_torch.render.megakernel import render_sample
         return render_sample
@@ -44,4 +54,5 @@ def __getattr__(name):
 __version__ = "0.1.0"
 
 __all__ = ["RenderConfig", "load_gltf", "compile_scene",
-           "ProgressiveRenderer", "render_sample", "__version__"]
+           "ProgressiveRenderer", "MeshRenderer", "render_wavefront",
+           "render_sample", "__version__"]

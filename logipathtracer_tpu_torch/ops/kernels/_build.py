@@ -44,6 +44,9 @@ EXTRA_FLAGS = {
 BUILD_SECONDS: dict[str, float] = {}
 
 _LOCK = threading.Lock()
+# Guards the wrappers' launch and plain-call counters, which the mesh's
+# worker threads (one per device) update at once.
+COUNT_LOCK = threading.Lock()
 _NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 # (source name, entry point) -> the bound C function.

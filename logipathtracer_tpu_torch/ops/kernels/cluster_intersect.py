@@ -121,7 +121,8 @@ def octant_chunk_intersect_plain(rays8, oct_, order, live, chunk_aabb,
     """Plain PyTorch version of K6: tiles, chunks and member clusters in
     host loops, each visit vectorized over the tile's rays."""
     global plain_calls
-    plain_calls += 1
+    with _build.COUNT_LOCK:
+        plain_calls += 1
     r = rays8.shape[1]
     block = _threads(r, tile, cap)
     best0 = (ci.best_init(rays8, has_tmax) if cap
@@ -179,9 +180,10 @@ def octant_chunk_intersect(rays8, oct_, order, live, chunk_aabb, cl_meta,
                   chunk_aabb, cl_meta, cl_inv, cl_aabb, cl_tris, s,
                   float(eps), threads, not cap, bool(has_tmax),
                   bool(any_hit), t, tri, obj, _build.stream_ptr(dev))
-    launches += 1
-    mode_launches[("cap" if cap else "cap0") + "/"
-                  + ci._mode(has_tmax, any_hit)] += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        mode_launches[("cap" if cap else "cap0") + "/"
+                      + ci._mode(has_tmax, any_hit)] += 1
     return t, tri, obj
 
 
@@ -221,7 +223,8 @@ def dense_sweep_intersect_plain(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
     """Plain PyTorch version of K8 (``compact_intersect.order_sweep_plain``
     with the cap = 0 body's contract and 128-ray sub-tiles)."""
     global sweep_plain_calls
-    sweep_plain_calls += 1
+    with _build.COUNT_LOCK:
+        sweep_plain_calls += 1
     return ci.order_sweep_plain(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
                                 cl_tris, tile, eps,
                                 _sweep_best0(rays8, has_tmax),
@@ -248,8 +251,9 @@ def dense_sweep_intersect(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
     t, tri, obj = ci.launch_order(rays8, oct_, order, cl_meta, cl_inv,
                                   cl_aabb, cl_tris, tile, eps, SUBTILE, True,
                                   has_tmax, False)
-    sweep_launches += 1
-    sweep_mode_launches[ci._mode(has_tmax, False)] += 1
+    with _build.COUNT_LOCK:
+        sweep_launches += 1
+        sweep_mode_launches[ci._mode(has_tmax, False)] += 1
     return t, tri, obj
 
 

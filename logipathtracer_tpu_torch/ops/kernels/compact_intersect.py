@@ -161,7 +161,8 @@ def build_chunk_worklists_plain(chunk_min, chunk_max, rays8, tile: int,
                                 has_tmax: bool = False):
     """Plain PyTorch version of the worklist kernel."""
     global prepass_plain_calls
-    prepass_plain_calls += 1
+    with _build.COUNT_LOCK:
+        prepass_plain_calls += 1
     fired = fired_chunks(chunk_min, chunk_max, rays8, tile, has_tmax)
     return _order_fired(fired, chunk_min, chunk_max, rays8, tile)
 
@@ -199,7 +200,8 @@ def build_chunk_worklists(chunk_min, chunk_max, rays8, tile: int,
         _build.launch("compact_intersect", "lpt_build_worklists", chunk_min,
                       chunk_max, nc, rays8, r, tile, bool(has_tmax), wl, wn,
                       _build.stream_ptr(dev))
-        prepass_launches += 1
+        with _build.COUNT_LOCK:
+            prepass_launches += 1
     return wl, wn
 
 
@@ -424,7 +426,8 @@ def compact_wl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
     a host loop, each visited cluster's slab and Möller–Trumbore
     vectorized over the tile's rays."""
     global plain_calls
-    plain_calls += 1
+    with _build.COUNT_LOCK:
+        plain_calls += 1
     sweep = PlainSweep(rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps,
                        best_init(rays8, has_tmax))
     wl_h = wl.cpu().tolist()
@@ -493,8 +496,9 @@ def compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
                   rays8, r, wl, wn, c, tile, cl_meta, cl_inv, cl_aabb,
                   cl_tris, s, float(eps), threads, bool(has_tmax),
                   bool(any_hit), t, tri, obj, _build.stream_ptr(dev))
-    launches += 1
-    mode_launches[_mode(has_tmax, any_hit)] += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        mode_launches[_mode(has_tmax, any_hit)] += 1
     return t, tri, obj
 
 
@@ -550,7 +554,8 @@ def compact_order_intersect_plain(rays8, oct_, order, cl_meta, cl_inv,
     """Plain PyTorch version of K7 (``order_sweep_plain`` with K1's
     contract)."""
     global order_plain_calls
-    order_plain_calls += 1
+    with _build.COUNT_LOCK:
+        order_plain_calls += 1
     return order_sweep_plain(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
                              cl_tris, tile, eps, best_init(rays8, has_tmax),
                              any_hit=any_hit)
@@ -577,8 +582,9 @@ def compact_order_intersect(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
     t, tri, obj = launch_order(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
                                cl_tris, tile, eps, threads, False, has_tmax,
                                any_hit)
-    order_launches += 1
-    order_mode_launches[_mode(has_tmax, any_hit)] += 1
+    with _build.COUNT_LOCK:
+        order_launches += 1
+        order_mode_launches[_mode(has_tmax, any_hit)] += 1
     return t, tri, obj
 
 
@@ -662,7 +668,8 @@ def worklist_chunk_intersect_plain(rays8, wl, wn, chunk_aabb, cl_meta,
     chunks' member clusters in host loops, each visit vectorized over
     the tile's rays."""
     global worklist_plain_calls
-    worklist_plain_calls += 1
+    with _build.COUNT_LOCK:
+        worklist_plain_calls += 1
     r = rays8.shape[1]
     block = _block_threads(r, tile, "worklist_chunk_intersect")
     sweep = PlainSweep(rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps,
@@ -711,8 +718,9 @@ def worklist_chunk_intersect(rays8, wl, wn, chunk_aabb, cl_meta, cl_inv,
                   cl_inv, cl_aabb, cl_tris, s, float(eps), threads,
                   bool(has_tmax), bool(any_hit), t, tri, obj,
                   _build.stream_ptr(dev))
-    worklist_launches += 1
-    worklist_mode_launches[_mode(has_tmax, any_hit)] += 1
+    with _build.COUNT_LOCK:
+        worklist_launches += 1
+        worklist_mode_launches[_mode(has_tmax, any_hit)] += 1
     return t, tri, obj
 
 

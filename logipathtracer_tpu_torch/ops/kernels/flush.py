@@ -44,7 +44,8 @@ def flush_sorted_plain(accum, pix, acc):
     """Plain PyTorch version: rows of rank k within their pixel's run
     are added in pass k, so each pixel receives its rows in order."""
     global plain_calls
-    plain_calls += 1
+    with _build.COUNT_LOCK:
+        plain_calls += 1
     n = pix.shape[0]
     if n == 0:
         return accum
@@ -79,5 +80,6 @@ def flush_sorted(accum, pix, acc):
     if p:
         _build.launch("flush", "lpt_flush_sorted", accum, pix, acc, p,
                       accum.shape[0], _build.stream_ptr(dev))
-        launches += 1
+        with _build.COUNT_LOCK:
+            launches += 1
     return accum

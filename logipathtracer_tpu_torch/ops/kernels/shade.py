@@ -103,7 +103,8 @@ def shade_plain(*args, **kw):
     acc, mask, alive, seed), and with a light table (prev_pdf', shadow
     origin, shadow direction, t_lim, contribution) after them."""
     global plain_calls
-    plain_calls += 1
+    with _build.COUNT_LOCK:
+        plain_calls += 1
     return _shade_step(*args, basic=False, **kw)
 
 
@@ -114,7 +115,8 @@ def shade_basic(*args, **kw):
     without ``max_order``; with NEE the light sample's f is
     base * max(cos, 0) / pi."""
     global basic_calls
-    basic_calls += 1
+    with _build.COUNT_LOCK:
+        basic_calls += 1
     return _shade_step(*args, max_order=0, basic=True, **kw)
 
 
@@ -352,10 +354,11 @@ def shade(tri_shade, origin, direction, acc, mask, alive, seed, bounce, t,
                   light_cdf, prev_pdf if nee else None, n_lights,
                   *(nee_outs if nee else (None,) * 5), bool(nee_mis),
                   float(total_light_area), _build.stream_ptr(dev))
-    launches += 1
-    mode_launches["+".join(m for m, on in (("tex", mat is not None),
-                                           ("nee", nee)) if on)
-                  or "base"] += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        mode_launches["+".join(m for m, on in (("tex", mat is not None),
+                                               ("nee", nee)) if on)
+                      or "base"] += 1
     return outs + nee_outs
 
 

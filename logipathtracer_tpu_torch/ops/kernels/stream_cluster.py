@@ -68,7 +68,8 @@ def stream_cl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
     """Plain PyTorch version of K4: tiles and their fired clusters in a
     host loop, each visit vectorized over the tile's rays."""
     global plain_calls
-    plain_calls += 1
+    with _build.COUNT_LOCK:
+        plain_calls += 1
     sweep = ci.PlainSweep(rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps,
                           ci.best_init(rays8, has_tmax))
     wl_h = wl.cpu().tolist()
@@ -107,8 +108,9 @@ def stream_cl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
                   rays8, r, wl, wn, c, tile, cl_meta, cl_inv, cl_aabb,
                   cl_tris, s, float(eps), threads, bool(has_tmax),
                   bool(any_hit), t, tri, obj, _build.stream_ptr(dev))
-    launches += 1
-    mode_launches[ci._mode(has_tmax, any_hit)] += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        mode_launches[ci._mode(has_tmax, any_hit)] += 1
     return t, tri, obj
 
 

@@ -5,11 +5,12 @@ sample counting and throughput, and checkpoint/resume in the same
 ``.npz`` format — a checkpoint written by the JAX package restores here.
 
 Rendering goes through the pooled wavefront (render/wavefront.py) with
-the pool carried over between ``step()`` calls — reads drain it first —
-or, with ``renderer="megakernel"``, through one ``accumulate_sample``
+the pool carried over between ``step()`` calls — reads drain it first;
+with ``pool_carryover=False`` each ``step()`` is one ``render_wavefront``
+— or, with ``renderer="megakernel"``, through one ``accumulate_sample``
 (render/megakernel.py) per sample, with nothing left in flight.
 ``renderer="auto"`` is the wavefront (the JAX package takes it on a TPU
-only).
+only).  Several devices: ``parallel/mesh.py`` ``MeshRenderer``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from logipathtracer_tpu_torch.film.image import tonemap
 from logipathtracer_tpu_torch.render.megakernel import (accumulate_sample,
                                                         pick_intersect)
 from logipathtracer_tpu_torch.render.wavefront import (pix_layout,
+                                                       render_wavefront,
                                                        unblock_accum,
                                                        wavefront_chunk,
                                                        wavefront_drain,
@@ -66,8 +68,8 @@ class ProgressiveRenderer:
     ``scene``: this package's SceneSoA (host or device) or any object
     with the SoA attributes (e.g. the JAX package's compiled scene).
     ``device``: where to render (default: the first CUDA card; without
-    one the constructor raises).  One device: multi-device rendering is a
-    ROADMAP item.  ``accumulate_fn`` replaces the megakernel's
+    one the constructor raises).  One device: ``MeshRenderer`` renders
+    across several.  ``accumulate_fn`` replaces the megakernel's
     ``accumulate_sample`` (same arguments and results), as in the JAX
     package."""
 
@@ -77,8 +79,9 @@ class ProgressiveRenderer:
         if isinstance(device, (list, tuple)):
             if len(device) != 1:
                 raise NotImplementedError(
-                    "rendering across more than one device is not ported "
-                    "(ROADMAP Queue 1: multi-device)")
+                    "ProgressiveRenderer renders on one device; for "
+                    "multi-device rendering use MeshRenderer "
+                    "(logipathtracer_tpu_torch.parallel.mesh)")
             device = device[0]
         self.device = torch.device(device) if device is not None \
             else default_device()
@@ -101,9 +104,7 @@ class ProgressiveRenderer:
                                        np.float32).copy()
         self.fov_y = float(camera.yfov)
         self._host_rng = np.random.default_rng(host_seed)
-        h, w = config.render_height, config.render_width
-        self.accum = torch.zeros((h, w, 3), dtype=torch.float32,
-                                 device=self.device)
+        self.accum = self._new_accum()
         self.sample_count = 0
         self.total_rays = 0.0
         self.last_iterations = 0
@@ -113,6 +114,11 @@ class ProgressiveRenderer:
         self._elapsed = 0.0
         self._wf_state = None
         self._wf_rays_base = 0.0
+
+    def _new_accum(self):
+        h, w = self.config.render_height, self.config.render_width
+        return torch.zeros((h, w, 3), dtype=torch.float32,
+                           device=self.device)
 
     # -- camera (src/Main.cpp:57-93 semantics) -------------------------
 
@@ -218,15 +224,22 @@ class ProgressiveRenderer:
         npix = cfg.render_width * cfg.render_height
         pool = min(cfg.pool_size, npix)
         t0 = time.perf_counter()
-        if self._wf_state is None:
-            self._wf_state = wavefront_pool_state(pool, npix, self.device)
-            self._wf_rays_base = self.total_rays
-        self._wf_state = wavefront_chunk(self.scene, cfg, cam, self.fov_y,
-                                         seeds, self._wf_state)
-        self._fold_rays(self._wf_state)
         if not cfg.pool_carryover:
-            # Single-shot semantics: finish every path of this chunk.
-            self._drain_pool(timed=False)
+            # Single shot: every path of this batch ends in this call.
+            batch, rays, self.last_iterations = render_wavefront(
+                self.scene, cfg, cam, self.fov_y, seeds, pool=pool)
+            self.accum = self.accum + batch
+            self.total_rays += rays
+            self._session_rays += rays
+        else:
+            if self._wf_state is None:
+                self._wf_state = wavefront_pool_state(pool, npix,
+                                                      self.device)
+                self._wf_rays_base = self.total_rays
+            self._wf_state = wavefront_chunk(self.scene, cfg, cam,
+                                             self.fov_y, seeds,
+                                             self._wf_state)
+            self._fold_rays(self._wf_state)
         if sync:
             self._sync()
         self._elapsed += time.perf_counter() - t0
@@ -234,7 +247,7 @@ class ProgressiveRenderer:
         self._session_samples += samples
         self._dirty = False
 
-    def _drain_pool(self, timed: bool = True):
+    def _drain_pool(self):
         """Complete all in-flight paths and fold the pool's block-major
         accumulator into ``self.accum``."""
         if self._wf_state is None:
@@ -248,9 +261,16 @@ class ProgressiveRenderer:
         st["accum"].zero_()
         self._fold_rays(st)
         self._wf_state = st
-        if timed:
-            self._sync()
-            self._elapsed += time.perf_counter() - t0
+        self._sync()
+        self._elapsed += time.perf_counter() - t0
+
+    def _frame_sum(self) -> torch.Tensor:
+        """The radiance sum [H, W, 3] of every sample stepped so far."""
+        self._drain_pool()
+        return self.accum
+
+    def _load_accum(self, accum: np.ndarray):
+        self.accum = torch.from_numpy(accum).to(self.device)
 
     def samples_per_sec(self) -> float:
         return self._session_samples / max(self._elapsed, 1e-9)
@@ -263,8 +283,7 @@ class ProgressiveRenderer:
     def image(self) -> torch.Tensor:
         """Tonemapped display image [H, W, 3] (tex_to_quad.frag); with
         render_scale > 1 the supersampled buffer is box-filtered first."""
-        self._drain_pool()
-        accum = self.accum
+        accum = self._frame_sum()
         s = self.config.render_scale
         if s > 1:
             h, w = self.config.height, self.config.width
@@ -283,8 +302,7 @@ class ProgressiveRenderer:
 
     def radiance(self) -> np.ndarray:
         """Mean radiance (pre-tonemap; the RMSE-metric quantity)."""
-        self._drain_pool()
-        return self.accum.cpu().numpy() / max(self.sample_count, 1)
+        return self._frame_sum().cpu().numpy() / max(self.sample_count, 1)
 
     # -- checkpoint / resume ---------------------------------------------
 
@@ -294,9 +312,9 @@ class ProgressiveRenderer:
 
     def checkpoint(self, path: str):
         path = self.checkpoint_path(path)
-        self._drain_pool()
+        accum = self._frame_sum().cpu().numpy()    # drains the pool first
         st = self._host_rng.bit_generator.state["state"]
-        np.savez(path, accum=self.accum.cpu().numpy(),
+        np.savez(path, accum=accum,
                  sample_count=self.sample_count,
                  total_rays=self.total_rays,
                  camera_world=self.camera_world, fov_y=self.fov_y,
@@ -306,8 +324,7 @@ class ProgressiveRenderer:
 
     def restore(self, path: str):
         data = np.load(self.checkpoint_path(path))
-        self.accum = torch.from_numpy(
-            np.asarray(data["accum"], np.float32)).to(self.device)
+        self._load_accum(np.asarray(data["accum"], np.float32))
         self.sample_count = int(data["sample_count"])
         self.total_rays = float(data["total_rays"])
         self.camera_world = data["camera_world"].astype(np.float32)

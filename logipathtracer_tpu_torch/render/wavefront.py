@@ -1,5 +1,7 @@
-"""Pooled wavefront renderer (the JAX package's ``render/wavefront.py``,
-carryover form: ``wavefront_chunk`` / ``wavefront_drain``).
+"""Pooled wavefront renderer (the JAX package's ``render/wavefront.py``):
+``render_wavefront`` renders S samples of a row slab in one fresh pool;
+the carryover form ``wavefront_chunk`` / ``wavefront_drain`` keeps the
+pool between calls.
 
 A persistent pool of P lanes.  Every iteration:
 
@@ -18,11 +20,11 @@ A persistent pool of P lanes.  Every iteration:
      counted in ``rays``, as in the JAX package, but in the device
      counter ``shadow_rays``).
 
-The loop runs in Python.  Its host reads — the alive count after each
-flush (regen start, trace window, ray counter) and the loop tests —
-are one device sync per iteration.  After a sort the alive lanes form
-a prefix, so regen writes plain slices at ``n_alive`` and steps 4-5 run
-on the smallest whole-tile window covering it; the JAX package's
+The loop runs in Python.  Its host reads — the alive and pending counts
+after each flush (regen start, trace window, ray counter, the loop
+tests) — are one device sync per iteration.  After a sort the alive
+lanes form a prefix, so regen writes plain slices at ``n_alive`` and
+steps 4-5 run on the smallest whole-tile window covering it; the JAX package's
 regen and trace "ladders" exist only because XLA needs static shapes,
 and give the same lanes the same values.
 
@@ -178,7 +180,8 @@ class _Body:
             st["prev_pdf"][lanes] = 0.0
         st["next_work"] = min(st["next_work"] + n_free, self.total)
 
-    def __call__(self, st, drain: bool = False):
+    def __call__(self, st, drain: bool = False) -> bool:
+        """One iteration; returns whether any lane is pending after it."""
         cfg = self.cfg
         p = self.p
         sorted_now = False
@@ -189,7 +192,12 @@ class _Body:
         else:
             _flush_unsorted(st)
 
-        n_alive = int(st["alive"].sum())  # the iteration's host read
+        # The iteration's host read.  A lane stays pending until its
+        # flush, so pending lanes after this iteration are the ones
+        # pending now plus the regenerated ones.
+        n_alive, n_pending = torch.stack(
+            (st["alive"].sum(), st["pending"].sum())).tolist()
+        n_new = 0
         if not drain:
             if sorted_now:
                 n_free = p - n_alive   # free lanes are [n_alive, p)
@@ -210,6 +218,7 @@ class _Body:
                     lanes = free.nonzero().squeeze(1)[:n_new]
                 self._regen(st, lanes, n_free)
                 n_alive += n_new
+        any_pending = n_pending + n_new > 0
 
         # Park dead lanes: every slab test fails for them.
         dead = ~st["alive"]
@@ -244,6 +253,7 @@ class _Body:
             st["bounce"][:m] = bounce
             st["alive"][:m] = alive2 & (bounce < cfg.max_depth)
         st["it"] += 1
+        return any_pending
 
 
 def _frame(cfg: RenderConfig, scene, npix_state: int, rows, y0: int):
@@ -254,6 +264,40 @@ def _frame(cfg: RenderConfig, scene, npix_state: int, rows, y0: int):
         raise ValueError(f"pool state npix {npix_state} != frame {npix}")
     blocked, bh, bw = pix_layout(cfg, scene, rows, w)
     return npix, (lambda pixi: _pix_coords(pixi, blocked, bh, bw, w, y0))
+
+
+def render_wavefront(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
+                     pool: int = 1 << 20, flush_cap: int = 1 << 18,
+                     y0: int = 0, rows: int | None = None):
+    """Render ``S = len(ubo_seeds)`` samples of the row slab
+    [y0, y0 + rows) (default: the full frame) in one fresh pool of
+    ``min(pool, S * rows * W)`` lanes on ``cam_world``'s device, until
+    every work item is issued and no lane is pending.  Pixel streams are
+    keyed by absolute coordinates, so slabs tile back into the full
+    frame (what ``parallel/mesh.py`` rests on).  ``flush_cap`` sizes a
+    TPU flush window and is ignored.
+
+    Returns (radiance sum [rows, W, 3] over the S samples in row order,
+    rays traced, iterations) — the last two as ints."""
+    h, w = cfg.render_height, cfg.render_width
+    rows = h if rows is None else rows
+    npix = rows * w
+    total = int(ubo_seeds.shape[0]) * npix
+    p = min(pool, total)
+    state = wavefront_pool_state(p, npix, cam_world.device)
+    _, pix_coords = _frame(cfg, scene, npix, rows, y0)
+    body = _Body(scene, cfg, cam_world, fov_y, ubo_seeds.to(torch.int64),
+                 p, npix, total, pix_coords)
+    max_iters = (((total // p + 3) * cfg.max_depth + 4)
+                 * max(cfg.sort_every, 1) + 4 * max(cfg.lazy_regen, 1))
+    pending = False
+    while ((state["next_work"] < total or pending)
+           and state["it"] < max_iters):
+        pending = body(state)
+    _flush_unsorted(state)
+    blocked, bh, bw = pix_layout(cfg, scene, rows, w)
+    return (unblock_accum(state["accum"], blocked, bh, bw, rows, w),
+            state["rays"], state["it"])
 
 
 def wavefront_chunk(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
@@ -286,8 +330,9 @@ def wavefront_drain(scene, cfg: RenderConfig, state, y0: int = 0,
     body = _Body(scene, cfg, None, None, None, p, npix, 0, pix_coords)
     max_iters = (cfg.max_depth + 2) * max(cfg.sort_every, 1) + 8
     state["it"] = 0
-    while bool(state["pending"].any()) and state["it"] < max_iters:
-        body(state, drain=True)
+    pending = bool(state["pending"].any())
+    while pending and state["it"] < max_iters:
+        pending = body(state, drain=True)
     # A final flush (a no-op unless max_iters cut the loop short).
     _flush_unsorted(state)
     return state

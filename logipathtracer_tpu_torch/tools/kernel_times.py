@@ -59,7 +59,9 @@ kernels it names, ``--routes`` runs only the main routes it names
   main:       with ``--main-runs N``: each route N times, each a fresh
               renderer (host seed 0): a warm-up step(1), then step(2)
               twice, timed — samples/s, Mrays/s, mean radiance and ray
-              count.  Routes: the outside main path (K4), the outside
+              count.  Routes: the flagship main path (K1) and its
+              single-shot session (``pool_carryover=False``, through
+              ``render_wavefront``), the outside main path (K4), the outside
               with ``stream_worklist=False`` (K6 cap > 0) and with
               ``stream_compact=False`` (K6 cap = 0), the flagship
               wavefront and megakernel with ``compact_worklist=False``
@@ -146,6 +148,8 @@ def flush_times(h, dev, runs, npix=1 << 20, rows=1 << 20, retired=1 << 18):
 
 
 MAIN_ROUTES = {
+    "flagship": ("box", {}),
+    "single-shot": ("box", dict(pool_carryover=False)),
     "outside": ("outside", {}),
     "outside stream_worklist=False": ("outside",
                                       dict(stream_worklist=False)),

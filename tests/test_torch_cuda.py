@@ -5,7 +5,8 @@ K3's edges, K6's cap 0 and cap > 0 bodies, K8's sub-tile body, K2
 in every mode with both RNGs on its edges: mixed lobes, 16-order walks,
 dead and missed blocks, odd lane counts, 600 lights, and sincosf's
 bits), and the render on the card against the CPU, the wavefront and
-the megakernel on each route.  Marked ``cuda``: they need
+the megakernel on each route, ``render_wavefront``'s slabs and the
+device mesh.  Marked ``cuda``: they need
 an NVIDIA card with nvcc and skip elsewhere.  On the card (which has no JAX, imported by the suite's
 conftest):
 
@@ -996,3 +997,47 @@ def test_cli_basic_render_card_matches_cpu(dev, tmp_path, capsys):
     assert rg["total_rays"] == rc["total_rays"] > 0
     close = np.isclose(a, b, rtol=1e-4, atol=1e-6).all(-1)
     assert close.mean() >= 0.995
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_render_wavefront_and_mesh_on_card(dev, nee):
+    """render_wavefront's 32-row slabs equal its 64x64 frame bit for bit
+    on the card, the frame meets the pixel rule against the CPU's with
+    equal rays and iterations, and a (1, 2) mesh on the card equals the
+    single-shot session with the same host seed bit for bit."""
+    from logipathtracer_tpu_torch import (MeshRenderer, ProgressiveRenderer,
+                                          RenderConfig, compile_scene,
+                                          render_wavefront)
+    from logipathtracer_tpu_torch.parallel.mesh import make_mesh
+    from logipathtracer_tpu_torch.scene.procedural import make_box_scene
+    host = compile_scene(make_box_scene(spheres=2, subdiv=3, textured=nee))
+    cfg = RenderConfig(width=64, height=64, compact_tile=256, nee=nee,
+                       pool_size=4096, pool_carryover=False)
+    cam = host.cameras[0]
+    world = torch.from_numpy(np.asarray(cam.world_matrix, np.float32))
+    seeds = torch.tensor([[12345, 678]])
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        args = (host.to(d), cfg, world.to(d), float(cam.yfov), seeds.to(d))
+        out[d.type] = render_wavefront(*args)
+        if d == dev:
+            n0 = ci.launches
+            parts = [render_wavefront(*args, y0=y0, rows=32)
+                     for y0 in (0, 32)]
+            assert ci.launches > n0
+            assert torch.equal(torch.cat([p[0] for p in parts]),
+                               out["cuda"][0])
+            assert sum(p[1] for p in parts) == out["cuda"][1]
+    (card, rays, it), (cpu, rays_cpu, it_cpu) = out["cuda"], out["cpu"]
+    close = np.isclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-4,
+                       atol=1e-6).all(-1)
+    assert close.mean() >= 0.995
+    assert rays == rays_cpu and it == it_cpu
+    session = ProgressiveRenderer(host, cfg, host_seed=4, device=dev)
+    mesh = MeshRenderer(host, cfg, make_mesh([dev] * 2, samples=1, tiles=2),
+                        host_seed=4)
+    for _ in range(2):
+        session.step(1)
+        mesh.step()
+    np.testing.assert_array_equal(mesh.radiance(), session.radiance())
+    assert mesh.total_rays == session.total_rays

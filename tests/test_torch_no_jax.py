@@ -1,7 +1,8 @@
 """The port never imports JAX or the JAX package: in a fresh interpreter
 where ``import jax`` fails, importing logipathtracer_tpu_torch (its
-command line, web viewer, EXR writer, logger and .glb writer too) and a
-tiny CPU render both work, and no module of the package (nor
+command line, web viewer, EXR writer, logger, .glb writer and device
+mesh too) and tiny CPU renders (a session, a (1, 2) mesh, a 16-row
+``render_wavefront`` slab) all work, and no module of the package (nor
 ``chip_smoke.py``) has an import of either."""
 
 import os
@@ -24,6 +25,8 @@ import logipathtracer_tpu_torch.cli.webview
 import logipathtracer_tpu_torch.film.exr
 import logipathtracer_tpu_torch.tools.glb
 import logipathtracer_tpu_torch.utils.log
+import torch
+from logipathtracer_tpu_torch.parallel.mesh import MeshRenderer, make_mesh
 from logipathtracer_tpu_torch.scene.procedural import make_box_scene
 scene = lpt.compile_scene(make_box_scene(spheres=1, subdiv=2),
                           use_native=False)
@@ -34,6 +37,16 @@ r.step(1)
 rad = r.radiance()
 assert rad.shape == (16, 16, 3) and np.isfinite(rad).all()
 assert rad.mean() > 0
+mesh = MeshRenderer(scene, cfg, make_mesh(["cpu"] * 2, samples=1, tiles=2),
+                    host_seed=1)
+mesh.step()
+np.testing.assert_array_equal(mesh.radiance(), rad)
+cam = scene.cameras[0]
+slab, rays, iters = lpt.render_wavefront(
+    scene.to("cpu"), cfg,
+    torch.from_numpy(np.asarray(cam.world_matrix, np.float32)),
+    float(cam.yfov), torch.tensor([[3, 4]]), y0=0, rows=16)
+assert slab.shape == (16, 16, 3) and rays > 0 and iters > 0
 bad = [m for m in sys.modules
        if m == "logipathtracer_tpu" or m.startswith("logipathtracer_tpu.")
        or (m.startswith("jax") and sys.modules[m] is not None)]
@@ -58,7 +71,7 @@ def test_no_module_imports_jax():
     scanned = {p.relative_to(PKG).as_posix() for p in files
                if PKG in p.parents}
     for module in ("cli/main.py", "cli/webview.py", "utils/log.py",
-                   "film/exr.py", "tools/glb.py"):
+                   "film/exr.py", "tools/glb.py", "parallel/mesh.py"):
         assert module in scanned, module
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]

@@ -153,9 +153,17 @@ def test_unported_configs_raise(renders):
                dict(intersect="stream", stream_compact=False)):
         ProgressiveRenderer(js, RenderConfig(**FIELDS).replace(**kw),
                             device="cpu")
+    # More than one device is MeshRenderer's, which the package exports
+    # lazily beside render_wavefront.
     with pytest.raises(NotImplementedError, match="multi-device"):
         ProgressiveRenderer(js, RenderConfig(**FIELDS),
                             device=["cpu", "cpu"])
+    import logipathtracer_tpu_torch as lpt
+    from logipathtracer_tpu_torch.parallel.mesh import MeshRenderer
+    from logipathtracer_tpu_torch.render.wavefront import render_wavefront
+    assert lpt.MeshRenderer is MeshRenderer
+    assert lpt.render_wavefront is render_wavefront
+    assert {"MeshRenderer", "render_wavefront"} <= set(lpt.__all__)
 
 
 def test_step_nosync_and_rates(renders):
