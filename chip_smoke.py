@@ -114,7 +114,38 @@ the root of a checkout it:
      session's; (e) a 64x64 (1, 2) wavefront mesh on the card against
      the same mesh on the CPU (the pixel rule of 5), and a mesh of the
      card and the CPU, a worker thread each, whose tiles equal theirs
-     bit for bit.
+     bit for bit;
+ 11. the system's default configuration, RenderConfig() at 1920x1080:
+     1080 rows are no multiple of 128, so pixels are row-major, not in
+     32x128 blocks — (a) the flagship session, timed as in 4, which must
+     launch the worklist kernel, K1, K2 and K3 and no plain version, its
+     iterations per step(2) and the mean worklist a 4096-ray tile gets
+     beside 1024^2's, and K1 with its worklist kernel against their
+     plain versions on its primary pool; (b) one megakernel step(1)
+     (2,073,600 rays: 506 tiles and a padded 507th) through the worklist
+     kernel, K1 and K2, and K1 against its plain version on that pool;
+     (c) a step(2) with NEE on the textured box (K1 any-hit, K2
+     tex+nee); (d) a step(1) of ``make_outside_scene()`` (K4); (e)
+     ``render_scale=2``: a step(1) at 3840x2160 and ``image()`` of
+     1920x1080 with the peak memory, and K3 against its plain version
+     into an accumulator of 8,294,400 pixels; (f) the interactive loop
+     of ``tools/interactive.py`` at its defaults (12 navigation frames
+     on the 480x270 depth-4 preview, a 129,600-lane pool, then 12
+     converge frames at 1920x1080), which must launch the four kernels
+     and no plain version and write a converged PNG that is not black,
+     and K1, its worklist kernel, K2 and K3 against their plain versions
+     on the preview's pools (a padded tail tile; a partial last CUDA
+     block); (g) the CLI as subprocesses with no size flags: ``render
+     --spp 2`` (report, PNG and radiance at 1920x1080) and ``web
+     --frames 3`` with /stats and /frame.raw fetched (frame and display
+     1920x1080, the preview renderer resident beside it); (h) the card
+     against the CPU by the pixel rule of 5 at shapes with the same
+     traits (``DEFAULT_TRAITS``: row-major, a padded tail tile, a pool
+     smaller than the frame, ``render_scale=2`` through ``image()``),
+     each stepping step(2), rotate, step(1), step(1), every kernel call
+     of the card's render shadowed by its plain version on the CPU
+     (``cpu_shadowed``): the rays equal but for the paths of K2 lanes
+     that the device's libm steers otherwise than the host's.
 
 The scene is the glTF given with --scene, else the procedural box
 ``make_box_scene(spheres=10, subdiv=3)`` (12,812 triangles, 86 clusters,
@@ -217,6 +248,19 @@ def load_scene(path, **box):
     box = {"spheres": 10, "subdiv": 3, **box}
     g = load_gltf(path) if path else make_box_scene(**box)
     return compile_scene(g)
+
+
+_OUTSIDE = []
+
+
+def outside_scene():
+    """``make_outside_scene()`` compiled once, for phases 7, 10 and 11."""
+    if not _OUTSIDE:
+        from logipathtracer_tpu_torch import compile_scene
+        from logipathtracer_tpu_torch.scene.procedural import \
+            make_outside_scene
+        _OUTSIDE.append(compile_scene(make_outside_scene()))
+    return _OUTSIDE[0]
 
 
 def _time_once(fn):
@@ -489,7 +533,9 @@ def check_k1(scene, origin, direction, tile, eps, runs=(10, 3)):
     """The worklist kernel and K1 against their plain versions on one
     pool, K1 bit for bit (t, tri, obj); returns (max_abs_err, kernel_ms,
     plain_ms, hit fraction, bound, worklist row (ms, plain ms,
-    bound))."""
+    bound)).  ``runs``: the kernel's timed calls and the plain
+    version's; with 0 of the latter, plain_ms is the compared call's
+    time, its count pass included."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
     rays8, _ = ci.pack_rays8(origin, direction, tile)
@@ -499,13 +545,16 @@ def check_k1(scene, origin, direction, tile, eps, runs=(10, 3)):
     args = (rays8, wl, wn, scene.cl_meta, inv, scene.cl_aabb,
             scene.cl_tris, tile, eps)
     got = ci.compact_wl_intersect(*args)
-    ref, _, work = plain_work(lambda: ci.compact_wl_intersect_plain(*args))
+    ref, p_ms, work = plain_work(
+        lambda: ci.compact_wl_intersect_plain(*args))
     for name, g, p in zip(("t", "tri", "obj"), got, ref):
         assert torch.equal(g, p), f"K1: {name} differs from the plain version"
     err = float((got[0] - ref[0]).abs().max())
     hit_frac = float((ref[0] < ci.BIG).float().mean())
     k_ms = event_ms(lambda: ci.compact_wl_intersect(*args), runs[0])
-    p_ms = event_ms(lambda: ci.compact_wl_intersect_plain(*args), runs[1])
+    if runs[1]:
+        p_ms = event_ms(lambda: ci.compact_wl_intersect_plain(*args),
+                        runs[1])
     b = isect_bound(work, scene, args[:7], rays8.shape[1])
     return err, k_ms, p_ms, hit_frac, b, wrow
 
@@ -590,10 +639,13 @@ def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
     return err, k_ms, p_ms, frac, n_shadow, b, wrow
 
 
-def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3)):
+def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3),
+             device=True):
     """K3 against its plain version; returns (max err, kernel ms, plain
     ms, bound, ms of ``index_add_`` of the retired rows into the same
-    accumulator, ``device_ms`` of K3, the same of ``index_add_``)."""
+    accumulator, ``device_ms`` of K3, the same of ``index_add_``; the
+    last two None without ``device``: late in a long process the
+    profiler has recorded no device time for them)."""
     from logipathtracer_tpu_torch.ops.kernels import flush
     pix, acc = make_tail(npix, rows, retired, dev)
     base = torch.rand((npix, 3), generator=torch.Generator().manual_seed(1))
@@ -614,8 +666,12 @@ def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3)):
     tail = slice(rows - retired, rows)
     pix_r, acc_r = pix[tail].contiguous(), acc[tail].contiguous()
     lib_ms = event_ms(lambda: work.index_add_(0, pix_r, acc_r), runs[0])
-    k_dev = device_ms(lambda: flush.flush_sorted(work, pix, acc), DEVICE_RUNS)
-    lib_dev = device_ms(lambda: work.index_add_(0, pix_r, acc_r), DEVICE_RUNS)
+    k_dev = lib_dev = None
+    if device:
+        k_dev = device_ms(lambda: flush.flush_sorted(work, pix, acc),
+                          DEVICE_RUNS)
+        lib_dev = device_ms(lambda: work.index_add_(0, pix_r, acc_r),
+                            DEVICE_RUNS)
     flushed = int(torch.unique(pix_r).numel())
     b = bound(3 * retired, 4 * rows + 12 * retired + 24 * flushed)
     return err, k_ms, p_ms, b, lib_ms, k_dev, lib_dev
@@ -875,15 +931,13 @@ def outside_phase(dev, card):
     """Phase 7: the outside-class path (module docstring).  Returns the
     kernel rows (name, source, replaces, launches, run, result of
     check_isect and pool)."""
-    from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
-                                          compile_scene)
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.render.megakernel import \
         resolve_intersect_mode
-    from logipathtracer_tpu_torch.scene.procedural import make_outside_scene
 
     t_phase = time.perf_counter()
-    host = compile_scene(make_outside_scene())
+    host = outside_scene()
     cfg = RenderConfig(width=1024, height=1024)
     tile = cfg.stream_tile
     s = host.cl_tris.shape[2]
@@ -1248,6 +1302,28 @@ def _fetch(url):
         return r.read(), dict(r.headers)
 
 
+def web_frame(web, port_file):
+    """Poll a ``web`` subprocess's /stats until a frame is published,
+    then fetch /frame.raw.  Returns (stats, body, (frame width, frame
+    height, display width, display height))."""
+    t0 = time.perf_counter()
+    stats = raw = None
+    while time.perf_counter() - t0 < CLI_TIMEOUT:
+        assert web.poll() is None, "web exited before a frame " \
+            f"was fetched: {web.communicate()[1][-4000:]}"
+        if os.path.exists(port_file) and open(port_file).read():
+            base = f"http://127.0.0.1:{open(port_file).read()}"
+            stats = json.loads(_fetch(base + "/stats")[0])
+            if not stats["compiling"] and stats["frame_gen"] > 0:
+                raw = _fetch(base + "/frame.raw")
+                break
+        time.sleep(0.05)
+    assert raw is not None, f"web served no frame: {stats}"
+    body, head = raw
+    return stats, body, tuple(int(head[f"X-{k}"]) for k in (
+        "Frame-Width", "Frame-Height", "Display-Width", "Display-Height"))
+
+
 def cli_runs(card):
     """Phase 9e: the command line on the card, as subprocesses: the box
     written with tools/glb.write_glb; ``render`` at 1024x1024, 4 spp, with
@@ -1285,23 +1361,7 @@ def cli_runs(card):
             procs.append(web)
 
             # /stats and /frame.raw once, while web serves its frames.
-            t0 = time.perf_counter()
-            stats = raw = None
-            while time.perf_counter() - t0 < CLI_TIMEOUT:
-                assert web.poll() is None, "web exited before a frame " \
-                    f"was fetched: {web.communicate()[1][-4000:]}"
-                if os.path.exists(port_file) and open(port_file).read():
-                    base = f"http://127.0.0.1:{open(port_file).read()}"
-                    stats = json.loads(_fetch(base + "/stats")[0])
-                    if not stats["compiling"] and stats["frame_gen"] > 0:
-                        raw = _fetch(base + "/frame.raw")
-                        break
-                time.sleep(0.05)
-            assert raw is not None, f"web served no frame: {stats}"
-            body, head = raw
-            size = tuple(int(head[f"X-{k}"]) for k in (
-                "Frame-Width", "Frame-Height", "Display-Width",
-                "Display-Height"))
+            stats, body, size = web_frame(web, port_file)
             assert size == (web_res,) * 4, size
             frame = np.frombuffer(body, np.uint8).reshape(web_res, web_res,
                                                           4)
@@ -1478,10 +1538,8 @@ def single_shot_phase(dev, card, flagship_rate):
     """Phase 10: render_wavefront and the device mesh (module
     docstring)."""
     from logipathtracer_tpu_torch import (MeshRenderer, ProgressiveRenderer,
-                                          RenderConfig, compile_scene,
-                                          render_wavefront)
+                                          RenderConfig, render_wavefront)
     from logipathtracer_tpu_torch.parallel.mesh import make_mesh
-    from logipathtracer_tpu_torch.scene.procedural import make_outside_scene
 
     t_phase = time.perf_counter()
     host = load_scene(None)
@@ -1504,7 +1562,7 @@ def single_shot_phase(dev, card, flagship_rate):
                              seeds, "NEE+textured 1024^2 1 spp")
     assert modes["compact_intersect"].get("any_hit", 0) > 0, \
         "render_wavefront with NEE never launched K1 any-hit"
-    outside = compile_scene(make_outside_scene())
+    outside = outside_scene()
     cam_o = outside.cameras[0]
     reset_counts()
     t0 = time.perf_counter()
@@ -1604,6 +1662,439 @@ def single_shot_phase(dev, card, flagship_rate):
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# Phase 11: the card against the CPU at small shapes with the traits of
+# the default configuration's (module docstring): (label, RenderConfig
+# fields).  Each renders step(2), rotate(1, 0.05), step(1), step(1).
+DEFAULT_TRAITS = (
+    ("wavefront 120x68", dict(width=120, height=68)),
+    ("megakernel 120x68", dict(width=120, height=68,
+                               renderer="megakernel")),
+    ("wavefront 96x54 pool 2048", dict(width=96, height=54,
+                                       pool_size=2048)),
+    ("render_scale=2 60x34, image()", dict(width=60, height=34,
+                                           render_scale=2)),
+)
+
+
+@contextlib.contextmanager
+def cpu_shadowed():
+    """Every call of the worklist kernel, K1, K2 and K3 in the block runs
+    again as its plain version on the CPU, on the same inputs: the
+    worklists, K1 (t, tri and obj; t alone in any-hit) and K3 must equal
+    it bit for bit, K2 its floats on every lane whose RNG draws and alive
+    flag agree (``shade.shade_agreement``).  A K2 lane whose draws or
+    alive flag differ from the CPU's must have the same ones as K2's
+    plain version on the card: a walk the device's libm steers otherwise
+    than the host's, not a kernel fault.  Yields a dict: after the block,
+    "calls" (card calls shadowed) and "diverged" (such K2 lanes)."""
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    from logipathtracer_tpu_torch.ops.kernels import flush as fl
+    from logipathtracer_tpu_torch.ops.kernels import shade as sk
+    from logipathtracer_tpu_torch.render import wavefront as wf
+    saved = (ci.build_chunk_worklists, ci.compact_wl_intersect, sk.shade,
+             wf.flush_sorted)
+    seen = {"calls": 0, "diverged": 0}
+
+    def on_cpu(xs):
+        return [x.cpu() if isinstance(x, torch.Tensor) else x for x in xs]
+
+    def worklists(*a, **kw):
+        got = saved[0](*a, **kw)
+        if got[1].is_cuda:
+            wlp, wnp = ci.build_chunk_worklists_plain(*on_cpu(a), **kw)
+            wl, wn = got[0].cpu(), got[1].cpu()
+            live = torch.arange(wl.shape[1])[None] < wn[:, None]
+            assert torch.equal(wn, wnp) and torch.equal(wl[live], wlp[live]), \
+                "the worklist kernel differs from the CPU's plain version"
+            seen["calls"] += 1
+        return got
+
+    def k1(*a, **kw):
+        got = saved[1](*a, **kw)
+        if got[0].is_cuda:
+            ref = ci.compact_wl_intersect_plain(*on_cpu(a), **kw)
+            n = 1 if kw.get("any_hit") else 3
+            for name, g, p in list(zip(("t", "tri", "obj"), got, ref))[:n]:
+                assert torch.equal(g.cpu(), p), \
+                    f"K1 {name} differs from the CPU's plain version"
+            seen["calls"] += 1
+        return got
+
+    def k2(*a, **kw):
+        got = saved[2](*a, **kw)
+        if got[0].is_cuda:
+            host = [x.cpu() for x in got]
+            ref = sk.shade_plain(*on_cpu(a), **dict(zip(
+                kw, on_cpu(kw.values()))))
+            same = (host[4] == ref[4]) & (host[5] == ref[5]).all(-1)
+            lanes = (~same).nonzero().squeeze(1)
+            if lanes.numel():
+                card = sk.shade_plain(*a, **kw)
+                at = lanes.to(got[0].device)
+                for i in (4, 5):        # alive, seed
+                    assert torch.equal(got[i][at], card[i][at]), \
+                        "K2 differs from its plain version on the card"
+                seen["diverged"] += lanes.numel()
+            sk.shade_agreement([x.numpy() for x in ref],
+                               [x.numpy() for x in host])
+            seen["calls"] += 1
+        return got
+
+    def k3(accum, pix, acc):
+        before = accum.cpu()
+        got = saved[3](accum, pix, acc)
+        if got.is_cuda:
+            ref = fl.flush_sorted_plain(before, pix.cpu(), acc.cpu())
+            assert torch.equal(got.cpu(), ref), \
+                "K3 differs from the CPU's plain version"
+            seen["calls"] += 1
+        return got
+
+    ci.build_chunk_worklists, ci.compact_wl_intersect = worklists, k1
+    sk.shade, wf.flush_sorted = k2, k3
+    try:
+        yield seen
+    finally:
+        (ci.build_chunk_worklists, ci.compact_wl_intersect, sk.shade,
+         wf.flush_sorted) = saved
+
+
+def mean_lists(host, cfg, dev):
+    """The mean worklist length a tile of ``cfg``'s primary and bounce
+    pools (harness ``primary_pool``, ``bounce_pool``) gets from the
+    worklist kernel: (primary, bounce, pixels blocked)."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
+    from logipathtracer_tpu_torch.render.wavefront import pix_layout
+    probe = ProgressiveRenderer(host, cfg, host_seed=1, device=dev)
+    bounds = scene_cluster_bounds(probe.scene)
+    o, d, _ = primary_pool(probe)
+    pool = bounce_pool(probe)
+    out = []
+    for o, d in ((o, d), (pool["origin"], pool["direction"])):
+        rays8, _ = ci.pack_rays8(o, d, cfg.compact_tile)
+        _, wn = ci.build_chunk_worklists(*bounds, rays8, cfg.compact_tile)
+        out.append(float(wn.float().mean()))
+    blocked = pix_layout(cfg, probe.scene, cfg.render_height,
+                         cfg.render_width)[0]
+    return out[0], out[1], blocked
+
+
+def step_launches(renderer, chunks, what):
+    """Step ``renderer`` through ``chunks`` with the launch counts set
+    to 0 just before; returns (wall s, launches, radiance), the radiance
+    finite and plausible and no plain version run."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in chunks:
+        renderer.step(n)
+    rad = renderer.radiance()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    assert_no_plain()
+    cfg = renderer.config
+    assert rad.shape == (cfg.render_height, cfg.render_width, 3), rad.shape
+    assert np.isfinite(rad).all() and 1e-3 < float(rad.mean()) < 10.0, \
+        f"{what}: implausible radiance"
+    return wall, counts, rad
+
+
+def default_cli_runs(card):
+    """Phase 11g: ``render`` and ``web`` on the box .glb with no size
+    flags, as subprocesses: 1920x1080 by the CLI's defaults."""
+    import tempfile
+
+    from logipathtracer_tpu_torch.film.png import decode_png
+    from logipathtracer_tpu_torch.scene.procedural import make_box_scene
+    from logipathtracer_tpu_torch.tools.glb import write_glb
+
+    w, h = 1920, 1080
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            glb = write_glb(make_box_scene(spheres=10, subdiv=3),
+                            os.path.join(tmp, "box.glb"))
+            png, npz = (os.path.join(tmp, f"r.{k}") for k in ("png", "npz"))
+            render = _cli("render", glb, "--spp", "2", "-o", png,
+                          "--radiance", npz, cwd=tmp)
+            procs.append(render)
+            port_file = os.path.join(tmp, "port")
+            web = _cli("web", glb, "--frames", "3", "--port", "0",
+                       "--port-file", port_file, "--linger", "2", cwd=tmp)
+            procs.append(web)
+            stats, body, size = web_frame(web, port_file)
+            assert size == (w, h, w, h), size
+            frame = np.frombuffer(body, np.uint8).reshape(h, w, 4)
+            assert frame[..., 3].min() == 255 and frame[..., :3].max() > 0
+            _finish(web, "web")
+            print(f"CLI web (no size flags) --frames 3: /stats spp "
+                  f"{stats['spp']} ({stats['mode']}), /frame.raw "
+                  f"{len(body)} bytes, frame and display {w}x{h}",
+                  flush=True)
+            report = json.loads(
+                _finish(render, "render").strip().splitlines()[-1])
+            assert (report["width"], report["height"]) == (w, h), report
+            img = decode_png(open(png, "rb").read())
+            assert img.shape[:2] == (h, w), img.shape
+            rad = np.load(npz)["radiance"]
+            assert rad.shape == (h, w, 3) and np.isfinite(rad).all()
+            assert report["spp"] == 2 and rad.mean() > 1e-3
+            print(f"CLI render (no size flags) --spp 2: {json.dumps(report)} "
+                  f"PNG {img.shape}, mean radiance {float(rad.mean()):.6f} "
+                  f"[{card}]", flush=True)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+
+def default_config_phase(dev, card, flagship):
+    """Phase 11: the system's default configuration, 1920x1080 (module
+    docstring).  ``flagship``: phase 4's (samples/s, Mrays/s,
+    iterations per chunk).  Returns its kernel rows (name, source,
+    replaces, launches, run, pool, max err, ms, plain ms, bound[,
+    library ms])."""
+    import tempfile
+
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.film.png import decode_png
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    from logipathtracer_tpu_torch.ops.kernels import flush
+    from logipathtracer_tpu_torch.ops.kernels import shade as sk
+    from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
+    from logipathtracer_tpu_torch.tools import interactive
+
+    t_phase = time.perf_counter()
+    host = load_scene(None)
+    cfg = RenderConfig()
+    w, h = cfg.width, cfg.height
+    assert (w, h) == (1920, 1080), (w, h)
+    tile = cfg.compact_tile
+    rows = []
+
+    def k1_rows(what, run, launched, scene, o, d):
+        """K1 and its worklist kernel against their plain versions on a
+        pool of this phase, as in phase 3, the plain K1's time that of
+        the compared call (it takes seconds on the 1080p pools)."""
+        k1 = check_k1(scene, o, d, tile, cfg.eps, runs=(10, 0))
+        print_k1(f"{what} {o.shape[0]} rays, hit {k1[3]:.3f}", k1, card)
+        wk_ms, wp_ms, wb = k1[5][1:]
+        rows.append(("compact_intersect[" + what + "]", ci.SOURCE,
+                     ci.REPLACES, launched, run, o.shape[0], *k1[:3], k1[4]))
+        rows.append(("compact_intersect[worklist " + what + "]", ci.SOURCE,
+                     ci.PREPASS_REPLACES, launched, run, o.shape[0],
+                     k1[5][0], wk_ms, wp_ms, wb))
+
+    # (a) the flagship session at 1920x1080
+    parts = {}
+    t_part = time.perf_counter()
+    lists = mean_lists(host, cfg, dev)
+    lists_1024 = mean_lists(host, cfg.replace(width=1024, height=1024), dev)
+    assert not lists[2] and lists_1024[2], "pixel layouts not as expected"
+    renderer = ProgressiveRenderer(host, cfg, host_seed=0, device=dev)
+    reset_counts()
+    sps, mrays, iters, rad = timed_steps(renderer)
+    counts = read_counts(FLAGSHIP)
+    assert_no_plain()
+    for k, (launched, _) in counts.items():
+        assert launched > 0, f"1080p main path never launched kernel {k}"
+    assert rad.shape == (h, w, 3) and np.isfinite(rad).all()
+    mean = float(rad.mean())
+    assert 1e-3 < mean < 10.0, f"implausible mean radiance {mean}"
+    print(f"(a) flagship {w}x{h} spp 4: {sps:.3f} samples/s, {mrays:.2f} "
+          f"Mrays/s, iterations per step(2) {iters}, mean radiance "
+          f"{mean:.6f}; phase 4 at 1024^2: {flagship[0]:.3f} samples/s "
+          f"(/ {h * w / 1024 ** 2:.3f} = "
+          f"{flagship[0] * 1024 ** 2 / (h * w):.3f}), {flagship[1]:.2f} "
+          f"Mrays/s, iterations {flagship[2]} [{card}]",
+          flush=True)
+    print(f"(a) mean worklist per {tile}-ray tile, primary / bounce pool: "
+          f"{lists[0]:.2f} / {lists[1]:.2f} clusters at {w}x{h} (row-major)"
+          f", {lists_1024[0]:.2f} / {lists_1024[1]:.2f} at 1024^2 "
+          f"(32x128 blocks), of {host.cl_tris.shape[0]}; launches "
+          f"{json.dumps(counts)}", flush=True)
+    o, d, _ = primary_pool(renderer)
+    k1_rows("1080p primary", "1080p main path",
+            counts["compact_intersect"][0], renderer.scene, o, d)
+    del renderer, o, d
+    parts["a"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (b) the megakernel at 1920x1080: 2,073,600 rays, 507 tiles, the last
+    # padded
+    mk_cfg = cfg.replace(renderer="megakernel")
+    r = ProgressiveRenderer(host, mk_cfg, host_seed=2, device=dev)
+    wall, counts, rad = step_launches(r, (1,), "megakernel")
+    for k in ("compact_intersect", "worklist_prepass", "shade"):
+        assert counts[k][0] > 0, f"1080p megakernel never launched {k}"
+    assert counts["flush"][0] == 0, "the megakernel launched K3"
+    print(f"(b) megakernel {w}x{h} step(1): {wall:.3f} s, "
+          f"{1e-6 * r.total_rays / wall:.2f} Mrays/s, mean radiance "
+          f"{float(rad.mean()):.6f}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v[0]})}",
+          flush=True)
+    primary = megakernel_pools(r)[0]
+    k1_rows("1080p megakernel primary", "1080p megakernel step(1)",
+            counts["compact_intersect"][0], r.scene, *primary)
+    del r, primary
+    parts["b"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (c) NEE + textured at 1920x1080
+    tex = load_scene(None, textured=True)
+    r = ProgressiveRenderer(tex, cfg.replace(nee=True), host_seed=2,
+                            device=dev)
+    wall, counts, rad = step_launches(r, (2,), "NEE + textured")
+    modes = {"K1 any_hit": ci.mode_launches["any_hit"],
+             "K2 tex+nee": sk.mode_launches["tex+nee"]}
+    assert all(modes.values()), f"1080p NEE + textured: {modes}"
+    print(f"(c) NEE + textured {w}x{h} step(2): {wall:.3f} s, mean radiance "
+          f"{float(rad.mean()):.6f}; launches by mode {json.dumps(modes)}",
+          flush=True)
+    del r, tex
+    parts["c"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (d) the outside class at 1920x1080
+    r = ProgressiveRenderer(outside_scene(), cfg, host_seed=2, device=dev)
+    wall, counts, rad = step_launches(r, (1,), "outside")
+    assert counts["stream_cluster"][0] > 0, "1080p outside never ran K4"
+    print(f"(d) outside class {w}x{h} step(1): {wall:.3f} s, mean radiance "
+          f"{float(rad.mean()):.6f}; K4 launched "
+          f"{counts['stream_cluster'][0]} times", flush=True)
+    del r
+    parts["d"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (e) render_scale=2: 3840x2160 rendered, 8,294,400 pixel ids into K3
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = ProgressiveRenderer(host, cfg.replace(render_scale=2), host_seed=2,
+                            device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    r.step(1)
+    img = r.image()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(FLAGSHIP)
+    assert_no_plain()
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert img.shape == (h, w, 3), img.shape
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-3
+    assert counts["flush"][0] > 0, "render_scale=2 never launched K3"
+    print(f"(e) render_scale=2 {w}x{h} ({r.config.render_width}x"
+          f"{r.config.render_height} rendered) step(1) + image(): "
+          f"{wall:.3f} s, image {tuple(img.shape)} mean "
+          f"{float(img.mean()):.6f}; peak memory "
+          f"{peak / 2 ** 20:.1f} MiB allocated ({(peak - base) / 2 ** 20:.1f}"
+          f" MiB above the {base / 2 ** 20:.1f} MiB held before) [{card}]",
+          flush=True)
+    del r, img
+    k3 = check_k3(dev, npix=2 * w * 2 * h, device=False)
+    print(f"K3 2^18 retired of 2^20 rows into {2 * w}x{2 * h}: max|d| "
+          f"{k3[0]:.3g}, kernel {k3[1]:.4f} ms, index_add_ {k3[4]:.4f} ms, "
+          f"plain {k3[2]:.3f} ms, bound {k3[3][0]:.4f} ms ({k3[3][1]})",
+          flush=True)
+    rows.append(("flush[2160p]", flush.SOURCE, flush.REPLACES,
+                 counts["flush"][0], "render_scale=2 step(1) + image()",
+                 1 << 20, *k3[:3], k3[3], k3[4]))
+    parts["e"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (f) the interactive loop, tools/interactive.py, at its defaults
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        report, _ = interactive.run(interactive.parse_args(
+            ["--out", os.path.join(tmp, "session")]))
+        counts = read_counts(FLAGSHIP)
+        assert_no_plain()
+        png = decode_png(open(os.path.join(tmp, "session.png"), "rb").read())
+    for k, (launched, _) in counts.items():
+        assert launched > 0, f"the interactive loop never launched {k}"
+    assert (report["resolution"], report["preview_resolution"],
+            report["preview_depth"]) == ("1920x1080", "480x270", 4), report
+    assert png.shape[:2] == (h, w) and png[..., :3].max() > 0, \
+        "the converged PNG is black"
+    nav, acc = report["navigate_1spp"], report["converge_accum"]
+    print(f"(f) interactive loop: navigate {report['preview_resolution']} "
+          f"depth {report['preview_depth']}: {nav['fps_mean']:.3f} fps mean, "
+          f"{nav['fps_best']:.3f} best, {nav['frame_ms_median']:.3f} ms "
+          f"median, {nav['samples_per_sec']:.3f} samples/s, "
+          f"{nav['mrays_per_sec']:.3f} Mrays/s; converge "
+          f"{report['resolution']}: {acc['fps_mean']:.3f} fps mean, "
+          f"{acc['fps_best']:.3f} best, {acc['frame_ms_median']:.3f} ms "
+          f"median, {acc['samples_per_sec']:.3f} samples/s, "
+          f"{acc['mrays_per_sec']:.3f} Mrays/s; warm-up "
+          f"{report['warmup_s']:.3f} s, PNG {report['png_screenshot_s']:.3f}"
+          f" s; launches {json.dumps(counts)} [{card}]", flush=True)
+    run = "interactive loop (navigate + converge)"
+    pcfg = RenderConfig(width=w // 4, height=h // 4, max_depth=4)
+    probe = ProgressiveRenderer(host, pcfg, host_seed=1, device=dev)
+    o, d, _ = primary_pool(probe)
+    k1_rows("preview primary", run, counts["compact_intersect"][0],
+            probe.scene, o, d)
+    pool = bounce_pool(probe)
+    t, _, tri = intersect_scene_sweep(probe.scene, pool["origin"],
+                                      pool["direction"], eps=cfg.eps,
+                                      tile=tile)
+    k2 = check_k2(probe.scene, pcfg, pool, t, tri, parity=True)
+    k2_line(f"preview bounce pool {t.shape[0]} lanes", k2, card)
+    rows.append(("shade[preview]", sk.SOURCE, sk.REPLACES,
+                 counts["shade"][0], run, t.shape[0], *k2[1:5]))
+    n = pcfg.width * pcfg.height
+    k3 = check_k3(dev, npix=n, rows=n, retired=n // 4, device=False)
+    print(f"K3 {n // 4} retired of {n} rows into {pcfg.width}x"
+          f"{pcfg.height}: max|d| {k3[0]:.3g}, kernel {k3[1]:.4f} ms, "
+          f"plain {k3[2]:.3f} ms, bound {k3[3][0]:.4f} ms ({k3[3][1]})",
+          flush=True)
+    rows.append(("flush[preview]", flush.SOURCE, flush.REPLACES,
+                 counts["flush"][0], run, n, *k3[:3], k3[3], k3[4]))
+    del probe, pool, o, d, t, tri
+    parts["f"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (g) the command line at its defaults
+    default_cli_runs(card)
+    parts["g"], t_part = time.perf_counter() - t_part, time.perf_counter()
+
+    # (h) card against CPU at shapes with the default's traits, every
+    # kernel call of the card's render shadowed on the CPU
+    for label, kw in DEFAULT_TRAITS:
+        c = RenderConfig(**kw)
+        out = []
+        for device in (dev, "cpu"):
+            r = ProgressiveRenderer(host, c, host_seed=3, device=device)
+            with (cpu_shadowed() if device == dev
+                  else contextlib.nullcontext({})) as seen:
+                r.step(2)
+                r.rotate(1, 0.05)
+                r.step(1)
+                r.step(1)
+                rad = r.radiance()
+                img = r.image().cpu().numpy() if c.render_scale > 1 else None
+            out.append((rad, img, r.total_rays, seen))
+        (a, ia, ra, seen), (b, ib, rb, _) = out
+        close = np.isclose(a, b, rtol=IMG_RTOL, atol=IMG_ATOL).all(-1)
+        line = (f"(h) {label} card vs CPU, step(2) rotate step(1) step(1): "
+                f"{close.mean():.5f} of pixels close")
+        if ia is not None:
+            close_i = np.isclose(ia, ib, rtol=IMG_RTOL, atol=IMG_ATOL).all(-1)
+            line += f" ({close_i.mean():.5f} of image() pixels)"
+            assert close_i.mean() >= IMG_FRAC, f"{label}: images disagree"
+        print(f"{line}, rays {ra:.0f} / {rb:.0f}; {seen['calls']} kernel "
+              f"calls equal to the CPU's plain versions on their inputs, "
+              f"{seen['diverged']} K2 lanes drawn otherwise by the device's "
+              f"libm", flush=True)
+        assert close.mean() >= IMG_FRAC, f"{label}: card and CPU disagree"
+        # Rays may differ only by the paths of those lanes.
+        assert abs(ra - rb) <= seen["diverged"] * c.max_depth, \
+            f"{label}: ray counts differ"
+    parts["h"] = time.perf_counter() - t_part
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; by part (s) "
+          f"{json.dumps({k: round(v, 1) for k, v in parts.items()})}",
+          flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default=None,
@@ -1687,6 +2178,7 @@ def main(argv=None) -> int:
           f"mean radiance {mean:.6f} [{card}]", flush=True)
     print(f"launches: {json.dumps(counts)}", flush=True)
     flagship_rate = (sps, mrays)
+    flagship_iters = iters
     del renderer
 
     # ---- 8e. beside it: the flagship wavefront through K7 ----------------
@@ -1716,6 +2208,10 @@ def main(argv=None) -> int:
 
     # ---- 10. render_wavefront and the device mesh -------------------------
     single_shot_phase(dev, card, flagship_rate)
+
+    # ---- 11. the default configuration, 1920x1080 -------------------------
+    default_rows = default_config_phase(dev, card,
+                                        (*flagship_rate, flagship_iters))
 
     from logipathtracer_tpu_torch.ops.kernels import (compact_intersect,
                                                       flush, shade)
@@ -1757,6 +2253,7 @@ def main(argv=None) -> int:
     # r: check_isect's (max |dt|, ms, plain ms, fraction, bound, pool)
     rows += [row(n, src, where, launched, run, r[5], *r[:3], r[4])
              for n, src, where, launched, run, r in outside + order_rows]
+    rows += [row(*r) for r in default_rows]
     # Beside the contract's keys: "run", the run whose launches are
     # counted, and "pool", the rays (lanes, rows) that max_abs_err, ms,
     # plain_ms and the bound were measured on; on K3's, the device times

@@ -11,8 +11,10 @@ spheres=10, subdiv=3)``, procedural, from fixed seeds) with the default
 RenderConfig at ``--res`` (``--renderer``, ``--intersect`` and
 ``--no-worklist``, i.e. ``compact_worklist=False``, choose the route;
 ``--set`` any other RenderConfig field, its value read as JSON, e.g.
-``--set stream_worklist=false``, or ``--set use_microfacet=false`` for
-the basic BSDF, whose plain-torch shading is the stage "basic route"),
+``--set stream_worklist=false``, ``--set width=1920 --set height=1080``
+for the default frame in place of ``--res``'s square, or ``--set
+use_microfacet=false`` for the basic BSDF, whose plain-torch shading is
+the stage "basic route"),
 and prints one JSON line for each part:
 
   stages:   a warm-up step(1), then two step(2) chunks with every stage
@@ -133,7 +135,7 @@ def make_renderer(scene: str, res: int, device, nee=False, textured=False,
                   **cfg_kw):
     g = (make_outside_scene() if scene == "outside"
          else make_box_scene(spheres=10, subdiv=3, textured=textured))
-    cfg = RenderConfig(width=res, height=res, nee=nee, **cfg_kw)
+    cfg = RenderConfig(**{"width": res, "height": res, "nee": nee, **cfg_kw})
     host = compile_scene(g, cfg)
     return ProgressiveRenderer(host, cfg, host_seed=0, device=device)
 

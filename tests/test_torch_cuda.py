@@ -6,7 +6,9 @@ in every mode with both RNGs on its edges: mixed lobes, 16-order walks,
 dead and missed blocks, odd lane counts, 600 lights, and sincosf's
 bits), and the render on the card against the CPU, the wavefront and
 the megakernel on each route, ``render_wavefront``'s slabs and the
-device mesh.  Marked ``cuda``: they need
+device mesh, and at shapes with the traits of the default 1920x1080
+configuration; and the render on the card against the JAX package's
+own goldens (tests/goldens/).  Marked ``cuda``: they need
 an NVIDIA card with nvcc and skip elsewhere.  On the card (which has no JAX, imported by the suite's
 conftest):
 
@@ -1041,3 +1043,51 @@ def test_render_wavefront_and_mesh_on_card(dev, nee):
         mesh.step()
     np.testing.assert_array_equal(mesh.radiance(), session.radiance())
     assert mesh.total_rays == session.total_rays
+
+
+@pytest.mark.parametrize("name", ["box_textured_64x64_2spp",
+                                  "outside_64x64_2spp"])
+def test_card_matches_jax_goldens(dev, name):
+    """The card against the reference itself: the JAX package's golden
+    radiance (tests/goldens/, specs restated in test_torch_goldens.py),
+    rendered on the card with the golden's host seed and sample count,
+    on >= 99.5% of pixels (rtol 1e-4, atol 1e-6)."""
+    from test_torch_goldens import FRAC, close_frac, render_golden
+    rad, data = render_golden(name, dev)
+    frac = close_frac(rad, data["radiance"])
+    assert frac >= FRAC, f"{name}: {frac:.5f} of pixels close"
+
+
+@pytest.mark.parametrize("fields", [
+    dict(width=48, height=27, compact_tile=256),
+    dict(width=40, height=24, compact_tile=256, pool_size=512),
+    dict(width=48, height=27, compact_tile=256, renderer="megakernel"),
+    dict(width=24, height=14, compact_tile=256, render_scale=2),
+], ids=["unblocked", "small_pool", "megakernel", "render_scale"])
+def test_default_traits_card_matches_cpu(dev, fields):
+    """The card against the CPU at shapes with the traits of the default
+    1920x1080 configuration (tests/test_torch_default_shape.py): row-major
+    pixels, a padded tail tile, a pool smaller than the frame, a camera
+    move with paths in flight, render_scale=2 through image() (and its
+    render-size radiance).  Only there is the tonemapped image compared:
+    elsewhere its dark channels, where 1 - exp(-x) cancels, turn the
+    device exp's last bit into more than rtol 1e-4."""
+    from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
+                                          compile_scene)
+    from logipathtracer_tpu_torch.scene.procedural import make_box_scene
+    host = compile_scene(make_box_scene(spheres=2, subdiv=3))
+    cfg = RenderConfig(max_depth=5, **fields)
+    out = []
+    for d in (dev, "cpu"):
+        r = ProgressiveRenderer(host, cfg, host_seed=3, device=d)
+        r.step(2)
+        r.rotate(1, 0.05)
+        r.step(1)
+        r.step(1)
+        out.append((r.image().cpu().numpy(), r.radiance(), r.total_rays))
+    (img, rad, rays), (img_c, rad_c, rays_c) = out
+    pairs = [(rad, rad_c)] + ([(img, img_c)] if cfg.render_scale > 1 else [])
+    for a, b in pairs:
+        close = np.isclose(a, b, rtol=1e-4, atol=1e-6).all(-1)
+        assert close.mean() >= 0.995
+    assert rays == rays_c

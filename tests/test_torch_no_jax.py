@@ -1,9 +1,9 @@
 """The port never imports JAX or the JAX package: in a fresh interpreter
 where ``import jax`` fails, importing logipathtracer_tpu_torch (its
-command line, web viewer, EXR writer, logger, .glb writer and device
-mesh too) and tiny CPU renders (a session, a (1, 2) mesh, a 16-row
-``render_wavefront`` slab) all work, and no module of the package (nor
-``chip_smoke.py``) has an import of either."""
+command line, web viewer, EXR writer, logger, .glb writer, interactive
+session tool and device mesh too) and tiny CPU renders (a session, a
+(1, 2) mesh, a 16-row ``render_wavefront`` slab) all work, and no module
+of the package (nor ``chip_smoke.py``) has an import of either."""
 
 import os
 import pathlib
@@ -24,6 +24,7 @@ import logipathtracer_tpu_torch.cli.main
 import logipathtracer_tpu_torch.cli.webview
 import logipathtracer_tpu_torch.film.exr
 import logipathtracer_tpu_torch.tools.glb
+import logipathtracer_tpu_torch.tools.interactive
 import logipathtracer_tpu_torch.utils.log
 import torch
 from logipathtracer_tpu_torch.parallel.mesh import MeshRenderer, make_mesh
@@ -71,7 +72,8 @@ def test_no_module_imports_jax():
     scanned = {p.relative_to(PKG).as_posix() for p in files
                if PKG in p.parents}
     for module in ("cli/main.py", "cli/webview.py", "utils/log.py",
-                   "film/exr.py", "tools/glb.py", "parallel/mesh.py"):
+                   "film/exr.py", "tools/glb.py", "tools/interactive.py",
+                   "parallel/mesh.py"):
         assert module in scanned, module
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
