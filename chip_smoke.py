@@ -145,7 +145,27 @@ the root of a checkout it:
      each stepping step(2), rotate, step(1), step(1), every kernel call
      of the card's render shadowed by its plain version on the CPU
      (``cpu_shadowed``): the rays equal but for the paths of K2 lanes
-     that the device's libm steers otherwise than the host's.
+     that the device's libm steers otherwise than the host's; the card
+     runs the wavefront's eager form there, since the shadows wrap the
+     kernels' Python wrappers, which a replayed graph does not call;
+ 12. the wavefront loop through its captured CUDA graphs
+     (render/graph.py: each iteration a stage-A replay, one host read, a
+     stage-B replay) against its eager form (``_eager``), in one call —
+     (a) sessions of the flagship at 1024x1024, NEE + textured, the
+     outside class (K4) and 1920x1080, each step(1), step(2), step(2)
+     and the drain: the frame sums ``torch.equal``, equal rays and
+     iterations, equal launch counters (a replay adds its capture's) and
+     no plain version, two stage replays (or a first use's warm-up and
+     capture) per iteration; then, after a camera reset, each form timed
+     as in 4 (samples/s, Mrays/s, ms per iteration) with its device
+     busy share (``tools/stages.py`` ``busy_share``), and the captures'
+     count, seconds and reserved MiB; (b) the 480x270 depth-4 preview,
+     a camera turn before each of 12 frames, every frame bit-equal; (c)
+     a 1024^2 ``render_wavefront`` frame, then another camera and field
+     of view replayed without a capture, bit-equal to the eager form;
+     (d) a 1x1 mesh at 512^2 bit-equal to its eager form; (e)
+     ``tools/interactive.py`` at its defaults both ways (navigation and
+     converge fps).
 
 The scene is the glTF given with --scene, else the procedural box
 ``make_box_scene(spheres=10, subdiv=3)`` (12,812 triangles, 86 clusters,
@@ -1409,7 +1429,7 @@ def basic_phase(dev, card, flagship_rate):
     from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels import shade as sk
-    from logipathtracer_tpu_torch.tools.stages import stage_timers
+    from logipathtracer_tpu_torch.tools.stages import eager, stage_timers
 
     t_phase = time.perf_counter()
     host = load_scene(None)
@@ -1431,9 +1451,10 @@ def basic_phase(dev, card, flagship_rate):
     assert basic_calls > 0, "the basic path never ran the basic route"
     assert_no_plain()
     # The basic route's time per iteration: one more step(2) with every
-    # stage between device syncs (tools/stages.py).
+    # stage between device syncs (tools/stages.py), in the eager form
+    # (a replayed graph calls no Python stage).
     seconds = {}
-    with stage_timers(dev, seconds):
+    with eager(renderer), stage_timers(dev, seconds):
         renderer.step(2)
     route_s, calls = seconds["basic route"]
     it_s, n_it = seconds["iteration total"]
@@ -2063,6 +2084,9 @@ def default_config_phase(dev, card, flagship):
         out = []
         for device in (dev, "cpu"):
             r = ProgressiveRenderer(host, c, host_seed=3, device=device)
+            # The shadows wrap the kernels' Python wrappers, which a
+            # replayed graph does not call: the card runs the eager form.
+            r._eager = True
             with (cpu_shadowed() if device == dev
                   else contextlib.nullcontext({})) as seen:
                 r.step(2)
@@ -2093,6 +2117,213 @@ def default_config_phase(dev, card, flagship):
           f"{json.dumps({k: round(v, 1) for k, v in parts.items()})}",
           flush=True)
     return rows
+
+
+# Phase 12: the wavefront loop through its captured CUDA graphs against
+# its eager form (module docstring): (label, scene, RenderConfig fields).
+GRAPH_CONFIGS = (
+    ("flagship 1024^2", "box", dict(width=1024, height=1024)),
+    ("NEE + textured 1024^2", "textured",
+     dict(width=1024, height=1024, nee=True)),
+    ("outside 1024^2 (K4)", "outside", dict(width=1024, height=1024)),
+    ("1920x1080", "box", {}),
+)
+
+
+def graph_stats(cache):
+    """(captures, warm-ups, replays) of a GraphCache, or zeros without
+    one."""
+    return ((cache.captures, cache.warm_ups, cache.replays) if cache
+            else (0, 0, 0))
+
+
+def graph_session(host, cfg, dev, eager):
+    """One form of a phase-12 session: step(1), step(2), step(2) and the
+    drain, counted; then, after a camera reset, ``timed_steps`` and the
+    busy share (tools/stages.py ``busy_share``).  Returns a dict."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer
+    from logipathtracer_tpu_torch.render.graph import graph_cache
+    from logipathtracer_tpu_torch.tools.stages import busy_share
+    r = ProgressiveRenderer(host, cfg, host_seed=0, device=dev)
+    r._eager = eager
+    cache = None if eager else graph_cache(r.scene)
+    reset_counts()
+    before = graph_stats(cache)
+    iters = []
+    for n in (1, 2, 2):
+        r.step(n)
+        iters.append(r.last_iterations)
+    frame = r._frame_sum().clone()           # drains the pool
+    iters.append(r.last_iterations)
+    counts = read_counts()
+    modes = {k: modes_of(k) for k, v in COUNTERS.items() if v[3]}
+    assert_no_plain()
+    after = graph_stats(cache)
+    rays = r.total_rays
+    r.reset()
+    sps, mrays, t_iters, _ = timed_steps(r)
+    busy = busy_share(r)
+    out = dict(frame=frame, rays=rays, iters=iters, counts=counts,
+               modes=modes, sps=sps, mrays=mrays,
+               ms_per_iteration=sum((2, 2)) / sps * 1e3 / sum(t_iters),
+               busy=busy, stages=tuple(a - b for a, b in zip(after,
+                                                             before)))
+    if cache is not None:
+        out.update(captures=cache.captures,
+                   capture_s=cache.capture_seconds,
+                   pool_mib=cache.capture_bytes / 2 ** 20)
+    del r
+    return out
+
+
+def preview_frames(host, dev, eager, frames=12):
+    """The 480x270 depth-4 preview with a camera turn before each frame
+    (``tools/interactive.py``'s navigation): every frame's sum, the rays
+    and the launch counts."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.tools.interactive import TURN
+    r = ProgressiveRenderer(host, RenderConfig(width=480, height=270,
+                                               max_depth=4),
+                            host_seed=0, device=dev)
+    r._eager = eager
+    reset_counts()
+    sums, rays = [], []
+    for _ in range(frames):
+        r.rotate(1, TURN)
+        r.step(1)
+        sums.append(r._frame_sum().clone())
+        rays.append(r.total_rays)
+    counts = read_counts()
+    assert_no_plain()
+    return sums, rays, counts
+
+
+def graph_phase(dev, card):
+    """Phase 12: the wavefront loop's iterations as replays of captured
+    CUDA graphs (render/graph.py) against its eager form, bit for bit
+    (module docstring)."""
+    import gc
+
+    from logipathtracer_tpu_torch import RenderConfig
+    from logipathtracer_tpu_torch.parallel.mesh import (MeshRenderer,
+                                                        make_mesh)
+    from logipathtracer_tpu_torch.render.graph import graph_cache
+    from logipathtracer_tpu_torch.render.wavefront import render_wavefront
+    from logipathtracer_tpu_torch.tools import interactive
+
+    t_phase = time.perf_counter()
+    box = load_scene(None)
+    scenes = {"box": lambda: box,
+              "textured": lambda: load_scene(None, textured=True),
+              "outside": outside_scene}
+    # (a) sessions: flagship, NEE + textured, outside (K4), 1920x1080
+    for label, scene_name, fields in GRAPH_CONFIGS:
+        host = scenes[scene_name]()
+        cfg = RenderConfig(**fields)
+        e = graph_session(host, cfg, dev, eager=True)
+        g = graph_session(host, cfg, dev, eager=False)
+        gc.collect()
+        assert torch.equal(g["frame"], e["frame"]), \
+            f"{label}: graph and eager radiance differ"
+        assert (g["rays"], g["iters"]) == (e["rays"], e["iters"]), \
+            f"{label}: rays or iterations differ"
+        assert (g["counts"], g["modes"]) == (e["counts"], e["modes"]), \
+            f"{label}: launch counts differ: {g['counts']} {e['counts']}"
+        for k in ("shade", "flush") + (
+                ("stream_cluster",) if scene_name == "outside"
+                else ("compact_intersect", "worklist_prepass")):
+            assert g["counts"][k][0] > 0, f"{label}: never launched {k}"
+        # Every iteration: one stage-A replay, one stage-B replay (a
+        # first use is a warm-up run and a capture).
+        assert sum(g["stages"][1:]) == 2 * sum(g["iters"]), g["stages"]
+        print(f"(a) {label} graph vs eager, step(1) step(2) step(2) + "
+              f"drain: radiance bit-equal, rays {g['rays']:.0f}, "
+              f"iterations {g['iters']}, launches equal "
+              f"{json.dumps(g['counts'])}; {g['stages'][0]} captures "
+              f"({g['stages'][1]} of them warm-ups), {g['stages'][2]} "
+              f"replays [{card}]", flush=True)
+        for form, x in (("graph", g), ("eager", e)):
+            b = x["busy"]
+            print(f"    {form}: {x['sps']:.3f} samples/s, {x['mrays']:.2f} "
+                  f"Mrays/s, {x['ms_per_iteration']:.3f} ms per iteration; "
+                  f"busy {b['busy']:.3f} ({b['device_ms_per_iteration']:.3f}"
+                  f" device ms per iteration of a profiled step(2) of "
+                  f"{b['iterations']}, {b['wall_ms_per_iteration']:.3f} wall"
+                  f" ms per iteration of three of {b['wall_iterations']})"
+                  + (
+                      f"; {x['captures']} graphs captured in "
+                      f"{x['capture_s']:.3f} s, {x['pool_mib']:.1f} MiB "
+                      f"reserved by the captures" if form == "graph" else "")
+                  + f" [{card}]", flush=True)
+
+    # (b) the 480x270 preview, a camera turn before every frame
+    ge, gg = (preview_frames(box, dev, eager) for eager in (True, False))
+    assert all(torch.equal(a, b) for a, b in zip(ge[0], gg[0])), \
+        "preview: graph and eager frames differ"
+    assert ge[1] == gg[1] and ge[2] == gg[2], "preview: rays or launches"
+    print(f"(b) preview 480x270 depth 4, {len(ge[0])} frames each after a "
+          f"camera turn: every frame bit-equal, rays {gg[1][-1]:.0f}, "
+          f"launches equal {json.dumps(gg[2])}", flush=True)
+
+    # (c) render_wavefront: a frame, then another camera and field of
+    # view replayed, against the eager form at that camera
+    cfg = RenderConfig(width=1024, height=1024)
+    scene = box.to(dev)
+    cam = torch.from_numpy(np.asarray(box.cameras[0].world_matrix,
+                                      np.float32)).to(dev)
+    fov = float(box.cameras[0].yfov)
+    seeds = torch.tensor([[5, 7]], device=dev)
+    render_wavefront(scene, cfg, cam, fov, seeds)
+    moved = cam.clone()
+    moved[:3, 3] += 0.05
+    cache = graph_cache(scene)
+    before = graph_stats(cache)
+    reset_counts()
+    g = render_wavefront(scene, cfg, moved, fov * 0.9, seeds)
+    g_counts = read_counts()
+    after = graph_stats(cache)
+    reset_counts()
+    e = render_wavefront(scene, cfg, moved, fov * 0.9, seeds, _eager=True)
+    assert torch.equal(g[0], e[0]) and g[1:] == e[1:], \
+        "render_wavefront: graph and eager differ"
+    assert g_counts == read_counts(), "render_wavefront: launches differ"
+    assert after[0] == before[0] and after[2] - before[2] == 2 * g[2], \
+        "render_wavefront: a moved camera captured again"
+    print(f"(c) render_wavefront 1024^2 1 spp, camera and field of view "
+          f"moved: bit-equal to the eager form, rays {g[1]}, iterations "
+          f"{g[2]}, {after[2] - before[2]} replays and no capture",
+          flush=True)
+    del scene, cache
+
+    # (d) a 1x1 mesh on the card, graph against eager
+    sums = []
+    for eager_form in (True, False):
+        m = MeshRenderer(box, RenderConfig(width=512, height=512),
+                         make_mesh([dev]), host_seed=4)
+        m._eager = eager_form
+        m.step(1)
+        m.step(1)
+        sums.append((m._frame_sum().clone(), m.total_rays))
+    assert torch.equal(sums[0][0], sums[1][0]) and sums[0][1] == sums[1][1]
+    assert graph_cache(m.scene).replays > 0, "the mesh replayed no graph"
+    print(f"(d) 1x1 mesh 512^2, two rounds: graph bit-equal to eager, "
+          f"{graph_cache(m.scene).replays} replays", flush=True)
+    del m
+
+    # (e) the interactive session, tools/interactive.py, both ways
+    fps = {}
+    for loop, flag in (("graphs", []), ("eager", ["--eager"])):
+        fps[loop], _ = interactive.run(interactive.parse_args(flag))
+    for loop, rep in fps.items():
+        nav, acc = rep["navigate_1spp"], rep["converge_accum"]
+        print(f"(e) interactive ({loop}): navigate "
+              f"{rep['preview_resolution']} depth {rep['preview_depth']} "
+              f"{nav['fps_mean']:.3f} fps mean, {nav['frame_ms_median']:.3f}"
+              f" ms median; converge {rep['resolution']} "
+              f"{acc['fps_mean']:.3f} fps mean, {acc['frame_ms_median']:.3f}"
+              f" ms median, {acc['samples_per_sec']:.3f} samples/s; warm-up "
+              f"{rep['warmup_s']:.3f} s [{card}]", flush=True)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -2212,6 +2443,9 @@ def main(argv=None) -> int:
     # ---- 11. the default configuration, 1920x1080 -------------------------
     default_rows = default_config_phase(dev, card,
                                         (*flagship_rate, flagship_iters))
+
+    # ---- 12. the wavefront loop's CUDA graphs against its eager form ------
+    graph_phase(dev, card)
 
     from logipathtracer_tpu_torch.ops.kernels import (compact_intersect,
                                                       flush, shade)

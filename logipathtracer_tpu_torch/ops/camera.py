@@ -19,8 +19,19 @@ def _tent(r):
                        1.0 - torch.sqrt(2.0 - r))
 
 
+def camera_constants(fov_y, resolution, device):
+    """(res [2] f32 — width, height — and tan(fov_y / 2) [] f32) on
+    ``device``.  The tangent is taken in f32 on the host, so card and
+    CPU renders share its bits; a caller that replays captured work
+    computes these once and copies a new field of view into its
+    ``tan_half`` buffer."""
+    res = torch.tensor(resolution, dtype=torch.float32, device=device)
+    half = torch.as_tensor(fov_y, dtype=torch.float32).cpu() / 2.0
+    return res, torch.tan(half).to(device)
+
+
 def generate_ray(cam_world, fov_y, pixel_xy, resolution, seed, active=None,
-                 rand=rand_parity_masked):
+                 rand=rand_parity_masked, consts=None):
     """Tent-jittered primary rays.
 
     cam_world: [4, 4] float32 tensor (column-vector convention).
@@ -28,23 +39,24 @@ def generate_ray(cam_world, fov_y, pixel_xy, resolution, seed, active=None,
     pixel_xy: [..., 2] float32 pixel indices (x=col, y=row).
     resolution: (width, height) python ints.
     seed: [..., 2] int64 RNG state.  Consumes 2 rands on active lanes.
+    consts: ``camera_constants(fov_y, resolution, ...)`` on pixel_xy's
+    device, made once by the caller (``fov_y`` and ``resolution`` are
+    then not read); by default they are made here.
 
     Returns (origin [..., 3], direction [..., 3], seed').
     """
     if active is None:
         active = torch.ones(pixel_xy.shape[:-1], dtype=torch.bool,
                             device=pixel_xy.device)
-    res = torch.tensor(resolution, dtype=torch.float32,
-                       device=pixel_xy.device)
+    if consts is None:
+        consts = camera_constants(fov_y, resolution, pixel_xy.device)
+    res, tan_half = consts
     r1, seed = rand(seed, active)
     r2, seed = rand(seed, active)
     jitter = torch.stack([_tent(r1), _tent(r2)], -1) / (res * 0.5)
 
     uv = 2.0 * pixel_xy / res - 1.0 + jitter
     aspect = res[0] / res[1]
-    # tan in f32 on the host, so card and CPU renders share its bits.
-    half = torch.as_tensor(fov_y, dtype=torch.float32).cpu() / 2.0
-    tan_half = torch.tan(half).to(pixel_xy.device)
     ux = uv[..., 0] * aspect * tan_half
     uy = uv[..., 1] * tan_half
 
@@ -57,4 +69,3 @@ def generate_ray(cam_world, fov_y, pixel_xy, resolution, seed, active=None,
     norm = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
                       + d[..., 2] * d[..., 2])
     return origin, d / norm[..., None], seed
-

@@ -45,8 +45,9 @@ BUILD_SECONDS: dict[str, float] = {}
 
 _LOCK = threading.Lock()
 # Guards the wrappers' launch and plain-call counters, which the mesh's
-# worker threads (one per device) update at once.
-COUNT_LOCK = threading.Lock()
+# worker threads (one per device) update at once.  Re-entrant: a graph
+# capture (render/graph.py) holds it while the wrappers it runs take it.
+COUNT_LOCK = threading.RLock()
 _NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 # (source name, entry point) -> the bound C function.

@@ -140,7 +140,7 @@ class MeshRenderer(ProgressiveRenderer):
             img, rays, _ = render_wavefront(
                 scene, cfg, cam, self.fov_y, seed,
                 pool=min(cfg.pool_size, self._rows * cfg.render_width),
-                y0=y0, rows=self._rows)
+                y0=y0, rows=self._rows, _eager=self._eager)
         else:
             img, rays = render_rows(scene, cfg, cam, self.fov_y, seed[0],
                                     y0, self._rows)

@@ -8,7 +8,10 @@ Rendering goes through the pooled wavefront (render/wavefront.py) with
 the pool carried over between ``step()`` calls — reads drain it first;
 with ``pool_carryover=False`` each ``step()`` is one ``render_wavefront``
 — or, with ``renderer="megakernel"``, through one ``accumulate_sample``
-(render/megakernel.py) per sample, with nothing left in flight.
+(render/megakernel.py) per sample, with nothing left in flight.  On a
+CUDA card the wavefront's iterations replay captured stages
+(render/graph.py): a camera move empties the pool in place, so its
+stages are captured once per session.
 ``renderer="auto"`` is the wavefront (the JAX package takes it on a TPU
 only).  Several devices: ``parallel/mesh.py`` ``MeshRenderer``.
 """
@@ -27,6 +30,7 @@ from logipathtracer_tpu_torch.render.megakernel import (accumulate_sample,
                                                         pick_intersect)
 from logipathtracer_tpu_torch.render.wavefront import (pix_layout,
                                                        render_wavefront,
+                                                       reset_pool_state,
                                                        unblock_accum,
                                                        wavefront_chunk,
                                                        wavefront_drain,
@@ -114,6 +118,9 @@ class ProgressiveRenderer:
         self._elapsed = 0.0
         self._wf_state = None
         self._wf_rays_base = 0.0
+        # The wavefront loop's eager form on the card, for comparisons
+        # with the captured stages (render/graph.py); internal.
+        self._eager = False
 
     def _new_accum(self):
         h, w = self.config.render_height, self.config.render_width
@@ -165,7 +172,7 @@ class ProgressiveRenderer:
         rays_now = self._wf_rays_base + float(st["rays"])
         self._session_rays += rays_now - self.total_rays
         self.total_rays = rays_now
-        self.last_iterations = int(st["it"])
+        self.last_iterations = st["host_it"]
 
     def _reset_counts(self):
         """The reset protocol (src/RendererPT.cpp:575-581)."""
@@ -218,7 +225,10 @@ class ProgressiveRenderer:
         if self._dirty:
             self._reset_counts()
             self.accum = torch.zeros_like(self.accum)
-            self._wf_state = None
+            if self._wf_state is not None:
+                # In place: the pool's captured stages stay valid.
+                reset_pool_state(self._wf_state)
+                self._wf_rays_base = self.total_rays
         seeds = torch.from_numpy(self._host_rng.integers(
             1, 2 ** 31, (samples, 2), dtype=np.int64)).to(self.device)
         npix = cfg.render_width * cfg.render_height
@@ -227,7 +237,8 @@ class ProgressiveRenderer:
         if not cfg.pool_carryover:
             # Single shot: every path of this batch ends in this call.
             batch, rays, self.last_iterations = render_wavefront(
-                self.scene, cfg, cam, self.fov_y, seeds, pool=pool)
+                self.scene, cfg, cam, self.fov_y, seeds, pool=pool,
+                _eager=self._eager)
             self.accum = self.accum + batch
             self.total_rays += rays
             self._session_rays += rays
@@ -238,7 +249,8 @@ class ProgressiveRenderer:
                 self._wf_rays_base = self.total_rays
             self._wf_state = wavefront_chunk(self.scene, cfg, cam,
                                              self.fov_y, seeds,
-                                             self._wf_state)
+                                             self._wf_state,
+                                             _eager=self._eager)
             self._fold_rays(self._wf_state)
         if sync:
             self._sync()
@@ -253,7 +265,8 @@ class ProgressiveRenderer:
         if self._wf_state is None:
             return
         t0 = time.perf_counter()
-        st = wavefront_drain(self.scene, self.config, self._wf_state)
+        st = wavefront_drain(self.scene, self.config, self._wf_state,
+                             _eager=self._eager)
         h, w = self.config.render_height, self.config.render_width
         blocked, bh, bw = pix_layout(self.config, self.scene, h, w)
         self.accum = self.accum + unblock_accum(st["accum"], blocked, bh,
@@ -263,6 +276,14 @@ class ProgressiveRenderer:
         self._wf_state = st
         self._sync()
         self._elapsed += time.perf_counter() - t0
+
+    def _drop_pool(self):
+        """Discard the carried-over pool and the stages captured for
+        it."""
+        if self._wf_state is not None and self.device.type == "cuda":
+            from logipathtracer_tpu_torch.render.graph import graph_cache
+            graph_cache(self.scene).drop(self._wf_state)
+        self._wf_state = None
 
     def _frame_sum(self) -> torch.Tensor:
         """The radiance sum [H, W, 3] of every sample stepped so far."""
@@ -333,7 +354,7 @@ class ProgressiveRenderer:
         st["state"]["state"] = int(str(data["rng_state"]))
         st["state"]["inc"] = int(str(data["rng_inc"]))
         self._host_rng.bit_generator.state = st
-        self._wf_state = None
+        self._drop_pool()
         self._dirty = False
         self._session_samples = 0
         self._session_rays = 0.0

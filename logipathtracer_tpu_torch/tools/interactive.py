@@ -5,7 +5,7 @@ JAX package's ``scripts/interactive_1080p.py``).
     python -m logipathtracer_tpu_torch.tools.interactive [--scene S.glb]
         [--width 1920 --height 1080] [--preview-scale 4]
         [--preview-depth 4] [--nav-frames 12 --acc-frames 12]
-        [--acc-spp 1] [--cpu] [--out PREFIX]
+        [--acc-spp 1] [--cpu] [--eager] [--out PREFIX]
 
 The reference presents every sample of a 1920x1080 frame through a
 swapchain, and a camera key resets accumulation (src/Main.cpp:57-93).
@@ -34,7 +34,9 @@ JAX script's report without its per-frame lists (``warmup_s`` is its
 build included); with ``--out PREFIX`` it writes ``PREFIX.png`` (the
 converged image) and ``PREFIX_report.json`` (the report with the
 per-frame lists).  Renders on the CUDA card; ``--cpu`` renders on the
-CPU.
+CPU.  On the card the wavefront replays its captured stages
+(render/graph.py); ``--eager`` runs its eager form instead, to compare
+the two.
 """
 
 from __future__ import annotations
@@ -62,21 +64,27 @@ def load_scene(path):
     return compile_scene(gltf)
 
 
-def build(host_scene, width, height, preview_scale, preview_depth, device):
+def build(host_scene, width, height, preview_scale, preview_depth, device,
+          eager=False):
     """(full renderer, preview renderer or None) over one compiled scene:
     the full one at width x height and max_depth 10, the preview as
-    ``web`` builds it (cli/main.py ``_build_web``)."""
+    ``web`` builds it (cli/main.py ``_build_web``); ``eager``: both run
+    the wavefront loop's eager form."""
     from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
     cfg = RenderConfig(width=width, height=height, max_depth=10)
     full = ProgressiveRenderer(host_scene, cfg, host_seed=HOST_SEED,
                                device=device)
-    if preview_scale <= 1:
-        return full, None
-    cfg_p = RenderConfig(width=max(64, width // preview_scale),
-                         height=max(64, height // preview_scale),
-                         max_depth=preview_depth or 10)
-    return full, ProgressiveRenderer(host_scene, cfg_p, host_seed=HOST_SEED,
-                                     device=device)
+    preview = None
+    if preview_scale > 1:
+        cfg_p = RenderConfig(width=max(64, width // preview_scale),
+                             height=max(64, height // preview_scale),
+                             max_depth=preview_depth or 10)
+        preview = ProgressiveRenderer(host_scene, cfg_p,
+                                      host_seed=HOST_SEED, device=device)
+    for r in (full, preview):
+        if r is not None:
+            r._eager = eager
+    return full, preview
 
 
 def submit(renderer, move, spp=1):
@@ -145,7 +153,7 @@ def run(args):
     t0 = time.perf_counter()
     host_scene = load_scene(args.scene)
     r, rp = build(host_scene, args.width, args.height, args.preview_scale,
-                  args.preview_depth, device)
+                  args.preview_depth, device, eager=args.eager)
     scene_compile_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -215,6 +223,9 @@ def parse_args(argv=None):
                     help="samples a converge frame (web --spp-per-frame)")
     ap.add_argument("--cpu", action="store_true",
                     help="render on the CPU (default: the CUDA card)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the wavefront loop eagerly on the card, not "
+                         "through its captured CUDA graphs")
     ap.add_argument("--out", default=None,
                     help="write OUT.png and OUT_report.json")
     return ap.parse_args(argv)

@@ -57,12 +57,15 @@ kernels it names, ``--routes`` runs only the main routes it names
   digest:     sha256 of each kernel's (t, tri, obj) per pool, so that two
               checkouts' runs show whether they agree bit for bit;
   main:       with ``--main-runs N``: each route N times, each a fresh
-              renderer (host seed 0): a warm-up step(1), then step(2)
-              twice, timed — samples/s, Mrays/s, mean radiance and ray
-              count.  Routes: the flagship main path (K1) and its
-              single-shot session (``pool_carryover=False``, through
-              ``render_wavefront``), the outside main path (K4), the outside
-              with ``stream_worklist=False`` (K6 cap > 0) and with
+              renderer (host seed 0): a warm-up session (step(1),
+              step(2) twice, a camera reset: on the card the wavefront
+              captures its stages there, render/graph.py), then a
+              step(1) and step(2) twice, the two timed — samples/s,
+              Mrays/s, mean radiance and ray count.  Routes: the
+              flagship main path (K1) and its single-shot session
+              (``pool_carryover=False``, through ``render_wavefront``),
+              the outside main path (K4), the outside with
+              ``stream_worklist=False`` (K6 cap > 0) and with
               ``stream_compact=False`` (K6 cap = 0), the flagship
               wavefront and megakernel with ``compact_worklist=False``
               (K7), and the megakernel with ``intersect="sweep"`` (K8).
@@ -271,8 +274,9 @@ SHADE_ROUTES = {
 def main_routes(h, dev, routes, main_runs, scenes=None):
     """{route: [samples/s, Mrays/s, iterations, mean radiance, rays of
     each run]}: ``main_runs`` fresh renderers (host seed 0) a route, each
-    a warm-up step(1), then step(2) twice, timed.  ``scenes``: the host
-    scenes already compiled, by name ("box", "textured", "outside")."""
+    a warm-up session (step(1), step(2) twice, a camera reset), then a
+    step(1) and step(2) twice, timed.  ``scenes``: the host scenes
+    already compiled, by name ("box", "textured", "outside")."""
     from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
                                           compile_scene)
     from logipathtracer_tpu_torch.scene.procedural import (make_box_scene,
@@ -294,6 +298,9 @@ def main_routes(h, dev, routes, main_runs, scenes=None):
         for _ in range(main_runs):
             r = ProgressiveRenderer(scene(which), cfg.replace(**kw),
                                     host_seed=0, device=dev)
+            for n in (1, 2, 2):
+                r.step(n)
+            r.reset()
             sps, mrays, iters, rad = h.timed_steps(r)
             main[route].append({
                 "samples_per_s": sps, "mrays_per_s": mrays,

@@ -19,16 +19,23 @@ and prints one JSON line for each part:
 
   stages:   a warm-up step(1), then two step(2) chunks with every stage
             wrapped in device-synchronised timers (the syncs add a
-            little): seconds and calls per stage over the chunks'
-            iterations; an "iteration" of the megakernel is one sample's
-            ``trace_rays`` (max_depth lockstep bounces); "rest" is the
-            iteration total less the stages (ray parking, counts, the
-            host read; in the megakernel the sort, gathers and camera
-            rays);
-  busy:     (CUDA only) the device busy share: the kernel time of one
-            profiled step(2) (torch.profiler, device rows) over the median
-            wall of three uninstrumented step(2) chunks of the same
-            renderer, with the top kernels;
+            little), the wavefront loop in its eager form (stage timers
+            wrap Python functions, which a replayed CUDA graph does not
+            call): seconds and calls per stage over the chunks'
+            iterations — the wavefront's stage A (sort, K3 flush and the
+            counts), then stage B's parts (regen, ray pack, the
+            intersect kernels, texture prologue, K2); an "iteration" of
+            the megakernel is one sample's ``trace_rays`` (max_depth
+            lockstep bounces); "rest" is the iteration total less the
+            stages (ray parking, counters, the host read and the window
+            plan; in the megakernel the sort, gathers and camera rays);
+  busy:     (CUDA only) the device busy share: the kernel time per
+            iteration of one profiled step(2) (torch.profiler, device
+            rows) over the wall per iteration of three uninstrumented
+            step(2) chunks of the same renderer, with the top kernels;
+            for the wavefront once with the captured stages
+            (render/graph.py, the renderer's form) as "busy" and once
+            in the eager form as "busy_eager";
   prepass:  (--prepass, CUDA only) on the rays the main path gives the
             intersect in the first two iterations of a fresh step(2)
             (camera rays; then the first bounces, sorted first, and new
@@ -77,9 +84,9 @@ STAGES = (
     (wavefront._Body, "__call__", lambda kw: "iteration total"),
     (megakernel, "trace_rays", lambda kw: "iteration total"),
     (megakernel, "ray_sort_key", lambda kw: "sort key"),
-    (wavefront._Body, "_sort_and_flush",
-     lambda kw: "sort + gather + K3 flush"),
-    (wavefront._Body, "_regen", lambda kw: "regen"),
+    (wavefront._Body, "stage_a",
+     lambda kw: "stage A: sort + gather + K3 flush + counts"),
+    (wavefront._Body, "_regen", lambda kw: "stage B: regen"),
     (ci, "pack_rays8", lambda kw: "ray pack"),
     (ci, "build_chunk_worklists",
      lambda kw: "K1 worklist" + _shadow(kw)),
@@ -140,21 +147,35 @@ def make_renderer(scene: str, res: int, device, nee=False, textured=False,
     return ProgressiveRenderer(host, cfg, host_seed=0, device=device)
 
 
+@contextlib.contextmanager
+def eager(renderer, on: bool = True):
+    """The wavefront loop of ``renderer`` in its eager form (``on``) or
+    through its captured stages for the block."""
+    saved = renderer._eager
+    renderer._eager = on
+    try:
+        yield renderer
+    finally:
+        renderer._eager = saved
+
+
 def stage_split(renderer, chunks=(2, 2)):
-    """Warm-up step(1), then the timed chunks: {"iterations": [...],
-    "wall": s, "stages": {label: [s, calls]}} with a "rest" row."""
+    """Warm-up step(1), then the timed chunks, in the eager form:
+    {"iterations": [...], "wall": s, "stages": {label: [s, calls]}} with
+    a "rest" row."""
     dev = renderer.device
-    renderer.step(1)
-    _sync(dev)
     seconds, iters = {}, []
-    t0 = time.perf_counter()
-    with stage_timers(dev, seconds):
-        for n in chunks:
-            before = seconds.get("iteration total", [0.0, 0])[1]
-            renderer.step(n)
-            iters.append(seconds["iteration total"][1] - before)
-    _sync(dev)
-    wall = time.perf_counter() - t0
+    with eager(renderer):
+        renderer.step(1)
+        _sync(dev)
+        t0 = time.perf_counter()
+        with stage_timers(dev, seconds):
+            for n in chunks:
+                before = seconds.get("iteration total", [0.0, 0])[1]
+                renderer.step(n)
+                iters.append(seconds["iteration total"][1] - before)
+        _sync(dev)
+        wall = time.perf_counter() - t0
     total = seconds.get("iteration total", [0.0, 0])
     inner = sum(s for k, (s, _) in seconds.items() if k != "iteration total")
     seconds["rest"] = [total[0] - inner, total[1]]
@@ -164,36 +185,48 @@ def stage_split(renderer, chunks=(2, 2)):
 
 
 def busy_share(renderer, top=8):
-    """Kernel time of one profiled step(2) over the median wall of three
-    uninstrumented step(2) chunks (CUDA only)."""
+    """The device busy share of ``renderer``'s step(2) chunks (CUDA
+    only): the kernel time per iteration of one profiled step(2) over
+    the wall per iteration of three uninstrumented ones (chunks differ
+    in iterations; the megakernel counts a step as one).  Three step(2)
+    first capture what the chunks replay (render/graph.py): a stage is
+    captured at its first use, and some windows of the ladder come up
+    only now and then."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    walls = []
+    for _ in range(3):
+        renderer.step(2)
+    walls, iters = [], []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         renderer.step(2)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        iters.append(max(renderer.last_iterations, 1))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         renderer.step(2)
         torch.cuda.synchronize()
+    n = max(renderer.last_iterations, 1)
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    wall_ms = float(np.median(walls)) * 1e3
-    return {"device_ms": device_ms, "wall_ms": wall_ms,
-            "busy": device_ms / wall_ms, "walls_s": walls,
-            "top": [[k[:60], ms, n] for k, ms, n in rows[:top]]}
+    wall_it = sum(walls) * 1e3 / sum(iters)
+    return {"device_ms": device_ms, "iterations": n,
+            "wall_ms": float(np.median(walls)) * 1e3, "walls_s": walls,
+            "wall_iterations": iters, "device_ms_per_iteration": device_ms / n,
+            "wall_ms_per_iteration": wall_it,
+            "busy": device_ms / n / wall_it,
+            "top": [[k[:60], ms, c] for k, ms, c in rows[:top]]}
 
 
 def prepass_compare(renderer, tile: int):
     """Frustum vs per-ray prepass on the first two intersect pools of a
-    fresh step(2) (CUDA only)."""
+    fresh step(2) in the eager form (CUDA only)."""
     from logipathtracer_tpu_torch.ops.traverse import (_inv_rows,
                                                        scene_cluster_bounds)
     pools = []
@@ -206,8 +239,9 @@ def prepass_compare(renderer, tile: int):
 
     k4.build_cluster_worklists = capture
     try:
-        renderer.reset()
-        renderer.step(2)
+        with eager(renderer):
+            renderer.reset()
+            renderer.step(2)
     finally:
         k4.build_cluster_worklists = frustum
     scene = renderer.scene
@@ -262,6 +296,10 @@ def main(argv=None) -> int:
     print(json.dumps({"stages": stage_split(r)}), flush=True)
     if dev.type == "cuda":
         print(json.dumps({"busy": busy_share(r)}), flush=True)
+        if args.renderer == "wavefront":
+            with eager(r):
+                print(json.dumps({"busy_eager": busy_share(r)}),
+                      flush=True)
         if args.prepass:
             print(json.dumps({"prepass": prepass_compare(
                 r, r.config.stream_tile)}), flush=True)

@@ -1091,3 +1091,158 @@ def test_default_traits_card_matches_cpu(dev, fields):
         close = np.isclose(a, b, rtol=1e-4, atol=1e-6).all(-1)
         assert close.mean() >= 0.995
     assert rays == rays_c
+
+
+# The wavefront loop through its captured CUDA graphs (render/graph.py)
+# against its eager form on the card: (scene, RenderConfig fields).
+GRAPH_ROUTES = {
+    "flagship": ("box", {}),
+    "nee_textured": ("textured", dict(nee=True)),
+    "outside_k4": ("outside", dict(cluster_size=512, stream_tile=1024,
+                                   intersect="stream")),
+    "outside_k5": ("outside", dict(cluster_size=512, stream_tile=1024,
+                                   intersect="stream",
+                                   stream_granularity="chunk")),
+    "outside_k6": ("outside", dict(cluster_size=512, stream_tile=1024,
+                                   intersect="stream", stream_worklist=False,
+                                   nee=True)),
+    "outside_k6_cap0": ("outside", dict(cluster_size=512, stream_tile=1024,
+                                        intersect="stream",
+                                        stream_compact=False)),
+    "k7": ("box", dict(compact_worklist=False)),
+    "basic": ("box", dict(use_microfacet=False, nee=True)),
+    "sort_every": ("box", dict(sort_every=2)),
+    "unsorted": ("box", dict(sort_rays=False)),
+    "lazy_regen": ("box", dict(lazy_regen=2)),
+}
+
+
+def _graph_scene(kind):
+    from logipathtracer_tpu_torch import RenderConfig, compile_scene
+    from logipathtracer_tpu_torch.scene.procedural import (
+        make_box_scene, make_outside_scene)
+    if kind == "outside":
+        return compile_scene(make_outside_scene(objects=8, n_materials=8,
+                                                tri_budget=8000),
+                             RenderConfig(cluster_size=512))
+    return compile_scene(make_box_scene(spheres=2, subdiv=3,
+                                        textured=kind == "textured"))
+
+
+def _counts():
+    from logipathtracer_tpu_torch.render.graph import _snapshot
+    return {f"{m.__name__}.{n}": v for (m, n), v in _snapshot().items()}
+
+
+@pytest.mark.parametrize("route", sorted(GRAPH_ROUTES))
+def test_graph_loop_bit_equal_to_eager(dev, route, monkeypatch):
+    """A session (step(2), a camera move, step(1), step(3) past the seed
+    buffer, the drain) through the captured stages equals the eager form
+    bit for bit: the frame sums, the rays and iterations, the launch
+    counters (a replay adds what its capture launched) and no plain
+    version; each iteration is one stage-A and one stage-B replay, the
+    ladder at tile granularity so several windows are captured."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.render import wavefront
+    from logipathtracer_tpu_torch.render.graph import graph_cache
+    monkeypatch.setattr(wavefront, "REGEN_FLOOR", 1)
+    monkeypatch.setattr(wavefront, "TRACE_FLOOR", 1)
+    monkeypatch.setattr(wavefront, "SEED_CAPACITY", 2)
+    kind, fields = GRAPH_ROUTES[route]
+    host = _graph_scene(kind)
+    cfg = RenderConfig(width=128, height=64, compact_tile=1024,
+                       pool_size=8192, max_depth=6, **fields)
+    out = []
+    for eager in (True, False):
+        r = ProgressiveRenderer(host, cfg, host_seed=9, device=dev)
+        r._eager = eager
+        before = _counts()
+        iters = []
+        for move, n in ((False, 2), (True, 1), (False, 3)):
+            if move:
+                r.rotate(1, 0.05)
+            r.step(n)
+            iters.append(r.last_iterations)
+        frame = r._frame_sum().clone()
+        iters.append(r.last_iterations)
+        after = _counts()
+        delta = {k: after[k] - before[k] for k in after if k in before}
+        out.append((frame, r.total_rays, iters, delta))
+        if not eager:
+            cache = graph_cache(r.scene)
+            assert cache.replays > 0 and cache.captures > 2
+            assert cache.warm_ups + cache.replays == 2 * sum(iters)
+    (fe, re_, ie, de), (fg, rg, ig, dg) = out
+    assert torch.equal(fe, fg)
+    assert (re_, ie) == (rg, ig)
+    assert de == dg
+    assert not any(v for k, v in dg.items() if "plain_calls" in k)
+
+
+def test_graph_replays_two_stages_per_iteration(dev):
+    """After the first chunk has captured its stages, a chunk of the same
+    shape is replays only, two per iteration, and a moved camera and
+    field of view capture nothing new."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.render.graph import graph_cache
+    host = _graph_scene("box")
+    cfg = RenderConfig(width=128, height=64, compact_tile=1024,
+                       pool_size=8192, max_depth=6)
+    r = ProgressiveRenderer(host, cfg, host_seed=1, device=dev)
+    for _ in range(3):
+        r.step(2)
+    cache = graph_cache(r.scene)
+    seen = (cache.captures, cache.replays)
+    st = r._wf_state
+    r.set_camera(r.camera_world, fov_y=r.fov_y * 0.8)
+    r.step(1)
+    r.step(2)
+    r.step(2)
+    n = r.last_iterations
+    assert r._wf_state is st
+    assert cache.replays - seen[1] >= 2 * n
+    assert cache.captures - seen[0] <= 4
+
+
+def test_graph_cache_freed_with_its_renderer(dev):
+    """A renderer's scene copy, its graph cache, pool and graphs go when
+    the renderer goes, without a garbage collection (no reference
+    cycle holds the graphs' memory)."""
+    import gc
+    import weakref
+
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.render.graph import graph_cache
+    r = ProgressiveRenderer(_graph_scene("box"),
+                            RenderConfig(width=128, height=64,
+                                         compact_tile=1024, pool_size=8192),
+                            host_seed=1, device=dev)
+    r.step(2)
+    r.radiance()
+    refs = (weakref.ref(r.scene), weakref.ref(graph_cache(r.scene)),
+            weakref.ref(r._wf_state["accum"]))
+    gc.disable()
+    try:
+        del r
+        assert all(ref() is None for ref in refs)
+    finally:
+        gc.enable()
+
+
+def test_graph_capture_failure_raises(dev, monkeypatch):
+    """A stage that reads the host cannot be captured: the capture raises
+    and nothing runs the eager loop in its place."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.render import wavefront
+    stage_a = wavefront._Body.stage_a
+
+    def reading(self, mode):
+        stage_a(self, mode)
+        self.st["alive"].sum().item()
+    monkeypatch.setattr(wavefront._Body, "stage_a", reading)
+    r = ProgressiveRenderer(_graph_scene("box"),
+                            RenderConfig(width=64, height=64,
+                                         compact_tile=1024, pool_size=4096),
+                            host_seed=1, device=dev)
+    with pytest.raises(RuntimeError):
+        r.step(1)

@@ -1,7 +1,7 @@
 """The port never imports JAX or the JAX package: in a fresh interpreter
 where ``import jax`` fails, importing logipathtracer_tpu_torch (its
 command line, web viewer, EXR writer, logger, .glb writer, interactive
-session tool and device mesh too) and tiny CPU renders (a session, a
+session tool, device mesh and CUDA graph cache too) and tiny CPU renders (a session, a
 (1, 2) mesh, a 16-row ``render_wavefront`` slab) all work, and no module
 of the package (nor ``chip_smoke.py``) has an import of either."""
 
@@ -24,6 +24,7 @@ import logipathtracer_tpu_torch.cli.main
 import logipathtracer_tpu_torch.cli.webview
 import logipathtracer_tpu_torch.film.exr
 import logipathtracer_tpu_torch.tools.glb
+import logipathtracer_tpu_torch.render.graph
 import logipathtracer_tpu_torch.tools.interactive
 import logipathtracer_tpu_torch.utils.log
 import torch
@@ -73,7 +74,7 @@ def test_no_module_imports_jax():
                if PKG in p.parents}
     for module in ("cli/main.py", "cli/webview.py", "utils/log.py",
                    "film/exr.py", "tools/glb.py", "tools/interactive.py",
-                   "parallel/mesh.py"):
+                   "parallel/mesh.py", "render/graph.py"):
         assert module in scanned, module
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]

@@ -18,8 +18,8 @@ from logipathtracer_tpu_torch.scene.procedural import (make_box_scene,
                                                        make_outside_scene)
 from logipathtracer_tpu_torch.tools import stages
 
-WAVEFRONT = ("ray pack", "sort + gather + K3 flush", "regen",
-             "K2 kernel + wrapper")
+WAVEFRONT = ("ray pack", "stage A: sort + gather + K3 flush + counts",
+             "stage B: regen", "K2 kernel + wrapper")
 MEGAKERNEL = ("sort key", "ray pack", "K2 kernel + wrapper")
 
 # scene, config, the stages its iteration must time
@@ -34,7 +34,8 @@ CASES = {
     "box-basic": (lambda: make_box_scene(spheres=1, subdiv=2),
                   dict(compact_tile=256, use_microfacet=False),
                   ("K1 worklist", "K1 kernel", "ray pack",
-                   "sort + gather + K3 flush", "regen", "basic route")),
+                   "stage A: sort + gather + K3 flush + counts",
+                   "stage B: regen", "basic route")),
     "megakernel-k7": (lambda: make_box_scene(spheres=1, subdiv=2),
                       dict(renderer="megakernel", compact_tile=256,
                            compact_worklist=False),
@@ -52,8 +53,9 @@ def test_stage_split(name):
     cfg = RenderConfig(width=16, height=16, pool_size=256, max_depth=4, **kw)
     r = ProgressiveRenderer(compile_scene(make(), cfg, use_native=False),
                             cfg, host_seed=0, device="cpu")
-    call, build, trace = wavefront._Body.__dict__["__call__"], \
-        k4.build_cluster_worklists, megakernel.trace_rays
+    call, stage_a, regen = (wavefront._Body.__dict__[k] for k in
+                            ("__call__", "stage_a", "_regen"))
+    build, trace = k4.build_cluster_worklists, megakernel.trace_rays
     out = stages.stage_split(r, chunks=(1, 1))
     st = out["stages"]
     assert st["iteration total"][1] == sum(out["iterations"]) > 0
@@ -63,6 +65,9 @@ def test_stage_split(name):
     # The basic BSDF shades through its own route, never K2.
     assert ("K2 kernel + wrapper" in st) == cfg.use_microfacet
     assert wavefront._Body.__dict__["__call__"] is call
+    assert wavefront._Body.__dict__["stage_a"] is stage_a
+    assert wavefront._Body.__dict__["_regen"] is regen
+    assert r._eager is False
     assert k4.build_cluster_worklists is build
     assert megakernel.trace_rays is trace
 
