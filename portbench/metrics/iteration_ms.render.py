@@ -1,0 +1,7 @@
+"""The window's wall time per wavefront iteration (render cells)."""
+
+from portbench import readers
+
+
+def read(ctx):
+    return readers.iteration_ms(ctx)
