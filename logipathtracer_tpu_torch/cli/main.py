@@ -38,6 +38,7 @@ from logipathtracer_tpu_torch.film.image import to_uint8
 from logipathtracer_tpu_torch.film.png import write_png
 from logipathtracer_tpu_torch.scene.compile import compile_scene
 from logipathtracer_tpu_torch.scene.gltf import load_gltf
+from logipathtracer_tpu_torch.utils import trace as tracing
 from logipathtracer_tpu_torch.utils.log import get_logger
 
 log = get_logger("cli")
@@ -157,7 +158,7 @@ def cmd_render(args) -> int:
         r.restore(args.resume)
         log.info("resumed from %s at %d samples", args.resume,
                  r.sample_count)
-    t0 = time.perf_counter()
+    t0 = tracing.mark()
     with _profiled(args.profile, r.device):
         while r.sample_count < args.spp:
             batch = min(args.checkpoint_every or args.spp,
@@ -179,6 +180,9 @@ def cmd_render(args) -> int:
         np.savez(args.radiance, radiance=r.radiance(),
                  sample_count=r.sample_count)
         log.info("wrote %s", args.radiance)
+    # The render's stage times and host syncs (utils/trace.py): from the
+    # first step to here, the drain and the outputs' reads included.
+    trace = tracing.per_iteration(tracing.window(t0))
     report = {
         "scene": scene.name, "width": cfg.render_width,
         "height": cfg.render_height, "spp": r.sample_count,
@@ -186,6 +190,7 @@ def cmd_render(args) -> int:
         "samples_per_sec": round(r.samples_per_sec(), 4),
         "mrays_per_sec": round(r.mrays_per_sec(), 3),
         "total_rays": r.total_rays,
+        "trace": trace,
     }
     print(json.dumps(report))
     return 0

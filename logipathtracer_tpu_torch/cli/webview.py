@@ -45,12 +45,17 @@ import numpy as np
 import torch
 
 from logipathtracer_tpu_torch.film.image import to_uint8
+from logipathtracer_tpu_torch.utils import trace as tracing
 from logipathtracer_tpu_torch.utils.log import get_logger
 
 log = get_logger("webview")
 
 _MOVE = 0.05
 _TURN = 0.02
+# The stats' stage times and host syncs cover the trace's last second
+# (utils/trace.py), taken again at most four times a second.
+_TRACE_S = 1.0
+_TRACE_EVERY_S = 0.25
 KEYMAP_T = {"w": (2, -_MOVE), "s": (2, _MOVE), "a": (0, -_MOVE),
             "d": (0, _MOVE), "q": (1, _MOVE), "e": (1, -_MOVE)}
 KEYMAP_R = {"i": (0, _TURN), "k": (0, -_TURN), "j": (1, _TURN),
@@ -277,6 +282,7 @@ class _HostFrame:
             self.host, self.done = frame, None
 
     def numpy(self) -> np.ndarray:
+        tracing.host_sync("frame")
         if self.done is not None:
             self.done.synchronize()
         return self.host.numpy()
@@ -344,6 +350,7 @@ def serve(args, build) -> int:
         settle_s = getattr(args, "settle_s", 0.35)
         last_key_t = float("-inf")
         frames = 0
+        trace_stats, trace_due = {}, 0.0
 
         def submit():
             """Apply the queued keys, pick the renderer and step it
@@ -369,9 +376,15 @@ def serve(args, build) -> int:
             rr, frame = pending
             img = (frame.numpy() if frame is not None
                    else to_uint8(rr.image()))
+            now = time.perf_counter()
+            if now >= trace_due:
+                trace_stats = tracing.per_iteration(
+                    tracing.window(now - _TRACE_S))
+                trace_due = now + _TRACE_EVERY_S
             state.publish(img,
                           {"spp": rr.sample_count,
                            "samples_per_sec": round(rr.samples_per_sec(), 3),
+                           **trace_stats,
                            "mrays_per_sec": round(rr.mrays_per_sec(), 3),
                            "mode": ("navigate" if rr is rp
                                     else "converge"),

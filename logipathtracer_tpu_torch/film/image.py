@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from logipathtracer_tpu_torch.utils import trace as tracing
+
 
 def tonemap(accum: torch.Tensor, sample_count: float,
             exposure: float = 1.5, gamma: float = 2.2,
@@ -23,6 +25,7 @@ def to_uint8(img) -> np.ndarray:
     """[..., C] float image in [0, 1] (a numpy array or a tensor on any
     device) -> uint8 numpy array, rounded half up and clipped."""
     if isinstance(img, torch.Tensor):
+        tracing.host_sync("frame")
         img = img.detach().cpu().numpy()
     arr = np.asarray(img)
     return np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)

@@ -39,6 +39,7 @@ EXTRA_FLAGS = {
     "cluster_sweep": ["-fmad=false"],
     "shade": ["-fmad=false"],
     "flush": [],
+    "trace": [],
 }
 
 BUILD_SECONDS: dict[str, float] = {}

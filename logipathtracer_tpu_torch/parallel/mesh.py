@@ -22,7 +22,6 @@ changes wall clock, not radiance.
 from __future__ import annotations
 
 import contextlib
-import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -35,8 +34,7 @@ from logipathtracer_tpu_torch.render.megakernel import render_rows
 from logipathtracer_tpu_torch.render.progressive import (ProgressiveRenderer,
                                                          default_device)
 from logipathtracer_tpu_torch.render.wavefront import render_wavefront
-
-log = logging.getLogger("logipathtracer_tpu_torch.mesh")
+from logipathtracer_tpu_torch.utils import trace as tracing
 
 
 @dataclass(frozen=True)
@@ -133,7 +131,9 @@ class MeshRenderer(ProgressiveRenderer):
         shard's device: (its new accumulator, rays traced)."""
         d = self.mesh.devices[i, j]
         scene, cfg = self._scenes[d], self.config
+        tracing.host_sync("upload")
         cam = torch.from_numpy(self.camera_world).to(d)
+        tracing.host_sync("upload")
         seed = torch.from_numpy(seeds[i:i + 1]).to(d)
         y0 = j * self._rows
         if self._wavefront:
@@ -144,6 +144,7 @@ class MeshRenderer(ProgressiveRenderer):
         else:
             img, rays = render_rows(scene, cfg, cam, self.fov_y, seed[0],
                                     y0, self._rows)
+            tracing.host_sync("fold")
             rays = int(rays)
         return (img if reset else self.accum[i][j] + img), rays
 
@@ -155,6 +156,7 @@ class MeshRenderer(ProgressiveRenderer):
                else contextlib.nullcontext())
         with ctx:
             out = [self._render_shard(i, j, seeds, reset) for i, j in shards]
+            tracing.host_sync("sync")
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
         return out
@@ -200,10 +202,6 @@ class MeshRenderer(ProgressiveRenderer):
             self.total_rays += rays
             self._session_rays += rays
             self._dirty = False
-            if self.sample_count % (10 * s) < s:
-                log.info("samples: %d  samples/s: %.3f  Mrays/s: %.2f",
-                         self.sample_count, self.samples_per_sec(),
-                         self.mrays_per_sec())
         return self
 
     def _frame_sum(self) -> torch.Tensor:

@@ -46,6 +46,7 @@ import weakref
 import torch
 
 from logipathtracer_tpu_torch.ops.kernels import _build
+from logipathtracer_tpu_torch.utils import trace as tracing
 
 # Intersect modes whose loops read the host while they run, so a stage
 # holding them cannot be captured: the BVH walk tests ``any(sp > 0)``
@@ -184,7 +185,11 @@ class GraphCache:
         """Run ``fn`` eagerly on the side stream (the warm-up; its work
         is this call's), then capture it; ``warm_up=False`` only
         captures (a variant of a stage that has run).  Raises if the
-        capture fails."""
+        capture fails.  The host span ``capture`` marks it."""
+        with tracing.span("capture"):
+            return self._capture(fn, warm_up)
+
+    def _capture(self, fn, warm_up: bool) -> CapturedStage:
         if warm_up:
             cur = torch.cuda.current_stream(self.device)
             self._side.wait_stream(cur)

@@ -14,11 +14,13 @@ CUDA card the wavefront's iterations replay captured stages
 stages are captured once per session.
 ``renderer="auto"`` is the wavefront (the JAX package takes it on a TPU
 only).  Several devices: ``parallel/mesh.py`` ``MeshRenderer``.
+
+The session counts its host syncs and marks its step, drain and image
+as spans in utils/trace.py.
 """
 
 from __future__ import annotations
 
-import logging
 import time
 
 import numpy as np
@@ -36,8 +38,7 @@ from logipathtracer_tpu_torch.render.wavefront import (pix_layout,
                                                        wavefront_drain,
                                                        wavefront_pool_state)
 from logipathtracer_tpu_torch.scene.types import CameraState, SceneSoA
-
-log = logging.getLogger("logipathtracer_tpu_torch.progressive")
+from logipathtracer_tpu_torch.utils import trace as tracing
 
 
 def _rot(axis: int, angle: float) -> np.ndarray:
@@ -165,10 +166,18 @@ class ProgressiveRenderer:
         return self._step(samples, sync=False)
 
     def _sync(self):
+        tracing.host_sync("sync")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the renderer's device: a copy from pageable memory,
+        which waits for the device's stream."""
+        tracing.host_sync("upload")
+        return torch.from_numpy(a).to(self.device)
+
     def _fold_rays(self, st):
+        tracing.host_sync("fold")
         rays_now = self._wf_rays_base + float(st["rays"])
         self._session_rays += rays_now - self.total_rays
         self.total_rays = rays_now
@@ -183,15 +192,12 @@ class ProgressiveRenderer:
         self._elapsed = 0.0
 
     def _step(self, samples: int, sync: bool):
-        cam = torch.from_numpy(self.camera_world).to(self.device)
-        if self.config.renderer == "megakernel":
-            self._step_megakernel(samples, cam, sync)
-        else:
-            self._step_wavefront(samples, cam, sync)
-        if self.sample_count % 10 < samples:
-            log.info("samples: %d  samples/s: %.3f  Mrays/s: %.2f",
-                     self.sample_count, self.samples_per_sec(),
-                     self.mrays_per_sec())
+        with tracing.span("step"):
+            cam = self._upload(self.camera_world)
+            if self.config.renderer == "megakernel":
+                self._step_megakernel(samples, cam, sync)
+            else:
+                self._step_wavefront(samples, cam, sync)
         return self
 
     def _step_megakernel(self, samples: int, cam, sync: bool):
@@ -204,8 +210,8 @@ class ProgressiveRenderer:
         for _ in range(samples):
             if self._dirty:
                 self._reset_counts()
-            seed = torch.from_numpy(self._host_rng.integers(
-                1, 2 ** 31, 2, dtype=np.int64)).to(self.device)
+            seed = self._upload(self._host_rng.integers(
+                1, 2 ** 31, 2, dtype=np.int64))
             self.accum, n = self._accumulate(self.scene, self.config, cam,
                                              self.fov_y, seed, self.accum,
                                              self._dirty)
@@ -216,6 +222,7 @@ class ProgressiveRenderer:
         if sync:
             self._sync()
         self._elapsed += time.perf_counter() - t0
+        tracing.host_sync("fold")
         n = float(rays)
         self.total_rays += n
         self._session_rays += n
@@ -229,8 +236,8 @@ class ProgressiveRenderer:
                 # In place: the pool's captured stages stay valid.
                 reset_pool_state(self._wf_state)
                 self._wf_rays_base = self.total_rays
-        seeds = torch.from_numpy(self._host_rng.integers(
-            1, 2 ** 31, (samples, 2), dtype=np.int64)).to(self.device)
+        seeds = self._upload(self._host_rng.integers(
+            1, 2 ** 31, (samples, 2), dtype=np.int64))
         npix = cfg.render_width * cfg.render_height
         pool = min(cfg.pool_size, npix)
         t0 = time.perf_counter()
@@ -265,16 +272,17 @@ class ProgressiveRenderer:
         if self._wf_state is None:
             return
         t0 = time.perf_counter()
-        st = wavefront_drain(self.scene, self.config, self._wf_state,
-                             _eager=self._eager)
-        h, w = self.config.render_height, self.config.render_width
-        blocked, bh, bw = pix_layout(self.config, self.scene, h, w)
-        self.accum = self.accum + unblock_accum(st["accum"], blocked, bh,
-                                                bw, h, w)
-        st["accum"].zero_()
-        self._fold_rays(st)
-        self._wf_state = st
-        self._sync()
+        with tracing.span("drain"):
+            st = wavefront_drain(self.scene, self.config, self._wf_state,
+                                 _eager=self._eager)
+            h, w = self.config.render_height, self.config.render_width
+            blocked, bh, bw = pix_layout(self.config, self.scene, h, w)
+            self.accum = self.accum + unblock_accum(st["accum"], blocked,
+                                                    bh, bw, h, w)
+            st["accum"].zero_()
+            self._fold_rays(st)
+            self._wf_state = st
+            self._sync()
         self._elapsed += time.perf_counter() - t0
 
     def _drop_pool(self):
@@ -291,7 +299,7 @@ class ProgressiveRenderer:
         return self.accum
 
     def _load_accum(self, accum: np.ndarray):
-        self.accum = torch.from_numpy(accum).to(self.device)
+        self.accum = self._upload(accum)
 
     def samples_per_sec(self) -> float:
         return self._session_samples / max(self._elapsed, 1e-9)
@@ -304,14 +312,15 @@ class ProgressiveRenderer:
     def image(self) -> torch.Tensor:
         """Tonemapped display image [H, W, 3] (tex_to_quad.frag); with
         render_scale > 1 the supersampled buffer is box-filtered first."""
-        accum = self._frame_sum()
-        s = self.config.render_scale
-        if s > 1:
-            h, w = self.config.height, self.config.width
-            accum = accum.reshape(h, s, w, s, 3).mean(dim=(1, 3))
-        return tonemap(accum, max(self.sample_count, 1),
-                       exposure=self.config.exposure,
-                       gamma=self.config.gamma)
+        with tracing.span("image"):
+            accum = self._frame_sum()
+            s = self.config.render_scale
+            if s > 1:
+                h, w = self.config.height, self.config.width
+                accum = accum.reshape(h, s, w, s, 3).mean(dim=(1, 3))
+            return tonemap(accum, max(self.sample_count, 1),
+                           exposure=self.config.exposure,
+                           gamma=self.config.gamma)
 
     def image_u8(self) -> torch.Tensor:
         """Display frame as device-side uint8 RGBA [H, W, 4]."""
@@ -323,7 +332,9 @@ class ProgressiveRenderer:
 
     def radiance(self) -> np.ndarray:
         """Mean radiance (pre-tonemap; the RMSE-metric quantity)."""
-        return self._frame_sum().cpu().numpy() / max(self.sample_count, 1)
+        accum = self._frame_sum()
+        tracing.host_sync("radiance")
+        return accum.cpu().numpy() / max(self.sample_count, 1)
 
     # -- checkpoint / resume ---------------------------------------------
 
@@ -333,7 +344,9 @@ class ProgressiveRenderer:
 
     def checkpoint(self, path: str):
         path = self.checkpoint_path(path)
-        accum = self._frame_sum().cpu().numpy()    # drains the pool first
+        accum = self._frame_sum()                  # drains the pool first
+        tracing.host_sync("radiance")
+        accum = accum.cpu().numpy()
         st = self._host_rng.bit_generator.state["state"]
         np.savez(path, accum=accum,
                  sample_count=self.sample_count,

@@ -51,6 +51,12 @@ twin of the sweep) run eagerly, as does the CPU, which runs the same
 stages; ``_eager=True`` asks the loop functions for the eager form on
 the card (for comparisons and the stage timers of tools/stages.py).
 
+The loop reports into utils/trace.py: on the card a stopwatch stamp at
+each stage boundary, captured with the stages, times them on the
+device into the pool's ``counts`` buffer, which the count read brings
+to the host; each call ends in a record of its iterations, host syncs
+and stage times.
+
 Per-(pixel, sample) RNG streams and draw order equal the JAX package's,
 so each work item's radiance matches up to intersect near-ties and the
 last ulps of the device libm.  ``pool_cm`` and ``sort_variadic`` choose
@@ -75,6 +81,7 @@ from logipathtracer_tpu_torch.render.megakernel import (intersect_tile,
                                                         pick_intersect,
                                                         ray_sort_key,
                                                         shade_step)
+from logipathtracer_tpu_torch.utils import trace as tracing
 
 _LANE_KEYS = ("origin", "direction", "mask", "acc", "seed", "alive",
               "pending", "prev_pdf", "bounce", "pixid")
@@ -131,9 +138,11 @@ def wavefront_pool_state(p: int, npix: int, device="cpu"):
     """Fresh pool: every lane free, zero accumulation.  Lane state and
     the counters ``next_work``, ``rays``, ``it`` and ``shadow_rays``
     (NEE) are device tensors at fixed addresses; ``counts`` holds stage
-    A's alive, pending and free counts; ``host_next_work`` and
-    ``host_it`` are the host's mirrors of ``next_work`` and ``it`` for
-    the loop tests."""
+    A's alive, pending and free counts, then the stopwatch's slots and
+    stamp (utils/trace.py); ``host_next_work`` and ``host_it`` are the
+    host's mirrors of ``next_work`` and ``it`` for the loop tests, and
+    ``slots_seen`` the slots as the trace last took them (None off the
+    card)."""
     dev = torch.device(device)
     i64 = dict(dtype=torch.int64, device=dev)
     st = dict(
@@ -152,7 +161,9 @@ def wavefront_pool_state(p: int, npix: int, device="cpu"):
         rays=torch.empty((), **i64),
         shadow_rays=torch.empty((), **i64),
         it=torch.empty((), **i64),
-        counts=torch.empty((3,), **i64),
+        counts=torch.zeros((tracing.WIDTH,), **i64),
+        slots_seen=([0] * len(tracing.SLOTS) if dev.type == "cuda"
+                    else None),
     )
     return reset_pool_state(st)
 
@@ -160,11 +171,13 @@ def wavefront_pool_state(p: int, npix: int, device="cpu"):
 def reset_pool_state(st):
     """Empty the pool in place (a camera move): the state of a fresh
     ``wavefront_pool_state`` at the same addresses, so the stages
-    captured for the pool stay valid.  Returns ``st``."""
+    captured for the pool stay valid.  The stopwatch's slots go on
+    counting.  Returns ``st``."""
     for k in ("origin", "mask", "acc", "seed", "alive", "pending",
               "prev_pdf", "bounce", "pixid", "next_work", "accum", "rays",
-              "shadow_rays", "it", "counts"):
+              "shadow_rays", "it"):
         st[k].zero_()
+    st["counts"][:tracing.COUNTS].zero_()
     st["mask"].fill_(1.0)
     st["direction"].zero_()
     st["direction"][:, 2] = 1.0
@@ -264,6 +277,7 @@ class _Body:
         self.seeds[:s].copy_(ubo_seeds)
         self.cam.copy_(cam_world)
         _, tan_half = camera_constants(fov_y, (1, 1), "cpu")
+        tracing.host_sync("upload")
         self.consts[1].copy_(tan_half)
         self.total_host = s * self.npix
         self.total.fill_(self.total_host)
@@ -276,13 +290,15 @@ class _Body:
         iteration between sorts).  Writes counts = (alive, pending,
         free)."""
         st = self.st
+        tracing.stamp(st["counts"], None)
         if mode == "sort":
             self._sort_and_flush()
         elif mode == "unsorted":
             _flush_unsorted(st)
         free = ~st["alive"] & ~st["pending"]
-        st["counts"].copy_(torch.stack((st["alive"].sum(),
-                                        st["pending"].sum(), free.sum())))
+        st["counts"][:tracing.COUNTS].copy_(torch.stack((
+            st["alive"].sum(), st["pending"].sum(), free.sum())))
+        tracing.stamp(st["counts"], "stage_a")
 
     def _sort_and_flush(self):
         st = self.st
@@ -343,6 +359,7 @@ class _Body:
         """Regen into the window of ``regen`` lanes (none where 0), park
         the dead lanes, trace and shade [0, ``trace``)."""
         st, p = self.st, self.p
+        tracing.stamp(st["counts"], "gap")
         n_live = st["counts"][0]
         if regen:
             n_new = self._n_new()
@@ -359,13 +376,14 @@ class _Body:
         st["origin"].masked_fill_(dead[:, None], 1e30)
         st["direction"].masked_fill_(dead[:, None], 1.0)
         st["rays"] += n_live
+        st["it"] += 1
+        tracing.stamp(st["counts"], "regen")
 
         # Trace + shade the window [0, trace): it holds the alive lanes
         # (a prefix after a sort; the full pool otherwise).  Tile
         # boundaries match the full dispatch, so results are the same.
         if trace:
             self._trace(trace)
-        st["it"] += 1
 
     def _regen(self, lanes, n_new):
         """Refill the first n_new free lanes (in lane order) of the window
@@ -412,6 +430,7 @@ class _Body:
         sub = {k: st[k][:m] for k in _LANE_KEYS}
         t, obj, tri = self.isect(self.scene, sub["origin"],
                                  sub["direction"], eps=cfg.eps)
+        tracing.stamp(st["counts"], "intersect")
         origin, direction, acc, mask, alive2, seed, prev_pdf = \
             shade_step(self.scene, cfg, sub["origin"], sub["direction"],
                        sub["acc"], sub["mask"], sub["alive"],
@@ -428,6 +447,7 @@ class _Body:
         sub["prev_pdf"].copy_(prev_pdf)
         sub["bounce"].copy_(bounce)
         sub["alive"].copy_(alive2 & (bounce < cfg.max_depth))
+        tracing.stamp(st["counts"], "shade")
 
     # -- one iteration -------------------------------------------------------
 
@@ -470,11 +490,14 @@ class _Body:
         else:
             mode = "none"
         self._run(graphs, ("A", mode), lambda: self.stage_a(mode))
-        # The iteration's host read.  A lane stays pending until its
-        # flush, so pending lanes after this iteration are the ones
-        # pending now plus the regenerated ones.
+        # The iteration's host read (the trace counts it with the call's
+        # iterations), which brings the stopwatch's slots too.  A lane
+        # stays pending until its flush, so pending lanes after this
+        # iteration are the ones pending now plus the regenerated ones.
+        with tracing.span("count_read"):
+            counts = st["counts_read"] = st["counts"].tolist()
         n_new, regen, trace, any_pending = self.plan(
-            st["counts"].tolist(), drain, mode == "sort")
+            counts[:tracing.COUNTS], drain, mode == "sort")
         key = ("B", mode == "sort", regen, trace)
         self._run(graphs, key,
                   lambda: self.stage_b(mode == "sort", regen, trace))
@@ -544,7 +567,9 @@ def render_wavefront(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
            and state["host_it"] < max_iters):
         pending = body(graphs)
     _flush_unsorted(state)
+    tracing.loop_call(state)
     blocked, bh, bw = pix_layout(cfg, scene, rows, w)
+    tracing.host_sync("fold")
     return (unblock_accum(state["accum"].clone(), blocked, bh, bw, rows, w),
             int(state["rays"]), state["host_it"])
 
@@ -568,6 +593,7 @@ def wavefront_chunk(scene, cfg: RenderConfig, cam_world, fov_y, ubo_seeds,
     state["host_next_work"] = state["host_it"] = 0
     while state["host_next_work"] < total and state["host_it"] < max_iters:
         body(graphs)
+    tracing.loop_call(state)
     return state
 
 
@@ -579,9 +605,11 @@ def wavefront_drain(scene, cfg: RenderConfig, state, y0: int = 0,
     max_iters = (cfg.max_depth + 2) * max(cfg.sort_every, 1) + 8
     state["it"].zero_()
     state["host_it"] = 0
+    tracing.host_sync("drain")
     pending = bool(state["pending"].any())
     while pending and state["host_it"] < max_iters:
         pending = body(graphs, drain=True)
     # A final flush (a no-op unless max_iters cut the loop short).
     _flush_unsorted(state)
+    tracing.loop_call(state)
     return state

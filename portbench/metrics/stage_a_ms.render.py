@@ -1,0 +1,9 @@
+"""Stage A (sort, ten gathers, K3, counts) in device ms per wavefront
+iteration, by the program's stopwatch inside the captured stages (render
+cells)."""
+
+from portbench import program_trace
+
+
+def read(ctx):
+    return program_trace.slot_ms(ctx, "stage_a")

@@ -1139,12 +1139,14 @@ def test_graph_loop_bit_equal_to_eager(dev, route, monkeypatch):
     """A session (step(2), a camera move, step(1), step(3) past the seed
     buffer, the drain) through the captured stages equals the eager form
     bit for bit: the frame sums, the rays and iterations, the launch
-    counters (a replay adds what its capture launched) and no plain
-    version; each iteration is one stage-A and one stage-B replay, the
-    ladder at tile granularity so several windows are captured."""
+    counters (a replay adds what its capture launched), the trace's
+    iterations and host syncs by site, and no plain version; each
+    iteration is one stage-A and one stage-B replay, the ladder at tile
+    granularity so several windows are captured."""
     from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
     from logipathtracer_tpu_torch.render import wavefront
     from logipathtracer_tpu_torch.render.graph import graph_cache
+    from logipathtracer_tpu_torch.utils import trace
     monkeypatch.setattr(wavefront, "REGEN_FLOOR", 1)
     monkeypatch.setattr(wavefront, "TRACE_FLOOR", 1)
     monkeypatch.setattr(wavefront, "SEED_CAPACITY", 2)
@@ -1157,6 +1159,7 @@ def test_graph_loop_bit_equal_to_eager(dev, route, monkeypatch):
         r = ProgressiveRenderer(host, cfg, host_seed=9, device=dev)
         r._eager = eager
         before = _counts()
+        t0 = trace.mark()
         iters = []
         for move, n in ((False, 2), (True, 1), (False, 3)):
             if move:
@@ -1167,15 +1170,19 @@ def test_graph_loop_bit_equal_to_eager(dev, route, monkeypatch):
         iters.append(r.last_iterations)
         after = _counts()
         delta = {k: after[k] - before[k] for k in after if k in before}
-        out.append((frame, r.total_rays, iters, delta))
+        w = trace.window(t0)
+        assert w["iterations"] == sum(iters) and "slots_ns" in w
+        out.append((frame, r.total_rays, iters, delta,
+                    w["host_syncs"]))
         if not eager:
             cache = graph_cache(r.scene)
             assert cache.replays > 0 and cache.captures > 2
             assert cache.warm_ups + cache.replays == 2 * sum(iters)
-    (fe, re_, ie, de), (fg, rg, ig, dg) = out
+    (fe, re_, ie, de, se), (fg, rg, ig, dg, sg) = out
     assert torch.equal(fe, fg)
     assert (re_, ie) == (rg, ig)
     assert de == dg
+    assert se == sg
     assert not any(v for k, v in dg.items() if "plain_calls" in k)
 
 
@@ -1202,6 +1209,55 @@ def test_graph_replays_two_stages_per_iteration(dev):
     assert r._wf_state is st
     assert cache.replays - seen[1] >= 2 * n
     assert cache.captures - seen[0] <= 4
+
+
+def test_stopwatch_on_the_card(dev):
+    """The stopwatch's stamps, captured into the stage graphs: after
+    the stages are captured, every slot is positive over a few calls
+    and their sum is no more than the calls' wall time; the stamps add
+    no replay (two an iteration), no capture and no count read (one an
+    iteration, the only ``tolist``)."""
+    import time
+
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.render.graph import graph_cache
+    from logipathtracer_tpu_torch.utils import trace
+    cfg = RenderConfig(width=128, height=64, compact_tile=1024,
+                       pool_size=8192, max_depth=6)
+    r = ProgressiveRenderer(_graph_scene("box"), cfg, host_seed=3,
+                            device=dev)
+    r.step(2)
+    r.radiance()
+    cache = graph_cache(r.scene)
+    seen = (cache.captures, cache.replays)
+    reads = []
+    tolist = torch.Tensor.tolist
+
+    def counted(self):
+        reads.append(self.numel())
+        return tolist(self)
+    torch.cuda.synchronize(dev)
+    t0 = trace.mark()
+    wall0 = time.perf_counter()
+    torch.Tensor.tolist = counted
+    try:
+        for _ in range(3):
+            r.step(2)
+        r.radiance()
+    finally:
+        torch.Tensor.tolist = tolist
+    wall = time.perf_counter() - wall0
+    w = trace.window(t0)
+    it = w["iterations"]
+    assert it > 0 and w["host_syncs"]["count_read"] == it
+    assert reads == [trace.WIDTH] * it
+    slots = w["slots_ns"]
+    assert all(v > 0 for v in slots.values()), slots
+    assert sum(slots.values()) <= wall * 1e9
+    assert cache.captures == seen[0]
+    assert cache.replays - seen[1] == 2 * it
+    got = trace.per_iteration(w)
+    assert set(got["stage_ms"]) == set(trace.SLOTS)
 
 
 def test_graph_cache_freed_with_its_renderer(dev):

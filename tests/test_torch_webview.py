@@ -2,8 +2,8 @@
 and the preview switch of tests/test_webview.py against a stub
 renderer, then with the port's CPU renderer behind it: the display size
 sent to the client is (width, height), the size of the published
-frames, also at render_scale 2; and the renderer and its preview share
-one loaded glTF."""
+frames, also at render_scale 2, and the stats carry the trace's host
+syncs; and the renderer and its preview share one loaded glTF."""
 
 import json
 import threading
@@ -220,10 +220,14 @@ def test_display_size_is_the_frame_size(glb, tmp_path):
     base, t, rc = _start(tmp_path, build, **vars(_cli_args(
         glb, render_scale=2, spp_per_frame=2)))
     try:
-        _wait_frames(base, spp=2)
+        stats = _wait_frames(base, spp=2)
         body, headers = _get_raw(base + "/frame.raw")
     finally:
         _quit(base, t)
+    # Beside samples_per_sec, the trace's last second (utils/trace.py):
+    # host syncs an iteration, and no stage times off the card.
+    assert stats["host_syncs_per_iteration"] > 1.0
+    assert "stage_ms" not in stats
     cfg, _, r = built["v"]
     assert (cfg.render_width, cfg.render_height) == (32, 32)
     assert r.accum.shape[:2] == (32, 32)
