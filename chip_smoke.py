@@ -183,12 +183,15 @@ for the row's work on the row's pool, the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its operations over 67 TFLOP/s (fp32 without tensor cores; NVIDIA's
 data sheet).  The intersect kernels' operations come from a count pass
-over the plain version's run on the same pool (``counted``): SLAB_OPS
-per slab test it made and MT_OPS per ray-triangle test the kernel's
-contract implies — S per own slab pass for the compacted visit, less,
-with any_hit, the tests after the first accepted triangle
-(``any_hit_saved``); S per ray of every gated 128-ray sub-tile for K6's
-cap = 0 body and K8.  The worklist kernel makes
+over the plain version's run on the same pool
+(``harness.isect_counted``): SLAB_OPS per slab test it made and MT_OPS
+per ray-triangle test the kernel's contract implies — S per own slab
+pass for the compacted visit, less, with any_hit, the tests after the
+first accepted triangle (``any_hit_saved``); for K4, whose warps test
+a queued ray against the boxes of a cluster's 32-slot groups first,
+SLAB_OPS per group box test and MT_OPS per slot of the groups it
+tests; S per ray of every gated 128-ray sub-tile for K6's cap = 0 body
+and K8.  The worklist kernel makes
 WORLD_SLAB_OPS per (ray, box) slab test, every ray against every box as
 its plain version does.  K3 moves 4 bytes of pixel id per row, 12 of
 radiance per retired row and a read and a write of each pixel it
@@ -220,9 +223,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch  # noqa: E402
 
 from logipathtracer_tpu_torch.tools.harness import (  # noqa: E402
-    bounce_pool, device_ms, event_ms, make_tail, megakernel_pools,
-    primary_pool, runner, scene_tables, shade_args, shade_counted,
-    shade_ops, shade_work, shadow_pool, timed_steps, walk_efficiency)
+    bounce_pool, device_ms, event_ms, group_line, isect_counted, make_tail,
+    megakernel_pools, primary_pool, runner, scene_tables, shade_args,
+    shade_counted, shade_ops, shade_work, shadow_pool, sub_pool,
+    timed_steps, walk_efficiency)
 
 # Tolerances.  The intersect kernels K1 and K4-K8 must equal their plain
 # versions bit for bit (t, tri and obj; t alone in any-hit); K2 uses the
@@ -307,109 +311,11 @@ def bound(ops: float, n_bytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-@contextlib.contextmanager
-def counted(block=256, prefetch=False, chunk=16, early_exit=False):
-    """The count pass: the plain intersect versions run in the block with
-    every cluster visit's lanes observed (``PlainSweep.lanes`` and
-    ``visit``).  The dict it yields holds, after the block, "slab": the
-    slab tests made (each visit's lanes, within its gate), "own": the
-    lanes whose own slab test passed, "subtile": the lanes of the 128-ray
-    sub-tiles some ray of which passed (visits with ``subtile``), and
-    "tested": the lanes that run the triangle test, the sub-tile's for a
-    visit with ``subtile``, else the own passes; and, per visit of a
-    cluster by a tile, "listed": the ``block``-ray blocks that visit it
-    (within the gate), "passed": those with some own pass, and "staged":
-    the blocks whose visit stages the cluster (closest_hit.cuh
-    compact_visit, subtile_visit) — some own pass, or with ``prefetch``
-    some pass ahead: the slab against the best before the previous
-    cluster of the same visit (the first cluster of a tile, or of a
-    ``chunk``-cluster chunk behind a gate, is staged on an own pass).
-    With ``early_exit`` (the sub-tile visit's exit after u), "rest": the
-    (lane, slot) tests of the gated sub-tiles that go on past the u
-    decision — u not rejected, or a best above kInf before the visit —
-    else None.  The sums stay on the device until the block ends: no
-    host read per visit."""
-    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    plain = ci.PlainSweep
-    slab, gated, own, sub, tested, rest = [0], [], [], [], [], []
-    listed, passed, staged = [], [], []
-    last = {}
-
-    class Counting(plain):
-        def lanes(self, sl, c, gate=None):
-            lo, ld, hit = super().lanes(sl, c, gate)
-            self.last = lo, ld, hit
-            if gate is None:
-                slab[0] += hit.numel()
-            else:
-                gated.append(gate.sum())
-            own.append(hit.sum())
-            if not isinstance(sl, slice) or hit.numel() % block:
-                return lo, ld, hit          # not a tile of K1, K4-K8
-            g = torch.ones_like(hit) if gate is None else gate
-            listed.append(g.reshape(-1, block).any(dim=1).sum())
-            passed.append(hit.reshape(-1, block).any(dim=1).sum())
-            key = (id(self), sl.start)
-            ahead = hit
-            if prefetch and last.get("key") == key and not (
-                    gate is not None and c % chunk == 0):
-                ahead = ci._slab_table(lo, [1.0 / x for x in ld],
-                                       self.aabb[c], last["best"]) & g
-            staged.append(ahead.reshape(-1, block).any(dim=1).sum())
-            last.update(key=key, best=self.best_t[sl].clone())
-            return lo, ld, hit
-
-        def visit(self, sl, c, any_hit=False, gate=None, subtile=0):
-            best = self.best_t[sl].clone()
-            super().visit(sl, c, any_hit=any_hit, gate=gate,
-                          subtile=subtile)
-            lo, ld, hit = self.last
-            if not subtile:
-                tested.append(hit.sum())
-                return
-            lanes = hit.reshape(-1, subtile).any(dim=1).repeat_interleave(
-                subtile)
-            n = lanes.sum()
-            sub.append(n)
-            tested.append(n)
-            if early_exit:
-                rest.append(past_u(lo, ld, lanes, self.cl_tris[c], best))
-
-    work = {}
-    ci.PlainSweep = Counting
-    try:
-        yield work
-    finally:
-        ci.PlainSweep = plain
-    total = lambda xs: int(torch.stack(xs).sum()) if xs else 0
-    work["slab"] = slab[0] + total(gated)
-    work.update(own=total(own), subtile=total(sub), tested=total(tested),
-                listed=total(listed), passed=total(passed),
-                staged=total(staged),
-                rest=total(rest) if early_exit else None)
-
-
-def past_u(lo, ld, lanes, trib, best):
-    """The (lane, slot) tests of one cluster visit that an exact early
-    exit after the u decision cannot leave: every slot of a ``lanes``
-    lane whose u is not rejected (a NaN u is not), and every slot of a
-    lane whose best is above kInf (it may accept a miss's kInf).  A 0-d
-    tensor."""
-    from logipathtracer_tpu_torch.ops.intersect import INF
-    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    idx = lanes.nonzero().squeeze(1)
-    n = torch.zeros((), dtype=torch.int64, device=best.device)
-    for part in idx.split(ci.MT_RAYS):
-        u = ci._mt_u([x[part] for x in lo], [x[part] for x in ld], trib)[4]
-        go_on = ~((u < 0.0) | (u > 1.0)) | (best[part] > INF)[:, None]
-        n = n + go_on.sum()
-    return n
-
-
 def plain_work(plain, **staging):
     """(result, ms, work) of one plain intersect call, timed, with its
-    count pass (``staging``: ``counted``'s block and prefetch)."""
-    with counted(**staging) as work:
+    count pass (``staging``: ``isect_counted``'s block, prefetch and
+    groups)."""
+    with isect_counted(**staging) as work:
         out, ms = _time_once(plain)
     return out, ms, work
 
@@ -453,13 +359,17 @@ def isect_bound(work, scene, inputs, r: int, saved: int = 0):
     """Bound of an intersect kernel on an R-ray pool: the count pass's
     operations — its slab tests and S triangle tests for every lane that
     runs them ("tested": the own passes of the compacted visit, every
-    lane of a gated sub-tile), ``saved`` triangle tests fewer; with the
-    sub-tile visit's early exit MT_U_OPS for each and the rest only for
-    the "rest" — or its inputs read once and (t, tri, obj) written
-    once."""
+    lane of a gated sub-tile), ``saved`` triangle tests fewer; with K4's
+    32-slot groups its group box tests at SLAB_OPS and the slots of the
+    groups it tests in place of the S tests; with the sub-tile visit's
+    early exit MT_U_OPS for each and the rest only for the "rest" — or
+    its inputs read once and (t, tri, obj) written once."""
     s = scene.cl_tris.shape[2]
     tests = work["tested"] * s - saved
     ops = work["slab"] * SLAB_OPS + tests * MT_OPS
+    if work.get("group_slots") is not None:     # K4's 32-slot groups
+        ops = ((work["slab"] + work["group_tests"]) * SLAB_OPS
+               + work["group_slots"] * MT_OPS)
     if work.get("rest") is not None:    # the sub-tile visit's early exit
         ops = (work["slab"] * SLAB_OPS + tests * MT_U_OPS
                + work["rest"] * (MT_OPS - MT_U_OPS))
@@ -863,27 +773,16 @@ COMPACTED = {"K4": False, "K5": True, "K6[cap>0]": True, "K7": False}
 SUBTILE = ("K6[cap=0]", "K8")
 
 
-def sub_pool(rays8, tile, n_live, tiles):
-    """``tiles`` whole tiles of rays8, evenly spread over the tiles that
-    hold the first ``n_live`` lanes."""
-    total = rays8.shape[1] // tile
-    n = min(tiles, total)
-    live = min(total, max(-(-n_live // tile), n))
-    pick = torch.linspace(0, live - 1, n).round().long()
-    idx = (pick[:, None] * tile + torch.arange(tile)).reshape(-1)
-    return rays8[:, idx.to(rays8.device)].contiguous()
-
-
 def staging(kind, r, tile):
     """The count pass's ``staging`` for an intersect kernel on an R-ray
-    pool: the block and prefetch of its compacted visit (``COMPACTED``)
-    or the sub-tile visit's block, gate then load and early exit
-    (``SUBTILE``)."""
+    pool: the block and prefetch of its compacted visit (``COMPACTED``;
+    K4's triangle test by 32-slot groups) or the sub-tile visit's block,
+    gate then load and early exit (``SUBTILE``)."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     if kind in SUBTILE:
         return dict(block=128, prefetch=False, early_exit=True)
     return dict(block=ci._block_threads(r, tile, kind),
-                prefetch=COMPACTED[kind])
+                prefetch=COMPACTED[kind], groups=kind == "K4")
 
 
 def check_isect(kind, scene, rays8, tile, runs=10, **kw):
@@ -892,16 +791,17 @@ def check_isect(kind, scene, rays8, tile, runs=10, **kw):
     visibility t < t_max on every lane.  Returns (max |dt|, kernel ms
     (median of ``runs``), plain ms (once), hit or blocked fraction,
     bound, visits), all on that pool; visits: the count pass's listed /
-    passed / staged block visits, the lanes it counted ("own", "tested")
-    and the mean list length "wn"."""
+    passed / staged block visits, the lanes it counted ("own", "tested"),
+    K4's group counts and the mean list length "wn"."""
     kernel, plain, inputs, wn = runner(kind, scene, rays8, tile, **kw)
     got = kernel()
     stage = staging(kind, rays8.shape[1], tile)
     ref, p_ms, work = plain_work(plain, **stage)
     saved = 0
-    if kw.get("any_hit"):
+    if kw.get("any_hit") and work["group_slots"] is None:
         saved = any_hit_saved(rays8, ref[1], ref[2], scene_tables(scene),
                               1e-4)
+    if kw.get("any_hit"):
         t_max = rays8[6]
         bad = int(((got[0] < t_max) != (ref[0] < t_max)).sum())
         assert bad == 0, f"{kind} any-hit: visibility differs on {bad} lanes"
@@ -918,7 +818,8 @@ def check_isect(kind, scene, rays8, tile, runs=10, **kw):
         frac = float((ref[1] >= 0).float().mean())
     b = isect_bound(work, scene, inputs, rays8.shape[1], saved)
     visits = {k: work[k] for k in ("listed", "passed", "staged", "own",
-                                   "tested", "rest")}
+                                   "tested", "rest", "group_tests",
+                                   "group_passed", "group_slots")}
     visits.update(wn=float(wn.float().mean()), **stage)
     return err, event_ms(kernel, runs), p_ms, frac, b, visits
 
@@ -929,7 +830,7 @@ def print_visits(kind, what, visits, s):
     some ray of the block passes, and the cluster blocks (9 x S floats
     each) staged per launch by a ring that stages every listed cluster
     and by the kernel; the lanes that run the triangle test against the
-    own slab passes."""
+    own slab passes; K4's group figures (``harness.group_line``)."""
     blk = 36 * s
     v = visits
     unit = "chunks" if kind in ("K5", "K6[cap>0]", "K6[cap=0]") else \
@@ -944,7 +845,9 @@ def print_visits(kind, what, visits, s):
           f"{v['tested'] / max(v['own'], 1):.2f}x the own passes"
           + ("" if v.get("rest") is None else
              f", {v['rest'] / max(v['tested'] * s, 1):.4f} of their slot "
-             f"tests past the u decision (early exit)"), flush=True)
+             f"tests past the u decision (early exit)")
+          + ("" if v.get("group_tests") is None else
+             f"; {group_line(v)}"), flush=True)
 
 
 def outside_phase(dev, card):

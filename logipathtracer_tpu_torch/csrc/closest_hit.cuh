@@ -5,7 +5,8 @@
 // function, K1's kernel, whose visits queue the rays that pass a
 // cluster's slab for whole warps to work through (compact_list_kernel),
 // the same compacted visit for K4-K7 as a device function
-// (compact_visit), and the sub-tile visit of K6's cap = 0 body and K8,
+// (compact_visit; K4's takes the triangle test by 32-slot groups,
+// warp_groups), and the sub-tile visit of K6's cap = 0 body and K8,
 // where every ray of a 128-ray block runs a cluster's triangle test once
 // one of them passes its slab (subtile_visit).
 //
@@ -353,6 +354,80 @@ __device__ __forceinline__ int warp_closest(const float* tri, int S,
   return tm < best ? sm : -1;
 }
 
+// A cluster's 32-slot groups (K4): box [C, G, 8] f32, G = ceil(S / 32),
+// group g's box (min.xyz, max.xyz, pad, pad) bounding v0, v0 + e1 and
+// v0 + e2 of its real slots 32g .. 32g + 31 in the cluster's object
+// space, padded outward; n [C] i32, the groups that hold real slots
+// (real slots are a prefix of the cluster, so these are groups 0 ..
+// n - 1).  Built by ops/kernels/stream_cluster.py cluster_groups.
+struct Groups {
+  const float* box;
+  const int* n;
+  int G;
+};
+
+// warp_closest by groups: the triangle test of one queued ray by one
+// warp against the n groups of a staged [9, S] block whose boxes
+// (box[8 g .. 8 g + 5]) hold its real slots.  Lane l slab-tests the box
+// of group g0 + l (32 groups at a time) against the ray's best, one
+// ballot gives the groups it passes, and the warp runs Moller-Trumbore
+// on their slots only, in ascending group order, lane l on slot 32g + l.
+// A slot with eps < t < best lies in a box the ray passes (the boxes are
+// padded beyond the rounding of either test), so a group it misses holds
+// no slot that could be accepted: the answer is warp_closest's, bit for
+// bit.  Closest hit: the lexicographic minimum of (t, slot) over the
+// tested slots; any-hit: the lowest accepted slot of the first group
+// holding one.  An empty group (g >= n) is never tested: its box is
+// never read.
+__device__ __forceinline__ int warp_groups(const float* tri, int S,
+                                           const float* __restrict__ box,
+                                           int n, const Ray& l, float eps,
+                                           float best, bool any_hit,
+                                           float& t_hit) {
+  const int lane = threadIdx.x & 31;
+  const float ix = 1.0f / l.dx, iy = 1.0f / l.dy, iz = 1.0f / l.dz;
+  float tm = __int_as_float(0x7f800000);  // +inf: never < best
+  int sm = 0x7fffffff;
+  for (int g0 = 0; g0 < n; g0 += 32) {
+    bool pass = false;
+    if (g0 + lane < n) {
+      float t0, t1;
+      slab_range_one_nan(l, ix, iy, iz, box + 8 * (g0 + lane), t0, t1);
+      pass = slab_pass(t0, t1, best);
+    }
+    for (unsigned m = __ballot_sync(0xffffffffu, pass); m; m &= m - 1) {
+      const int s0 = 32 * (g0 + __ffs(m) - 1);
+      const int s = s0 + lane;
+      if (any_hit) {
+        bool ok = false;
+        if (s < S) {
+          const float t = mt(tri, S, s, l);
+          ok = t > eps && t < best;
+        }
+        const unsigned a = __ballot_sync(0xffffffffu, ok);
+        if (a) return s0 + __ffs(a) - 1;
+      } else if (s < S) {
+        const float t = mt(tri, S, s, l);
+        if (t > eps && t < tm) {
+          tm = t;
+          sm = s;
+        }
+      }
+    }
+  }
+  if (any_hit) return -1;
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ot = __shfl_xor_sync(0xffffffffu, tm, o);
+    const int os = __shfl_xor_sync(0xffffffffu, sm, o);
+    if (ot < tm || (ot == tm && os < sm)) {
+      tm = ot;
+      sm = os;
+    }
+  }
+  t_hit = tm;
+  return tm < best ? sm : -1;
+}
+
 // Closest hit over per-tile cluster lists with the rays that pass each
 // cluster's slab compacted into a queue (K1).  One thread per ray owns
 // its best (t, tri, obj); a block holds blockDim.x consecutive rays of
@@ -522,19 +597,25 @@ __device__ __forceinline__ VisitQueue carve_queue(float* smem, int S,
 //     falls), so every cluster the block tests has been copied.  The
 //     decision of step 1 is still taken against the updated best.  S is
 //     then a multiple of 4 and tris 16-byte aligned.
+// kGroups (gate then load, K4): step 3 stages only the rows' prefix of
+// the cluster's groups that hold real slots (groups.n; S a multiple of 4
+// and tris 16-byte aligned, 16-byte pieces), and the warps run
+// warp_groups in place of warp_closest.
 // A gate publishes its counts with one barrier; a tested cluster adds
 // two (block staged and queue written; answers written).  K4 runs it as
-// <false, 4>, K5 as <true, 1>, K6 (cap > 0) and K7 as their sources say:
-// the fastest forms measured on the card for each (PERF.md).
-template <bool kPrefetch, int kBatch, class ClusterAt>
+// <false, 4, true>, K5 as <true, 1>, K6 (cap > 0) and K7 as their
+// sources say: the fastest forms measured on the card for each
+// (PERF.md).
+template <bool kPrefetch, int kBatch, bool kGroups = false, class ClusterAt>
 __device__ __forceinline__ void compact_visit(
     ClusterAt cluster_at, int n, const VisitQueue& q,
     const float* __restrict__ tris, int S, const int* __restrict__ meta,
     const float* __restrict__ inv, const float* __restrict__ aabb,
     const Ray& w, float eps, bool any_hit, float& best, int& btri,
-    int& bobj) {
+    int& bobj, const Groups& groups = Groups{}) {
   static_assert(kBatch >= 1 && kBatch <= 32 && (!kPrefetch || kBatch == 1),
                 "a batch of up to 32 gates, or a prefetch");
+  static_assert(!kPrefetch || !kGroups, "groups stage after the gate");
   const int nt = blockDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = nt >> 5;
@@ -652,9 +733,20 @@ __device__ __forceinline__ void compact_visit(
       q.best[pos] = best;
     }
     const float* staged = q.stage;
+    int ng = 0;  // the cluster's groups that hold real slots (kGroups)
     if constexpr (kPrefetch) {
       cp_async_wait<1>();  // this thread's copy of cluster k landed
       staged = q.stage + (k & 1) * blk;
+    } else if constexpr (kGroups) {
+      ng = groups.n[c];
+      const int w4 = min(S, 32 * ng) >> 2, s4 = S >> 2;  // float4s a row
+      const float4* src = reinterpret_cast<const float4*>(
+          tris + static_cast<size_t>(c) * blk);
+      float4* dst = reinterpret_cast<float4*>(q.stage);
+      for (int i = threadIdx.x; i < 9 * w4; i += nt) {
+        const int row = i / w4, at = row * s4 + (i - row * w4);
+        dst[at] = src[at];
+      }
     } else {
       const float* src = tris + static_cast<size_t>(c) * blk;
       for (int i = threadIdx.x; i < blk; i += nt) q.stage[i] = src[i];
@@ -664,8 +756,13 @@ __device__ __forceinline__ void compact_visit(
       const Ray lq{q.ray[0 * nt + j], q.ray[1 * nt + j], q.ray[2 * nt + j],
                    q.ray[3 * nt + j], q.ray[4 * nt + j], q.ray[5 * nt + j]};
       float tq = 0.0f;
-      const int slot = warp_closest(staged, S, lq, eps, q.best[j], any_hit,
-                                    tq);
+      int slot;
+      if constexpr (kGroups)
+        slot = warp_groups(staged, S,
+                           groups.box + static_cast<size_t>(c) * 8 * groups.G,
+                           ng, lq, eps, q.best[j], any_hit, tq);
+      else
+        slot = warp_closest(staged, S, lq, eps, q.best[j], any_hit, tq);
       if (lane == 0) {
         q.slot[j] = slot;
         q.t[j] = tq;

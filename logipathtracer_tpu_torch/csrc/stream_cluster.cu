@@ -25,6 +25,15 @@
 // incoherent tile lists most of the scene's clusters (up to 991 of 1,233
 // on an outside bounce tile), most of which no ray of a block passes:
 // the gates of kBatch clusters share one barrier.
+//
+// A second, finer cull inside the triangle test: a cluster's slots
+// follow its BVH subtree's leaf order, so 32 consecutive slots are
+// spatially compact.  A warp that takes a queued ray slab-tests the boxes
+// of the cluster's 32-slot groups first, one a lane, and runs
+// Moller-Trumbore only on the slots of the groups the ray passes
+// (closest_hit.cuh warp_groups); only the groups that hold real slots
+// are staged and tested (ops/kernels/stream_cluster.py cluster_groups).
+// The same hits, bit for bit.
 
 #include "closest_hit.cuh"
 
@@ -38,14 +47,17 @@ constexpr int kBatch = 4;  // gates a barrier (PERF.md: 1, 2, 4, 8 measured)
 // A block of blockDim.x <= 256 consecutive rays of one `tile`-ray tile
 // (a multiple of the block) visits the tile's list wl[ti, :wn[ti]] in
 // order.  Launch bounds as K1's (64 registers); shared memory:
-// visit_bytes.
+// visit_bytes.  gbox [C, G, 8], gn [C]: the clusters' groups
+// (lpt::Groups).
 __global__ void __launch_bounds__(256, 4)
     visit_list_kernel(const float* __restrict__ rays8, int R,
                       const int* __restrict__ wl, const int* __restrict__ wn,
                       int C, int tile, const int* __restrict__ meta,
                       const float* __restrict__ inv,
                       const float* __restrict__ aabb,
-                      const float* __restrict__ tris, int S, float eps,
+                      const float* __restrict__ tris, int S,
+                      const float* __restrict__ gbox,
+                      const int* __restrict__ gn, int G, float eps,
                       int has_tmax, int any_hit, float* __restrict__ t_out,
                       int* __restrict__ tri_out,
                       int* __restrict__ obj_out) {
@@ -58,9 +70,10 @@ __global__ void __launch_bounds__(256, 4)
   float best = has_tmax ? lpt::nmin(rays8[6 * R + r], kBig) : kBig;
   int btri = -1, bobj = -1;
   const int* list = wl + static_cast<size_t>(ti) * C;
-  lpt::compact_visit<false, kBatch>([list](int k) { return list[k]; },
-                                    wn[ti], q, tris, S, meta, inv, aabb, w,
-                                    eps, any_hit != 0, best, btri, bobj);
+  lpt::compact_visit<false, kBatch, true>(
+      [list](int k) { return list[k]; }, wn[ti], q, tris, S, meta, inv,
+      aabb, w, eps, any_hit != 0, best, btri, bobj,
+      lpt::Groups{gbox, gn, G});
   t_out[r] = btri >= 0 ? best : kInf;
   tri_out[r] = btri;
   obj_out[r] = bobj;
@@ -68,12 +81,14 @@ __global__ void __launch_bounds__(256, 4)
 
 }  // namespace
 
-// threads: 128 or 256 rays a block (a divisor of tile).
+// threads: 128 or 256 rays a block (a divisor of tile).  S a multiple
+// of 4 and tris 16-byte aligned.
 extern "C" int lpt_stream_cluster_intersect(
     const void* rays8, int R, const void* wl, const void* wn, int C,
     int tile, const void* meta, const void* inv, const void* aabb,
-    const void* tris, int S, float eps, int threads, int has_tmax,
-    int any_hit, void* t, void* tri, void* obj, void* stream) {
+    const void* tris, int S, const void* gbox, const void* gn, int G,
+    float eps, int threads, int has_tmax, int any_hit, void* t, void* tri,
+    void* obj, void* stream) {
   const size_t smem = lpt::visit_bytes(S, threads, false, kBatch);
   const int e = lpt::prepare(visit_list_kernel, smem);
   if (e) return e;
@@ -82,7 +97,8 @@ extern "C" int lpt_stream_cluster_intersect(
       static_cast<const float*>(rays8), R, static_cast<const int*>(wl),
       static_cast<const int*>(wn), C, tile, static_cast<const int*>(meta),
       static_cast<const float*>(inv), static_cast<const float*>(aabb),
-      static_cast<const float*>(tris), S, eps, has_tmax, any_hit,
+      static_cast<const float*>(tris), S, static_cast<const float*>(gbox),
+      static_cast<const int*>(gn), G, eps, has_tmax, any_hit,
       static_cast<float*>(t), static_cast<int*>(tri), static_cast<int*>(obj));
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,6 +54,13 @@ def scene_cluster_bounds(scene):
     return _scene_cache(scene, "cluster_bounds", make)
 
 
+def scene_cluster_groups(scene):
+    """K4's 32-slot groups of a device scene's clusters
+    (``stream_cluster.cluster_groups``: boxes [C, G, 8], counts [C])."""
+    return _scene_cache(scene, "cluster_groups", lambda: k4.cluster_groups(
+        scene.cl_meta, _inv_rows(scene), scene.cl_aabb, scene.cl_tris))
+
+
 def scene_chunk_bounds(scene, chunk: int):
     """World AABBs of the scene's ``chunk``-cluster chunks, the cluster
     tables padded to a chunk multiple ([NC, 3] min, max)."""
@@ -165,7 +172,8 @@ def intersect_scene_cluster_wl(scene, origin, direction, eps: float = 1e-4,
         scene.cl_meta, _inv_rows(scene), scene.cl_aabb, scene.cl_tris,
         scene.obj_world, rays8, tile=tile, eps=eps, has_tmax=has_tmax,
         any_hit=any_hit and has_tmax, chunk_gate=chunk_gate,
-        bounds=scene_cluster_bounds(scene))
+        bounds=scene_cluster_bounds(scene),
+        groups=scene_cluster_groups(scene) if rays8.is_cuda else None)
     return t[:r], obj[:r], tri[:r]
 
 

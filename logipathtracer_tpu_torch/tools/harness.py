@@ -1,6 +1,7 @@
 """What ``chip_smoke.py`` and ``tools/kernel_times.py`` share: the main
-paths' ray pools, a runner per intersect kernel with its front end, the
-K3 input tail, K2's pools and its count pass, and the timers.
+paths' ray pools, a runner per intersect kernel with its front end and
+the intersect kernels' count pass, the K3 input tail, K2's pools and its
+count pass, and the timers.
 
 The module imports no part of the package at its top: each function
 imports what it needs when called, so ``tools/kernel_times.py --root``
@@ -236,7 +237,8 @@ def runner(kind, scene, rays8, tile, chunk=16, **kw):
     and the streamed (K4, K5, K6) or order (K7, K8) kinds — on a packed
     pool, with the front end the main path gives it, computed once (wn
     [tiles]: the clusters, for K5 and K6 the chunks, each tile lists —
-    its worklist, or every one, none on a K6 tile with live == 0)."""
+    its worklist, or every one, none on a K6 tile with live == 0; K4's
+    call takes the scene's 32-slot groups where the package has them)."""
     from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
@@ -264,8 +266,13 @@ def runner(kind, scene, rays8, tile, chunk=16, **kw):
         wl, wn = build(*scene_cluster_bounds(scene), rays8, tile,
                        has_tmax=has_tmax)
         args = (rays8, wl, wn, *tables, tile, EPS)
-        return (lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
-                args[:7], wn)
+        kernel_kw = dict(kw)
+        if kind == "K4" and hasattr(k4, "cluster_groups"):
+            from logipathtracer_tpu_torch.ops.traverse import \
+                scene_cluster_groups
+            kernel_kw["groups"] = scene_cluster_groups(scene)
+        return (lambda: kernel(*args, **kernel_kw),
+                lambda: plain(*args, **kw), args[:7], wn)
     bounds = scene_chunk_bounds(scene, chunk)
     chunk_aabb = torch.cat(bounds, 1).contiguous()
     if kind == "K5":
@@ -282,6 +289,182 @@ def runner(kind, scene, rays8, tile, chunk=16, **kw):
     return (lambda: k6.octant_chunk_intersect(*args, **kw),
             lambda: k6.octant_chunk_intersect_plain(*args, **kw), args[:9],
             live * order.shape[1])
+
+
+@contextlib.contextmanager
+def isect_counted(block=256, prefetch=False, chunk=16, early_exit=False,
+                  groups=False):
+    """The intersect kernels' count pass: the plain intersect versions
+    run in the block with every cluster visit's lanes observed
+    (``PlainSweep.lanes`` and ``visit``).  The dict it yields holds,
+    after the block, "slab": the slab tests made (each visit's lanes,
+    within its gate), "own": the lanes whose own slab test passed,
+    "subtile": the lanes of the 128-ray sub-tiles some ray of which
+    passed (visits with ``subtile``), and "tested": the lanes that run
+    the triangle test, the sub-tile's for a visit with ``subtile``, else
+    the own passes; and, per visit of a cluster by a tile, "listed": the
+    ``block``-ray blocks that visit it (within the gate), "passed": those
+    with some own pass, and "staged": the blocks whose visit stages the
+    cluster (closest_hit.cuh compact_visit, subtile_visit) — some own
+    pass, or with ``prefetch`` some pass ahead: the slab against the best
+    before the previous cluster of the same visit (the first cluster of a
+    tile, or of a ``chunk``-cluster chunk behind a gate, is staged on an
+    own pass).  With ``early_exit`` (the sub-tile visit's exit after u),
+    "rest": the (lane, slot) tests of the gated sub-tiles that go on past
+    the u decision — u not rejected, or a best above kInf before the
+    visit — else None.  With ``groups`` (K4's triangle test by 32-slot
+    groups, closest_hit.cuh warp_groups; the package's
+    ``stream_cluster.cluster_groups``) and where the package has them,
+    per own pass: "group_tests", the boxes of the cluster's groups that
+    hold real slots, "group_passed", those whose slab passes against the
+    lane's best before the visit, and "group_slots", the slots of the
+    groups the warp tests — every passed group, or with any-hit those up
+    to the first holding an accepted slot; else None.  The sums stay on
+    the device until the block ends: no host read per visit."""
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
+    plain = ci.PlainSweep
+    make_groups = getattr(k4, "cluster_groups", None) if groups else None
+    slab, gated, own, sub, tested, rest = [0], [], [], [], [], []
+    listed, passed, staged = [], [], []
+    g_tests, g_passed, g_slots = [], [], []
+    last = {}
+
+    class Counting(plain):
+        def __init__(self, rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps,
+                     best0):
+            super().__init__(rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps,
+                             best0)
+            if make_groups is not None:
+                self.groups = make_groups(cl_meta, cl_inv, cl_aabb, cl_tris)
+
+        def lanes(self, sl, c, gate=None):
+            lo, ld, hit = super().lanes(sl, c, gate)
+            self.last = lo, ld, hit
+            if gate is None:
+                slab[0] += hit.numel()
+            else:
+                gated.append(gate.sum())
+            own.append(hit.sum())
+            if not isinstance(sl, slice) or hit.numel() % block:
+                return lo, ld, hit          # not a tile of K1, K4-K8
+            g = torch.ones_like(hit) if gate is None else gate
+            listed.append(g.reshape(-1, block).any(dim=1).sum())
+            passed.append(hit.reshape(-1, block).any(dim=1).sum())
+            key = (id(self), sl.start)
+            ahead = hit
+            if prefetch and last.get("key") == key and not (
+                    gate is not None and c % chunk == 0):
+                ahead = ci._slab_table(lo, [1.0 / x for x in ld],
+                                       self.aabb[c], last["best"]) & g
+            staged.append(ahead.reshape(-1, block).any(dim=1).sum())
+            last.update(key=key, best=self.best_t[sl].clone())
+            return lo, ld, hit
+
+        def visit(self, sl, c, any_hit=False, gate=None, subtile=0):
+            best = self.best_t[sl].clone()
+            super().visit(sl, c, any_hit=any_hit, gate=gate,
+                          subtile=subtile)
+            lo, ld, hit = self.last
+            if not subtile:
+                tested.append(hit.sum())
+                if make_groups is not None:
+                    self.count_groups(lo, ld, hit, best, c, any_hit)
+                return
+            lanes = hit.reshape(-1, subtile).any(dim=1).repeat_interleave(
+                subtile)
+            n = lanes.sum()
+            sub.append(n)
+            tested.append(n)
+            if early_exit:
+                rest.append(past_u(lo, ld, lanes, self.cl_tris[c], best))
+
+        def count_groups(self, lo, ld, hit, best, c, any_hit):
+            """The group counts of one visit's own passes (warp_groups:
+            the boxes of groups past the count are NaN and never pass)."""
+            box, n = self.groups[0][c], self.groups[1][c]
+            s = self.cl_tris.shape[2]
+            gs = box.shape[0]
+            width = (s - 32 * torch.arange(gs, device=box.device)).clamp(
+                max=32)
+            idx = hit.nonzero().squeeze(1)
+            g_tests.append(idx.numel() * n)
+            for part in idx.split(ci.MT_RAYS):
+                pl = [x[part, None] for x in lo]
+                pd = [x[part, None] for x in ld]
+                gp = ci._slab_table(pl, [1.0 / x for x in pd],
+                                    list(box[:, :6].T), best[part, None])
+                g_passed.append(gp.sum())
+                if any_hit:
+                    t = ci._mt([x[:, 0] for x in pl], [x[:, 0] for x in pd],
+                               self.cl_tris[c])
+                    ok = (t > self.eps) & (t < best[part, None])
+                    ok = torch.nn.functional.pad(ok, (0, 32 * gs - s))
+                    stop = gp & ok.reshape(-1, gs, 32).any(dim=2)
+                    first = torch.where(stop.any(dim=1),
+                                        stop.int().argmax(dim=1), gs)
+                    gp = gp & (torch.arange(gs, device=gp.device)[None]
+                               <= first[:, None])
+                g_slots.append((gp * width).sum())
+
+    work = {}
+    ci.PlainSweep = Counting
+    try:
+        yield work
+    finally:
+        ci.PlainSweep = plain
+    total = lambda xs: int(torch.stack(xs).sum()) if xs else 0
+    counted_groups = make_groups is not None
+    work["slab"] = slab[0] + total(gated)
+    work.update(own=total(own), subtile=total(sub), tested=total(tested),
+                listed=total(listed), passed=total(passed),
+                staged=total(staged),
+                rest=total(rest) if early_exit else None,
+                group_tests=total(g_tests) if counted_groups else None,
+                group_passed=total(g_passed) if counted_groups else None,
+                group_slots=total(g_slots) if counted_groups else None)
+
+
+def past_u(lo, ld, lanes, trib, best):
+    """The (lane, slot) tests of one cluster visit that an exact early
+    exit after the u decision cannot leave: every slot of a ``lanes``
+    lane whose u is not rejected (a NaN u is not), and every slot of a
+    lane whose best is above kInf (it may accept a miss's kInf).  A 0-d
+    tensor."""
+    from logipathtracer_tpu_torch.ops.intersect import INF
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    idx = lanes.nonzero().squeeze(1)
+    n = torch.zeros((), dtype=torch.int64, device=best.device)
+    for part in idx.split(ci.MT_RAYS):
+        u = ci._mt_u([x[part] for x in lo], [x[part] for x in ld], trib)[4]
+        go_on = ~((u < 0.0) | (u > 1.0)) | (best[part] > INF)[:, None]
+        n = n + go_on.sum()
+    return n
+
+
+def group_line(work) -> str:
+    """The count pass's group figures (``isect_counted`` with
+    ``groups``): the share of K4's group box tests that pass and the
+    slots tested per queued ray (each own pass is a queued ray)."""
+    if work.get("group_tests") is None:
+        return "no group test"
+    own = max(work["own"], 1)
+    return (f"{work['group_tests']} group box tests "
+            f"({work['group_tests'] / own:.2f} a queued ray), "
+            f"{work['group_passed'] / max(work['group_tests'], 1):.4f} "
+            f"passed; {work['group_slots'] / own:.1f} slots tested a "
+            f"queued ray")
+
+
+def sub_pool(rays8, tile, n_live, tiles):
+    """``tiles`` whole tiles of rays8, evenly spread over the tiles that
+    hold the first ``n_live`` lanes."""
+    total = rays8.shape[1] // tile
+    n = min(tiles, total)
+    live = min(total, max(-(-n_live // tile), n))
+    pick = torch.linspace(0, live - 1, n).round().long()
+    idx = (pick[:, None] * tile + torch.arange(tile)).reshape(-1)
+    return rays8[:, idx.to(rays8.device)].contiguous()
 
 
 def timed_steps(renderer, timed=(2, 2)):

@@ -8,6 +8,7 @@ kernel K2 on the main paths' pools (``shade``).
     python logipathtracer_tpu_torch/tools/kernel_times.py isect
         [--root DIR] [--label NAME] [--runs 10] [--main-runs N]
         [--kinds k4,k6,k5,k6cap0,k1,k7,k8] [--routes NAME,...]
+        [--count-tiles N]
     python logipathtracer_tpu_torch/tools/kernel_times.py shade
         [--root DIR] [--label NAME] [--runs 10] [--main-runs N]
     python logipathtracer_tpu_torch/tools/kernel_times.py ptxas
@@ -56,6 +57,15 @@ kernels it names, ``--routes`` runs only the main routes it names
               with the mean list length wn of K4's, K5's and K6's pools;
   digest:     sha256 of each kernel's (t, tri, obj) per pool, so that two
               checkouts' runs show whether they agree bit for bit;
+  count:      with ``--count-tiles N`` and k4: the count pass
+              (``harness.isect_counted``) of K4's plain version on N
+              tiles of each pool, spread over its live lanes — the slab
+              tests, the own slab passes (queued rays), K4's group box
+              tests, those that pass and the slots tested, and their
+              line (``harness.group_line``: the share of group tests
+              that pass, the slots tested a queued ray; "no group test"
+              for a package without them) — with K4's ms on those tiles
+              (``--runs`` calls);
   main:       with ``--main-runs N``: each route N times, each a fresh
               renderer (host seed 0): a warm-up session (step(1),
               step(2) twice, a camera reset: on the card the wavefront
@@ -195,9 +205,10 @@ def pick(routes, names):
 
 
 def isect_times(h, dev, runs, main_runs, kinds=tuple(ISECT_KINDS),
-                routes=MAIN_ROUTES):
+                routes=MAIN_ROUTES, count_tiles=0):
     """{kind: ms per pool for each of ``kinds`` (ISECT_KINDS' keys), "wn":
-    mean list per K4 / K5 / K6 pool, "main": each of ``routes``'
+    mean list per K4 / K5 / K6 pool, "count": K4's count pass on
+    ``count_tiles`` tiles of each pool, "main": each of ``routes``'
     runs}."""
     from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
                                           compile_scene)
@@ -207,7 +218,7 @@ def isect_times(h, dev, runs, main_runs, kinds=tuple(ISECT_KINDS),
                                                            make_outside_scene)
     _build.load_all(("compact_intersect", "shade", "flush", "stream_cluster",
                      "stream_chunk", "cluster_sweep"))
-    out = {k: {} for k in (*kinds, "wn", "digest")}
+    out = {k: {} for k in (*kinds, "wn", "digest", "count")}
     cfg = RenderConfig(width=1024, height=1024)
     scenes = {}
     streamed = [k for k in ("k4", "k6", "k5", "k6cap0") if k in kinds]
@@ -227,6 +238,9 @@ def isect_times(h, dev, runs, main_runs, kinds=tuple(ISECT_KINDS),
                 out[key][name] = h.event_ms(kernel, runs)
                 out["digest"][f"{key} {name}"] = digest(kernel())
                 out["wn"][f"{kind} {name}"] = float(wn.float().mean())
+                if key == "k4" and count_tiles:
+                    out["count"][name] = k4_count(h, scene, rays8, tile,
+                                                  count_tiles, kwk, runs)
     if {"k1", "k7", "k8"} & set(kinds):
         box = scenes["box"] = compile_scene(
             make_box_scene(spheres=10, subdiv=3))
@@ -260,6 +274,24 @@ def isect_times(h, dev, runs, main_runs, kinds=tuple(ISECT_KINDS),
         del probe, primary, bounce, shadow
     out["main"] = main_routes(h, dev, routes, main_runs, scenes)
     return out
+
+
+def k4_count(h, scene, rays8, tile, tiles, kw, runs):
+    """K4's count pass on ``tiles`` tiles of a pool spread over its live
+    lanes: {rays, slab, own, tested, group_tests, group_passed,
+    group_slots, line, kernel_ms}."""
+    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
+    n_live = int((rays8[0] < 1e29).sum())
+    sub8 = h.sub_pool(rays8, tile, n_live, tiles)
+    kernel, plain, _, _ = h.runner("K4", scene, sub8, tile, **kw)
+    block = ci._block_threads(sub8.shape[1], tile, "K4")
+    with h.isect_counted(block=block, groups=True) as work:
+        plain()
+    keys = ("slab", "own", "tested", "group_tests", "group_passed",
+            "group_slots")
+    return {"rays": sub8.shape[1], **{k: work[k] for k in keys},
+            "line": h.group_line(work),
+            "kernel_ms": h.event_ms(kernel, runs)}
 
 
 # The main paths K2 serves: (scene, RenderConfig fields).
@@ -377,6 +409,9 @@ def main(argv=None):
     ap.add_argument("--routes", default=None,
                     help="isect, shade: the main routes to run, "
                     "comma-separated (default: all)")
+    ap.add_argument("--count-tiles", type=int, default=0,
+                    help="isect: K4's count pass on this many tiles of "
+                    "each pool (0: none)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_times: needs a CUDA card")
@@ -410,7 +445,7 @@ def main(argv=None):
         if unknown:
             sys.exit(f"kernel_times: unknown kinds {sorted(unknown)}")
         res = isect_times(h, dev, runs, args.main_runs, kinds,
-                          pick(MAIN_ROUTES, args.routes))
+                          pick(MAIN_ROUTES, args.routes), args.count_tiles)
     print(json.dumps({"label": args.label or root, "card": card,
                       "kernels": args.kernels, "runs": runs, **res,
                       "seconds": time.perf_counter() - t0}), flush=True)

@@ -227,8 +227,8 @@ def busy_share(renderer, top=8):
 def prepass_compare(renderer, tile: int):
     """Frustum vs per-ray prepass on the first two intersect pools of a
     fresh step(2) in the eager form (CUDA only)."""
-    from logipathtracer_tpu_torch.ops.traverse import (_inv_rows,
-                                                       scene_cluster_bounds)
+    from logipathtracer_tpu_torch.ops.traverse import (
+        _inv_rows, scene_cluster_bounds, scene_cluster_groups)
     pools = []
     frustum = k4.build_cluster_worklists
 
@@ -247,6 +247,7 @@ def prepass_compare(renderer, tile: int):
     scene = renderer.scene
     wmin, wmax = scene_cluster_bounds(scene)
     tables = (scene.cl_meta, _inv_rows(scene), scene.cl_aabb, scene.cl_tris)
+    groups = scene_cluster_groups(scene)
     out = []
     for name, rays8 in zip(("iteration 1", "iteration 2"), pools):
         live = (rays8[0] < 1e29).reshape(-1, tile).any(1)
@@ -261,7 +262,7 @@ def prepass_compare(renderer, tile: int):
                 wn[live].float().mean())
             row[label + "_k4_ms"] = event_ms(
                 lambda: k4.stream_cl_intersect(rays8, wl, wn, *tables, tile,
-                                               1e-4))
+                                               1e-4, groups=groups))
         out.append(row)
     return out
 

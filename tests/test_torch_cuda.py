@@ -761,6 +761,119 @@ def test_k4_k5_cluster_size_128(dev, kernel):
         assert 0 < int((got[0] < (t_max if kw else ci.BIG)).sum()) < 8192
 
 
+def _grid_tables(dev, s=128):
+    """One flat, axis-aligned cluster: an 8 x 8 grid of unit squares on
+    the plane z = 2 (x, y in [0, 8]), two triangles each, slot 2k + j the
+    k-th square in row-major order, so that 32-slot group g holds rows
+    2g, 2g + 1: every hit lies on its group box's z faces and a hit on a
+    grid line on an x or y face.  One object, identity transform."""
+    tris = np.zeros((1, 9, s), np.float32)
+    for k in range(64):
+        x, y = k % 8, k // 8
+        for j, (v0, e1, e2) in enumerate((((x, y), (1, 0), (0, 1)),
+                                          ((x + 1, y + 1), (-1, 0),
+                                           (0, -1)))):
+            tris[0, :, 2 * k + j] = [v0[0], v0[1], 2, e1[0], e1[1], 0,
+                                     e2[0], e2[1], 0]
+    g = lambda a: torch.from_numpy(a).to(dev)
+    meta = g(np.array([[0, 0]], np.int32))
+    aabb = g(np.array([[0, 0, 2, 8, 8, 2, 0, 0]], np.float32))
+    inv = g(np.array([[1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0]], np.float32))
+    bounds = ci.chunk_world_bounds(meta, aabb, torch.eye(4, device=dev)[None],
+                                   1, 1, 1)
+    return bounds, (meta, inv, aabb, g(tris))
+
+
+def _group_edge_case(case, dev):
+    """(bounds or None, tables or None, origin, direction, t_max) of K4's
+    group edge cases: "grid", rays up +z at the grid lines inside the
+    cluster's box and their crossings (on the group boxes' faces), at
+    random points and tilted;
+    "ground", rays down onto the outside scene's ground quad (a cluster
+    of 2 real triangles, flat in y) at its edges, corners and inside."""
+    r = np.random.default_rng(31)
+    n = 1024
+    if case == "grid":
+        bounds, tables = _grid_tables(dev)
+        xy = r.integers(1, 16, (n, 2)).astype(np.float32) / 2
+        xy[n // 2:] = r.uniform(-0.5, 8.5, (n // 2, 2))
+        o = np.concatenate([xy, np.zeros((n, 1), np.float32)], 1)
+        d = np.tile(np.float32([0, 0, 1]), (n, 1))
+        d[3 * n // 4:, :2] = r.uniform(-0.3, 0.3, (n // 4, 2))
+        t_max = r.uniform(1.0, 3.0, n).astype(np.float32)
+    else:
+        bounds = tables = None
+        xz = r.integers(-2, 3, (n, 2)).astype(np.float32) * 15.0  # edges
+        xz[n // 2:] = r.uniform(-31, 31, (n // 2, 2))
+        target = np.stack([xz[:, 0], np.zeros(n, np.float32), xz[:, 1]], 1)
+        o = target + r.uniform(-3, 3, (n, 3)).astype(np.float32)
+        o[:, 1] = r.uniform(40.0, 60.0, n)      # above every sphere
+        o[:n // 4, [0, 2]] = target[:n // 4][:, [0, 2]]  # straight down
+        d = target - o
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t_max = r.uniform(30.0, 80.0, n).astype(np.float32)
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a,
+                                                        np.float32)).to(dev)
+    return bounds, tables, g(o), g(d), g(t_max)
+
+
+@pytest.mark.parametrize("mode", ["closest", "tmax", "any_hit"])
+@pytest.mark.parametrize("case", ["primary", "bounce", "shadow", "ground",
+                                  "grid"])
+def test_k4_groups_bit_equal_to_plain(dev, case, mode):
+    """K4's triangle test by 32-slot groups equals the plain version bit
+    for bit (t, tri and obj; t alone with any-hit): on the small outside
+    scene's main-path pools (camera rays, the bounce pool after a step,
+    NEE shadow rays), on its ground quad (one cluster of 2 real
+    triangles, hits on its flat box's faces, edges and corners) and on a
+    flat axis-aligned grid whose hits lie on its group boxes' faces."""
+    from logipathtracer_tpu_torch import RenderConfig
+    from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
+    from logipathtracer_tpu_torch.tools import harness
+    kw = dict(has_tmax=mode != "closest", any_hit=mode == "any_hit")
+    tile = 1024
+    if case in ("primary", "bounce", "shadow"):
+        cfg = RenderConfig(width=64, height=64, pool_size=4096,
+                           stream_tile=tile, intersect="stream")
+        if "pools" not in _OUTSIDE:
+            _OUTSIDE["pools"] = harness.pools(_outside_host(), cfg, dev,
+                                              tile)
+        rays8 = _OUTSIDE["pools"][case][0].clone()
+        if kw["has_tmax"] and case != "shadow":
+            t_max = torch.from_numpy(np.random.default_rng(32).uniform(
+                0.5, 40.0, rays8.shape[1]).astype(np.float32)).to(dev)
+            rays8[6] = torch.where(rays8[0] < 1e29, t_max, ci.INF)
+        scene = _outside_host().to(dev)
+        bounds, tables = scene_cluster_bounds(scene), harness.scene_tables(
+            scene)
+    else:
+        bounds, tables, o, d, t_max = _group_edge_case(case, dev)
+        if case == "ground":
+            scene = _outside_host().to(dev)
+            bounds, tables = scene_cluster_bounds(scene), \
+                harness.scene_tables(scene)
+        rays8, _ = ci.pack_rays8(o, d, tile,
+                                 t_max=t_max if kw["has_tmax"] else None)
+    wl, wn = k4.build_cluster_worklists(*bounds, rays8, tile,
+                                        has_tmax=kw["has_tmax"])
+    args = (rays8, wl, wn, *tables, tile, 1e-4)
+    groups = k4.cluster_groups(*tables)
+    n0 = k4.launches
+    got = k4.stream_cl_intersect(*args, groups=groups, **kw)
+    assert k4.launches == n0 + 1
+    ref = k4.stream_cl_intersect_plain(*args, **kw)
+    assert _same(got, ref, kw["any_hit"])
+    live = rays8[0] < 1e29
+    hit = got[0] < (rays8[6] if kw["has_tmax"] else ci.BIG)
+    assert 0 < int(hit.sum()) <= int(live.sum())
+    if case == "ground":        # the ground's cluster: 2 triangles
+        counts = (tables[3] != 0).any(dim=1).sum(dim=1)
+        assert int(counts.min()) == 2 and int(groups[1].min()) == 1
+        assert int(hit.sum()) > len(hit) // 4
+    if case == "grid" and mode == "closest":
+        assert bool(hit[:512].all())            # every grid point is hit
+
+
 @pytest.mark.parametrize("route", [
     {}, dict(stream_granularity="chunk"), dict(stream_worklist=False),
     dict(stream_compact=False), dict(nee=True)])

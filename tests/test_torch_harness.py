@@ -147,7 +147,7 @@ def _counted_bound(kind, rays8, tables, early_exit=False):
     stage = (dict(block=128, prefetch=False, early_exit=early_exit)
              if kind in chip_smoke.SUBTILE
              else dict(block=256, prefetch=chip_smoke.COMPACTED[kind]))
-    with chip_smoke.counted(**stage) as work:
+    with harness.isect_counted(**stage) as work:
         _, tri, _ = call()
     assert tri.tolist() == [-1] * 5 + [0] + [-1] * 250
     inputs = args[:7] if kind in ("K7", "K8") else args[:9]
@@ -202,3 +202,37 @@ def test_count_pass_early_exit(kind):
            + 128 * s * chip_smoke.MT_U_OPS
            + 64 * s * (chip_smoke.MT_OPS - chip_smoke.MT_U_OPS))
     assert b == chip_smoke.bound(ops, chip_smoke.nbytes(*inputs) + 12 * 256)
+
+
+def test_count_pass_k4_groups():
+    """K4's triangle test by 32-slot groups in the count pass: one
+    cluster (S = 128) whose slots 0-31 hold the triangle of
+    ``_one_cluster_pool`` and 32-39 a triangle far off, the rest zero, so
+    two of its four groups hold real slots.  The one ray that passes the
+    cluster's slab tests both boxes (never the two empty groups), passes
+    group 0's alone and tests its 32 slots; isect_bound charges SLAB_OPS a
+    box and MT_OPS a tested slot."""
+    import chip_smoke
+    rays8, (meta, inv, aabb, tris) = _one_cluster_pool()
+    tris[0, :, 40:] = 0.0
+    tris[0, 0:3, 32:40] = 50.0
+    wl = torch.zeros((1, 1), dtype=torch.int32)
+    wn = torch.ones(1, dtype=torch.int32)
+    args = (rays8, wl, wn, meta, inv, aabb, tris, 256, 1e-4)
+    with harness.isect_counted(block=256, groups=True) as work:
+        _, tri, _ = k4.stream_cl_intersect_plain(*args)
+    assert tri.tolist() == [-1] * 5 + [0] + [-1] * 250
+    assert (work["own"], work["tested"]) == (1, 1)
+    assert (work["group_tests"], work["group_passed"],
+            work["group_slots"]) == (2, 1, 32)
+    assert "0.5000 passed; 32.0 slots tested a queued ray" in \
+        harness.group_line(work)
+    from types import SimpleNamespace
+    b = chip_smoke.isect_bound(work, SimpleNamespace(cl_tris=tris), args[:7],
+                               256)
+    ops = (256 + 2) * chip_smoke.SLAB_OPS + 32 * chip_smoke.MT_OPS
+    assert b == chip_smoke.bound(ops, chip_smoke.nbytes(*args[:7]) + 12 * 256)
+    with harness.isect_counted(block=256) as work:
+        k4.stream_cl_intersect_plain(*args)
+    assert work["group_tests"] is None
+    assert harness.group_line(work) == "no group test"
