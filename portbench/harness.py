@@ -109,6 +109,7 @@ class Cell:
                                 workload["config"] + ".json")
         self.traffic = load_json(root, "traffic",
                                  workload["traffic"] + ".json")
+        self.config["scene"].update(ov.get("scene", {}))
         self.config["scene"]["args"].update(ov.get("scene_args", {}))
         self.config["render"].update(ov.get("render", {}))
         self.config.setdefault("preview", {}).update(ov.get("preview", {}))
@@ -279,7 +280,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     """One run; returns the result line's object (its ``checks`` last).
     ``device``, ``overrides`` and ``fault`` are for the harness's own
     tests; ``control`` puts a bfloat16 reference in the program's place
-    in the check."""
+    in the check.  ``overrides`` updates the configuration's ``scene``
+    (its generator and arguments), ``scene_args``, ``render`` and
+    ``preview`` and the traffic's parameters (``traffic``)."""
     t_proc = time.perf_counter() - since_process_start()
     bench = load_json(os.path.dirname(root), "BENCHMARK.json")
     t0 = time.perf_counter()

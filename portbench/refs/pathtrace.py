@@ -16,6 +16,40 @@ hash seeded with ``seed * pixel`` (random.glsl, path_tracing.comp:341),
 so a path's radiance depends on nothing else, whatever pool or order a
 renderer traces it in.
 
+Texture maps (LOD 0, following the JAX package's ``ops/texture.py``
+and the texture prologue of its ``render/megakernel.py``): the hit's uv
+from its barycentrics; per texture, its own texels (RGBA8 / 255) tapped
+bilinearly at uv * size - 0.5, or at floor(uv * size) where the
+sampler's magFilter is NEAREST, through the repeat, clamp or mirror
+wrap of each axis.  The maps multiply the factors in the order base
+colour, emissive, metallic-roughness (G roughness, B metallic, after
+the 0.001 roughness floor), transmission (R); the base colour goes from
+sRGB to linear after the multiply, the emission stays as stored; a
+normal map (2 x RGB - 1, normalised) turns the front-face normal in the
+tangent basis from before the map, and the basis is rebuilt about the
+mapped normal, while the inside/outside test keeps the geometric one.
+
+Next-event estimation with multiple importance sampling (``render``
+``nee``; the JAX package's ``ops/pallas/shade.py`` NEE blocks and its
+jnp twin in ``render/megakernel.py`` ``shade_step``): its own light
+table of world-space emissive triangles (positive area, in scene order)
+and their area-proportional CDF, picked by searchsorted-left; on every
+diffuse lane three draws r1, r2, r3 before the BSDF's, the light point
+at square-root barycentrics; a shadow ray through this module's own
+intersection, blocked by any hit with eps < t < dist (1 - 1e-3); the
+balance heuristic between the light's area pdf and cos/pi (or weight 1
+without ``nee_mis``); for the Heitz BSDF the light's f cos estimated
+along the sampling walk (phase toward the light times the escape
+probability from each vertex's height), for the basic BSDF
+base cos / pi; and the complementary weight on emission that a BSDF ray
+from a light-sampled vertex finds.
+
+Departures from the source (the GLSL renders neither): mip chains
+(``mip_levels`` > 1) are not followed, only LOD 0, which the
+configurations keep; textures are sampled one texture at a time from
+their own arrays, not from the program's atlas (a layout, not
+semantics).
+
 Every float computation runs in ``dtype``: float32 as the configuration
 states, or a lower precision for the control.  Sums of three products
 are written out in one order, and no matrix product is used (it could
@@ -27,6 +61,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from portbench.scenes.common import CLAMP, MIRROR, NEAREST, TEXTURE_SLOTS
+
 INF = 3.4e38            # shaders/common/constants.glsl:9
 PI = 3.141592653589     # shaders/common/constants.glsl:5
 M32 = 0xFFFFFFFF
@@ -34,6 +70,7 @@ MUL = 1103515245
 INV32 = 2.0 ** -32      # float(0xffffffffu) is 2^32 in f32
 
 LOBE_DIFFUSE, LOBE_METALLIC, LOBE_TRANSMISSION = 0, 1, 2
+T_LIM = 1.0 - 1e-3      # a shadow ray's reach, as a share of the light's
 
 
 # -- the GLSL hash stream (shaders/common/random.glsl:9-15) ---------------
@@ -102,8 +139,9 @@ def srgb_to_linear(c):
 
 class RefScene:
     """Objects (one per mesh primitive) with their world matrix, its
-    inverse, object-space triangles and normals, a padded world bounding
-    box and the material's factors, on ``device`` in ``dtype``."""
+    inverse, object-space triangles, normals and uvs, a padded world
+    bounding box and the material's factors and texture slots; the
+    textures; the light table.  On ``device`` in ``dtype``."""
 
     def __init__(self, scene, device, dtype=torch.float32):
         self.device = torch.device(device)
@@ -123,7 +161,13 @@ class RefScene:
                 lo, hi = wv.min(axis=0), wv.max(axis=0)
                 pad = 1e-4 * (hi - lo).max() + 1e-4
                 v = torch.tensor(pos, **f)
+                uv = (np.zeros(pos.shape[:2] + (2,), np.float32)
+                      if prim.uvs is None else prim.uvs)
                 self.objects.append(dict(
+                    uv=torch.tensor(np.asarray(uv, np.float32), **f),
+                    tex=[getattr(mat, k) for k in TEXTURE_SLOTS],
+                    base_factor=torch.tensor(
+                        np.asarray(mat.base_color_factor, np.float32), **f),
                     world=torch.tensor(world, **f),
                     inv=torch.tensor(inv, **f),
                     v=v, n=torch.tensor(np.asarray(prim.normals, np.float32),
@@ -153,6 +197,59 @@ class RefScene:
         self.emission = torch.stack([ob["emission"] for ob in self.objects])
         self.mrti = torch.stack([ob["mrti"] for ob in self.objects])
         self.tri_base_t = torch.tensor(self.tri_base[:-1], device=self.device)
+        self.textures = [self._texture(t) for t in scene.textures]
+        self.tex = torch.tensor([ob["tex"] for ob in self.objects],
+                                dtype=torch.int64, device=self.device)
+        self.tex_slots = [bool((self.tex[:, k] >= 0).any())
+                          for k in range(len(TEXTURE_SLOTS))]
+        self.textured = any(self.tex_slots)
+        if self.textured:
+            self.all_uv = cat([ob["uv"] for ob in self.objects])
+            self.base_factor = torch.stack([ob["base_factor"]
+                                            for ob in self.objects])
+        self._lights(scene)
+
+    def _texture(self, t) -> dict:
+        px = np.asarray(t.pixels, np.uint8)
+        h, w = px.shape[:2]
+        texels = torch.tensor(px.reshape(-1, 4).astype(np.float32),
+                              device=self.device) / 255.0
+        return dict(w=w, h=h, texels=texels.to(self.dtype),
+                    wrap_s=int(t.wrap_s), wrap_t=int(t.wrap_t),
+                    nearest=int(t.mag_filter) == NEAREST)
+
+    def _lights(self, scene):
+        """The emissive triangles in world space, in scene order, with
+        their area-proportional CDF (numpy float32, as the scene's data
+        is), and their total area."""
+        rows = []
+        for node in scene.mesh_nodes:
+            world = np.asarray(node.world_matrix, np.float32)
+            for prim in node.primitives:
+                emission = np.asarray(
+                    scene.materials[prim.material].emissive_factor,
+                    np.float32)
+                if emission.max() <= 0:
+                    continue
+                tw = (np.asarray(prim.positions, np.float32)
+                      @ world[:3, :3].T + world[:3, 3])
+                e1 = tw[:, 1] - tw[:, 0]
+                e2 = tw[:, 2] - tw[:, 0]
+                area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=1)
+                for k in np.nonzero(area > 0)[0]:
+                    rows.append(np.concatenate(
+                        [tw[k, 0], e1[k], e2[k], emission,
+                         area[k:k + 1]]).astype(np.float32))
+        self.num_lights = len(rows)
+        if not rows:
+            return
+        table = np.stack(rows)
+        areas = table[:, 12]
+        self.light_area = float(areas.sum())
+        cdf = (np.cumsum(areas) / areas.sum()).astype(np.float32)
+        f = dict(device=self.device, dtype=self.dtype)
+        self.light_cdf = torch.tensor(cdf, **f)
+        self.light_table = torch.tensor(table[:, :12], **f)
 
     @property
     def triangle_count(self) -> int:
@@ -200,12 +297,14 @@ def _moller(ol, dl, v0, e1, e2, inf):
     return torch.where(miss, inf, t)
 
 
-def intersect(rs: RefScene, o, d, eps):
+def intersect(rs: RefScene, o, d, eps, t_max=None):
     """Closest hit of world rays o, d [M, 3]: (t [M], object [M], the
     triangle's index within its object [M]); t = ``rs.inf`` and -1 on a
-    miss."""
+    miss.  With ``t_max`` [M], only hits with t < t_max count (a miss
+    keeps t_max)."""
     m = o.shape[0]
-    best = torch.full((m,), rs.inf, dtype=rs.dtype, device=rs.device)
+    best = (torch.full((m,), rs.inf, dtype=rs.dtype, device=rs.device)
+            if t_max is None else t_max.clone())
     best_obj = torch.full((m,), -1, dtype=torch.int64, device=rs.device)
     best_tri = torch.full((m,), -1, dtype=torch.int64, device=rs.device)
     inv_d = 1.0 / d
@@ -288,11 +387,23 @@ def _refract(wi, wm, eta):
 
 
 def heitz(f0, view, roughness, ior, outside, lobe, rng: Stream, active,
-          max_order):
+          max_order, eval_dir=None, eval_mask=None):
     """The three Heitz walks at once, each lane drawing in the scalar
     walk's order.  Returns (weight [N, 3], light direction [N, 3],
-    tangent space)."""
+    tangent space), and with ``eval_dir`` [N, 3] (tangent space) the
+    estimate of the diffuse lobe's f cos toward it on ``eval_mask``
+    lanes: at each scattering vertex, energy x f0 x the phase toward it
+    through the vertex's micro-normal x the escape probability from the
+    vertex's height, with no draw of its own."""
     alpha = roughness * roughness
+    if eval_dir is not None:
+        f_eval = torch.zeros_like(f0)
+        ez = eval_dir[:, 2]
+        sl = torch.stack([eval_dir[:, 0] * alpha, eval_dir[:, 1] * alpha,
+                          ez], -1)
+        proj_l = torch.clamp(0.5 * (torch.sqrt(dot(sl, sl)) - ez),
+                             min=1e-7)
+        esc_rate = proj_l / torch.clamp(ez, min=1e-7)
     is_d = active & (lobe == LOBE_DIFFUSE)
     is_m = active & (lobe == LOBE_METALLIC)
     is_t = active & (lobe == LOBE_TRANSMISSION)
@@ -356,6 +467,13 @@ def heitz(f0, view, roughness, ior, outside, lobe, rng: Stream, active,
                           normalize(_refract(wo, micro, eta)))
         up = torch.where(tm & ~refl, ~up, up)
 
+        if eval_dir is not None:
+            phase_l = torch.clamp(dot(eval_dir, micro), min=0.0) / PI
+            esc = torch.exp(torch.clamp(height * esc_rate, max=0.0))
+            em = cont & is_d & eval_mask & (ez > 0.0)
+            f_eval = f_eval + (torch.where(em, phase_l * esc, 0.0)[:, None]
+                               * (energy * f0))
+
         new = torch.where(is_d[:, None], dif,
                           torch.where(is_t[:, None], die, refl_m))
         ld = torch.where(cont[:, None], new, ld)
@@ -366,7 +484,10 @@ def heitz(f0, view, roughness, ior, outside, lobe, rng: Stream, active,
     ex = is_d & walking
     energy = torch.where(ex[:, None], 0.0, energy)
     ld = torch.where(ex[:, None], unit(ld, 2), ld)
-    return torch.where(is_t[:, None], f0, energy), ld
+    weight = torch.where(is_t[:, None], f0, energy)
+    if eval_dir is not None:
+        return weight, ld, f_eval
+    return weight, ld
 
 
 def _reflect(i, n):
@@ -412,6 +533,67 @@ def basic(f0, view, transmission, ior, outside, lobe, rng: Stream, active):
     return w, ld
 
 
+# -- textures (the JAX package's ops/texture.py, LOD 0) ----------------------
+
+def _wrap(c, size: int, mode: int):
+    """Integer texel coordinates through one axis's wrap mode."""
+    if mode == CLAMP:
+        return torch.clamp(c, 0, size - 1)
+    if mode == MIRROR:
+        m = torch.remainder(c, 2 * size)
+        return torch.where(m < size, m, 2 * size - 1 - m)
+    return torch.remainder(c, size)
+
+
+def sample_texture(tex: dict, uv):
+    """One texture's RGBA [M, 4] at uv [M, 2]: GL NEAREST, or bilinear
+    about uv * size - 0.5."""
+    w, h = tex["w"], tex["h"]
+
+    def fetch(ix, iy):
+        px = _wrap(ix, w, tex["wrap_s"])
+        py = _wrap(iy, h, tex["wrap_t"])
+        return tex["texels"][py * w + px]
+
+    if tex["nearest"]:
+        return fetch(torch.floor(uv[:, 0] * w).long(),
+                     torch.floor(uv[:, 1] * h).long())
+    fx = uv[:, 0] * w - 0.5
+    fy = uv[:, 1] * h - 0.5
+    ixf = torch.floor(fx)
+    iyf = torch.floor(fy)
+    ax = (fx - ixf)[:, None]
+    ay = (fy - iyf)[:, None]
+    ix = ixf.long()
+    iy = iyf.long()
+    c00 = fetch(ix, iy)
+    c10 = fetch(ix + 1, iy)
+    c01 = fetch(ix, iy + 1)
+    c11 = fetch(ix + 1, iy + 1)
+    top = c00 * (1 - ax) + c10 * ax
+    bot = c01 * (1 - ax) + c11 * ax
+    return top * (1 - ay) + bot * ay
+
+
+def tap(rs: RefScene, slot: int, objc, uv, active):
+    """(has a map [M], its RGBA [M, 4]) of texture slot ``slot`` of each
+    lane's object, on ``active`` lanes; RGBA 1 where there is none."""
+    tid = torch.where(active, rs.tex[objc, slot], -1)
+    out = torch.ones((uv.shape[0], 4), dtype=rs.dtype, device=rs.device)
+    for k in torch.unique(tid).tolist():
+        if k >= 0:
+            sel = torch.nonzero(tid == k).squeeze(1)
+            out[sel] = sample_texture(rs.textures[k], uv[sel])
+    return tid >= 0, out
+
+
+def tangent_basis(ff):
+    axis = torch.where((torch.abs(ff[:, 0]) > 0.1)[:, None],
+                       unit(ff, 1), unit(ff, 0))
+    tu = normalize(cross(axis, ff))
+    return tu, cross(ff, tu)
+
+
 # -- paths --------------------------------------------------------------------
 
 def camera_rays(cams, fov_y, width, height, pix, rng: Stream, dtype):
@@ -447,9 +629,9 @@ def trace(rs: RefScene, render, cams, fov_y, ubo, pix, block=1 << 16):
 
     render: the configuration's render settings (width, height,
     max_depth, rr_bounces, rr_threshold, env_color, eps,
-    heitz_max_order, use_microfacet); cams [N, 4, 4] or [4, 4]; ubo
-    [N, 2] int64 host seed pairs; pix [N, 2] int64 (x, y), y counted
-    from the image's bottom row."""
+    heitz_max_order, use_microfacet, nee, nee_mis); cams [N, 4, 4] or
+    [4, 4]; ubo [N, 2] int64 host seed pairs; pix [N, 2] int64 (x, y),
+    y counted from the image's bottom row."""
     n = pix.shape[0]
     out = torch.empty((n, 3), dtype=rs.dtype, device=rs.device)
     cams = torch.as_tensor(np.asarray(cams, np.float32)) if not isinstance(
@@ -464,15 +646,58 @@ def trace(rs: RefScene, render, cams, fov_y, ubo, pix, block=1 << 16):
     return out
 
 
+def _visible(rs: RefScene, o, d, t_lim, want, eps):
+    """[M] bool: no hit with eps < t < t_lim along o, d, tested on the
+    ``want`` lanes (True elsewhere)."""
+    vis = torch.ones_like(want)
+    idx = torch.nonzero(want).squeeze(1)
+    if idx.numel():
+        _, obj, _ = intersect(rs, o[idx], d[idx], eps, t_max=t_lim[idx])
+        vis[idx] = obj < 0
+    return vis
+
+
+def _textured(rs: RefScene, objc, g, bu, bv, bw, hit, base_f, emission,
+              metallic, roughness, transmission):
+    """The maps of slots 0-3 applied to the factors, in the program's
+    order; returns (uv, linear base colour [M, 3], emission, metallic,
+    roughness, transmission)."""
+    uvs = rs.all_uv[g]
+    uv = (bu[:, None] * uvs[:, 0] + bv[:, None] * uvs[:, 1]
+          + bw[:, None] * uvs[:, 2])
+    if rs.tex_slots[0]:
+        has, c = tap(rs, 0, objc, uv, hit)
+        base_f = torch.where(has[:, None], base_f * c, base_f)
+    if rs.tex_slots[1]:
+        has, e = tap(rs, 1, objc, uv, hit)
+        emission = torch.where(has[:, None], emission * e[:, :3], emission)
+    if rs.tex_slots[2]:
+        has, mr = tap(rs, 2, objc, uv, hit)
+        metallic = torch.where(has, metallic * mr[:, 2], metallic)
+        roughness = torch.where(has, roughness * mr[:, 1], roughness)
+    if rs.tex_slots[3]:
+        has, tt = tap(rs, 3, objc, uv, hit)
+        transmission = torch.where(has, transmission * tt[:, 0],
+                                   transmission)
+    return (uv, srgb_to_linear(base_f)[:, :3], emission, metallic,
+            roughness, transmission)
+
+
 def _trace_block(rs: RefScene, r, cams, fov_y, ubo, pix):
     dt = rs.dtype
     dev = rs.device
+    nee = bool(r.get("nee", False)) and rs.num_lights > 0
+    mis = bool(r.get("nee_mis", True))
+    microfacet = r.get("use_microfacet", True)
     rng = Stream(seed_from_pixel(ubo, pix), dt)
     o, d = camera_rays(cams, fov_y, r["width"], r["height"], pix, rng, dt)
     n = pix.shape[0]
     acc = torch.zeros((n, 3), dtype=dt, device=dev)
     mask = torch.ones((n, 3), dtype=dt, device=dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
+    # The pdf of a diffuse vertex's BSDF direction where it sampled a
+    # light too (0 elsewhere): the weight of the emission that ray finds.
+    prev_pdf = torch.zeros(n, dtype=dt, device=dev)
     for bounce in range(r["max_depth"]):
         lanes = torch.nonzero(alive).squeeze(1)
         if lanes.numel() == 0:
@@ -504,13 +729,18 @@ def _trace_block(rs: RefScene, r, cams, fov_y, ubo, pix):
         bw = (ab_ab * ac_ah - ab_ac * ab_ah) * inv_den
         bu = 1.0 - bv - bw
 
-        base = rs.base[objc]
         emission = rs.emission[objc]
         mrti = rs.mrti[objc]
         metallic = mrti[:, 0]
         roughness = torch.clamp(mrti[:, 1], min=0.001)
         transmission = mrti[:, 2]
         ior = mrti[:, 3]
+        if rs.textured:
+            uv, base, emission, metallic, roughness, transmission = \
+                _textured(rs, objc, g, bu, bv, bw, hit, rs.base_factor[objc],
+                          emission, metallic, roughness, transmission)
+        else:
+            base = rs.base[objc]
 
         # lobe (heitz/interaction_type.glsl:10-29)
         mw = metallic
@@ -523,25 +753,91 @@ def _trace_block(rs: RefScene, r, cams, fov_y, ubo, pix):
         lobe = torch.where(rl < mw, LOBE_METALLIC,
                            torch.where(rl < mw + tw, LOBE_TRANSMISSION,
                                        LOBE_DIFFUSE))
-        la = la + torch.where(hit[:, None], lm * emission, 0.0)
 
         n_l = (bu[:, None] * nrm[:, 0] + bv[:, None] * nrm[:, 1]
                + bw[:, None] * nrm[:, 2])
         nw = normalize(mat3_apply(world, n_l))
-        ff = torch.where((dot(nw, ld_) < 0.0)[:, None], nw, -nw)
-        axis = torch.where((torch.abs(ff[:, 0]) > 0.1)[:, None],
-                           unit(ff, 1), unit(ff, 0))
-        tu = normalize(cross(axis, ff))
-        tv = cross(ff, tu)
+        ndotd = dot(nw, ld_)
+        if nee:
+            # Emission that a BSDF ray from a light-sampled vertex finds
+            # takes the balance weight against the light's area pdf.
+            lpp = prev_pdf[lanes]
+            p_light_hit = t * t / (torch.clamp(torch.abs(ndotd), min=1e-9)
+                                   * rs.light_area)
+            mis_w = (lpp / (lpp + p_light_hit) if mis
+                     else torch.zeros_like(lpp))
+            w_emit = torch.where(
+                (lpp > 0.0) & (torch.amax(emission, dim=-1) > 0.0), mis_w,
+                1.0)
+            la = la + torch.where(hit[:, None],
+                                  lm * emission * w_emit[:, None], 0.0)
+        else:
+            la = la + torch.where(hit[:, None], lm * emission, 0.0)
+
+        ff = torch.where((ndotd < 0.0)[:, None], nw, -nw)
+        tu, tv = tangent_basis(ff)
+        if rs.tex_slots[4]:
+            # The normal map turns ff in the basis from before the map.
+            has_n, nmap = tap(rs, 4, objc, uv, hit)
+            tn = normalize(nmap[:, :3] * 2.0 - 1.0)
+            ffm = normalize(tn[:, 0:1] * tu + tn[:, 1:2] * tv
+                            + tn[:, 2:3] * ff)
+            ff = torch.where(has_n[:, None], ffm, ff)
+            tu, tv = tangent_basis(ff)
         nd = -ld_
         view = torch.stack([dot(nd, tu), dot(nd, tv), dot(nd, ff)], -1)
         outside = dot(nw, nd) > 0.0
-        if r.get("use_microfacet", True):
+
+        if nee:
+            nee_mask = hit & (lobe == LOBE_DIFFUSE)
+            r1 = sub.draw(nee_mask)
+            r2 = sub.draw(nee_mask)
+            r3 = sub.draw(nee_mask)
+            li = torch.searchsorted(rs.light_cdf, r1).clamp(
+                0, rs.num_lights - 1)
+            row = rs.light_table[li]
+            lv0, le1, le2, le = (row[:, 0:3], row[:, 3:6], row[:, 6:9],
+                                 row[:, 9:12])
+            su = torch.sqrt(r2)
+            lp = lv0 + (1.0 - su)[:, None] * le1 + (r3 * su)[:, None] * le2
+            to_l = lp - pos_w
+            dist2 = torch.clamp(dot(to_l, to_l), min=1e-12)
+            dist = torch.sqrt(dist2)
+            wl = to_l / dist[:, None]
+            ln = cross(le1, le2)
+            ln = ln / torch.clamp(torch.sqrt(dot(ln, ln)), min=1e-20)[:, None]
+            cos_l = torch.abs(dot(ln, -wl))       # two-sided emitter
+            cos_s = dot(ff, wl)
+            wl_t = torch.stack([dot(wl, tu), dot(wl, tv), cos_s], -1)
+            p_light = dist2 / (torch.clamp(cos_l, min=1e-9) * rs.light_area)
+            p_bsdf = torch.clamp(cos_s, min=0.0) / PI
+            w_light = (p_light / (p_light + p_bsdf) if mis
+                       else torch.ones_like(p_light))
+
+        if microfacet and nee:
+            w, ldir, f_eval = heitz(base, view, roughness, ior, outside,
+                                    lobe, sub, hit, r["heitz_max_order"],
+                                    eval_dir=wl_t, eval_mask=nee_mask)
+        elif microfacet:
             w, ldir = heitz(base, view, roughness, ior, outside, lobe, sub,
                             hit, r["heitz_max_order"])
         else:
             w, ldir = basic(base, view, transmission, ior, outside, lobe,
                             sub, hit)
+        if nee:
+            if microfacet:
+                # f_eval carries the surface cosine.
+                contrib = lm * le * f_eval * (
+                    cos_l * rs.light_area / dist2 * w_light)[:, None]
+            else:
+                f_d = base * torch.clamp(cos_s, min=0.0)[:, None] / PI
+                geom = cos_s * cos_l * rs.light_area / dist2
+                contrib = lm * le * f_d * (geom * w_light)[:, None]
+            use = nee_mask & (cos_s > 0.0)
+            use = use & _visible(rs, pos_w, wl, dist * T_LIM, use, r["eps"])
+            la = la + torch.where(use[:, None], contrib, 0.0)
+            new_pdf = torch.where(
+                nee_mask, torch.clamp(ldir[:, 2], min=0.0) / PI, 0.0)
         lm = torch.where(hit[:, None], lm * w, lm)
         new_d = (ldir[:, 0:1] * tu + ldir[:, 1:2] * tv + ldir[:, 2:3] * ff)
         # Russian roulette (path_tracing.comp:317-323)
@@ -555,6 +851,8 @@ def _trace_block(rs: RefScene, r, cams, fov_y, ubo, pix):
         acc[lanes] = la
         rng.s[lanes] = sub.s
         alive[lanes] = hit & ~kill
+        if nee:
+            prev_pdf[lanes] = torch.where(hit & ~kill, new_pdf, lpp)
     return acc
 
 

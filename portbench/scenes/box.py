@@ -1,27 +1,35 @@
 """A cornell-style box with randomly placed PBR icospheres: the stand-in
 for the reference's cornell_box.gltf (a frozen copy of the port's
-``make_box_scene`` without textures)."""
+``make_box_scene``; ``textured`` puts its 16x16 checker base-colour
+texture on the walls)."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from portbench.scenes.common import (CameraNode, Material, MeshNode,
-                                     Primitive, Scene, icosphere, look_at,
-                                     quad)
+                                     Primitive, Scene, Texture, icosphere,
+                                     look_at, quad)
 
 
 def make(spheres: int = 8, subdiv: int = 3, seed: int = 0,
-         name: str = "procedural_box") -> Scene:
+         name: str = "procedural_box", textured: bool = False) -> Scene:
     rng = np.random.default_rng(seed)
     materials = [
         Material(name="white", base_color_factor=np.array(
             [0.8, 0.8, 0.8, 1], np.float32), metallic_factor=0.0,
-            roughness_factor=0.3),
+            roughness_factor=0.3,
+            base_color_texture=0 if textured else -1),
         Material(name="light", emissive_factor=np.array(
             [8, 8, 8], np.float32), metallic_factor=0.0,
             roughness_factor=1.0),
     ]
+    textures = []
+    if textured:
+        checker = np.full((16, 16, 4), 255, np.uint8)
+        checker[::2, ::2, :3] = (190, 160, 120)
+        checker[1::2, 1::2, :3] = (120, 150, 190)
+        textures.append(Texture(pixels=checker))
     nodes = []
 
     def add_quad(nm, center, size, axis, mat):
@@ -65,4 +73,4 @@ def make(spheres: int = 8, subdiv: int = 3, seed: int = 0,
                      world_matrix=look_at((0, 0.3, 5.4), (0, 0, 0)),
                      yfov=0.8)
     return Scene(mesh_nodes=nodes, cameras=[cam], materials=materials,
-                 name=name)
+                 name=name, textures=textures)

@@ -1,5 +1,6 @@
 """The scene description the benchmark hands to both sides: a frozen
-copy of the glTF structure of the port's loader (materials, de-indexed
+copy of the glTF structure of the port's loader (materials with their
+texture slots, RGBA8 textures with their sampler state, de-indexed
 triangle primitives, mesh nodes with world matrices, cameras) and the
 geometric helpers of its procedural scenes, so that the scene a
 configuration names does not change when the program does."""
@@ -23,6 +24,30 @@ class Material:
     roughness_factor: float = 1.0
     transmission_factor: float = 0.0
     ior: float = 1.5
+    # Indices into Scene.textures (-1: none), the loader's five slots.
+    base_color_texture: int = -1
+    emissive_texture: int = -1
+    metallic_roughness_texture: int = -1
+    transmission_texture: int = -1
+    normal_texture: int = -1
+
+
+TEXTURE_SLOTS = ("base_color_texture", "emissive_texture",
+                 "metallic_roughness_texture", "transmission_texture",
+                 "normal_texture")
+
+# glTF sampler constants.
+REPEAT, CLAMP, MIRROR = 10497, 33071, 33648
+NEAREST, LINEAR = 9728, 9729
+
+
+@dataclasses.dataclass
+class Texture:
+    pixels: np.ndarray         # [H, W, 4] uint8, row 0 at v = 0
+    wrap_s: int = REPEAT
+    wrap_t: int = REPEAT
+    mag_filter: int = LINEAR
+    min_filter: int = LINEAR
 
 
 @dataclasses.dataclass
@@ -55,6 +80,7 @@ class Scene:
     cameras: list
     materials: list
     name: str = "scene"
+    textures: list = dataclasses.field(default_factory=list)
 
     @property
     def triangle_count(self) -> int:

@@ -3,18 +3,59 @@
 (positions, normals and uvs as de-indexed float32 triangles), each
 material's factors (base colour, emission, metallic, roughness,
 transmission through KHR_materials_transmission, ior through
-KHR_materials_ior) and each camera.  The port's ``load_gltf`` reads it
-back to the same arrays."""
+KHR_materials_ior) and texture slots, each texture (its RGBA8 image as
+a PNG in a bufferView, its sampler) and each camera.  The port's
+``load_gltf`` reads it back to the same arrays.  A scene without
+textures writes no image, sampler or texture entry."""
 
 from __future__ import annotations
 
 import json
 import struct
+import zlib
 
 import numpy as np
 
 _FLOAT = 5126
 _JSON, _BIN = 0x4E4F534A, 0x004E4942
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+# zlib's fastest level: scene generation counts in the set-up time.
+_PNG_LEVEL = 1
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def encode_png(pixels) -> bytes:
+    """RGBA8 pixels [H, W, 4] as an 8-bit RGBA PNG, filter 0 on every
+    row, rows in array order."""
+    img = np.ascontiguousarray(pixels, np.uint8)
+    h, w = img.shape[:2]
+    raw = np.zeros((h, 1 + 4 * w), np.uint8)
+    raw[:, 1:] = img.reshape(h, 4 * w)
+    return (_PNG_SIG
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0,
+                                              0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), _PNG_LEVEL))
+            + _png_chunk(b"IEND", b""))
+
+
+def _texture_refs(m, entry: dict):
+    """A material's texture references, added to its glTF entry only
+    where the slot is set."""
+    pbr, ext = entry["pbrMetallicRoughness"], entry["extensions"]
+    for slot, where, key in (
+            (m.base_color_texture, pbr, "baseColorTexture"),
+            (m.metallic_roughness_texture, pbr, "metallicRoughnessTexture"),
+            (m.emissive_texture, entry, "emissiveTexture"),
+            (m.normal_texture, entry, "normalTexture"),
+            (m.transmission_texture, ext["KHR_materials_transmission"],
+             "transmissionTexture")):
+        if slot >= 0:
+            where[key] = {"index": int(slot)}
+    return entry
 
 
 def _floats(a) -> list:
@@ -62,7 +103,7 @@ def write_glb(scene, path: str) -> str:
             "zfar": float(cam.zfar)}})
         nodes.append({"name": cam.name, "camera": len(cameras) - 1,
                       "matrix": _floats(np.asarray(cam.world_matrix).T)})
-    materials = [{
+    materials = [_texture_refs(m, {
         "name": m.name,
         "pbrMetallicRoughness": {
             "baseColorFactor": _floats(m.base_color_factor),
@@ -72,7 +113,7 @@ def write_glb(scene, path: str) -> str:
         "extensions": {
             "KHR_materials_transmission": {
                 "transmissionFactor": float(m.transmission_factor)},
-            "KHR_materials_ior": {"ior": float(m.ior)}}}
+            "KHR_materials_ior": {"ior": float(m.ior)}}})
         for m in scene.materials]
     doc = {"asset": {"version": "2.0", "generator": "portbench.scenes.glb"},
            "extensionsUsed": ["KHR_materials_transmission",
@@ -80,7 +121,25 @@ def write_glb(scene, path: str) -> str:
            "scene": 0, "scenes": [{"nodes": list(range(len(nodes)))}],
            "nodes": nodes, "meshes": meshes, "materials": materials,
            "cameras": cameras, "accessors": accessors,
-           "bufferViews": views, "buffers": [{"byteLength": len(blob)}]}
+           "bufferViews": views}
+    if scene.textures:
+        images = []
+        for tex in scene.textures:
+            png = encode_png(tex.pixels)
+            views.append({"buffer": 0, "byteOffset": len(blob),
+                          "byteLength": len(png)})
+            blob.extend(png)
+            blob.extend(b"\0" * (-len(blob) % 4))
+            images.append({"bufferView": len(views) - 1,
+                           "mimeType": "image/png"})
+        doc["images"] = images
+        doc["samplers"] = [{"magFilter": int(t.mag_filter),
+                            "minFilter": int(t.min_filter),
+                            "wrapS": int(t.wrap_s), "wrapT": int(t.wrap_t)}
+                           for t in scene.textures]
+        doc["textures"] = [{"sampler": i, "source": i}
+                           for i in range(len(scene.textures))]
+    doc["buffers"] = [{"byteLength": len(blob)}]
     js = json.dumps(doc).encode()
     js += b" " * (-len(js) % 4)
     blob.extend(b"\0" * (-len(blob) % 4))

@@ -47,3 +47,23 @@ def test_same_seed_same_inputs():
     a = tiny.run("box_1080p.navigate", seed=7, seconds=0.2)
     b = tiny.run("box_1080p.navigate", seed=7, seconds=0.2)
     assert a["checks"] == b["checks"]
+
+
+@pytest.mark.parametrize("workload,variant", [
+    ("box_1080p.render", "nee_mis"), ("box_1080p.render", "nee_no_mis"),
+    ("box_1080p.render", "maps"), ("box_1080p.converge", "nee_mis"),
+    ("box_1080p.converge", "maps"), ("box_1080p.navigate", "maps")])
+def test_textured_nee_run_is_correct(workload, variant):
+    """Textures and NEE through the whole harness: the reference's taps,
+    light samples and shadow rays agree with the program's."""
+    res = tiny.run(workload, extra=tiny.NEE_TEX[variant])
+    assert res["correct"], res["checks"]
+    assert res["checks"]["radiance_bad"]["value"] == 0.0
+    assert res["checks"]["frame_bad"]["value"] == 0.0
+
+
+@pytest.mark.parametrize("workload", ["box_1080p.render",
+                                      "box_1080p.converge"])
+def test_textured_nee_control_is_not_correct(workload):
+    res = tiny.run(workload, extra=tiny.NEE_TEX["nee_mis"], control=True)
+    assert not res["correct"], res["checks"]

@@ -10,7 +10,7 @@ import torch
 
 from portbench.drivers.common import HostSeeds
 from portbench.refs import pathtrace as ref
-from portbench.scenes import box, outside
+from portbench.scenes import box, maps, outside
 from portbench.scenes.glb import write_glb
 
 SIZE = 64
@@ -69,6 +69,34 @@ def test_outside_matches_port(tmp_path):
     got = _port_radiance(scene, render, tmp_path, 5)
     want = _ref_radiance(scene, render, 5)
     assert _agree(got, want) >= 0.995
+
+
+@pytest.mark.parametrize("scene,render", [
+    ("box", {"nee_mis": True}), ("box", {"nee_mis": False}),
+    ("maps", {"nee_mis": True}), ("maps", {"use_microfacet": False}),
+    ("maps", {"nee": False})],
+    ids=["box-mis", "box-no_mis", "maps-mis", "maps-basic", "maps-no_nee"])
+def test_textured_nee_matches_port(tmp_path, scene, render):
+    """Texture taps (every slot, wrap and filter in ``maps``), light
+    samples, shadow rays and MIS weights against the port's plain path."""
+    desc = (box.make(spheres=4, subdiv=2, textured=True) if scene == "box"
+            else maps.make(spheres=4, subdiv=2, seed=3))
+    render = dict(dict(width=SIZE, height=SIZE, max_depth=10,
+                       pool_size=4096, compact_tile=256, nee=True), **render)
+    got = _port_radiance(desc, render, tmp_path, 13)
+    want = _ref_radiance(desc, render, 13)
+    assert _agree(got, want) >= 0.995
+    assert want.mean() > 0.01
+
+
+def test_bfloat16_reference_departs_textured_nee():
+    """The control's precision moves most pixels off the rule on the
+    textured scene with NEE too."""
+    scene = box.make(spheres=4, subdiv=2, textured=True)
+    render = dict(width=SIZE, height=SIZE, max_depth=10, nee=True)
+    a = _ref_radiance(scene, render, 11)
+    b = _ref_radiance(scene, render, 11, torch.bfloat16)
+    assert _agree(b, a) < 0.5
 
 
 def test_bfloat16_reference_departs(tmp_path):

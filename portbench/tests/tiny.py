@@ -37,7 +37,24 @@ def overrides(workload: str) -> dict:
     return ov
 
 
-def run(workload: str, seed: int = 2 ** 33 + 5, **kw) -> dict:
+# The textured scenes with next-event estimation, as overrides on top of
+# the tiny ones: the checker box with and without MIS, and the box with
+# every kind of map.
+NEE_TEX = {
+    "nee_mis": {"scene_args": {"textured": True}, "render": {"nee": True}},
+    "nee_no_mis": {"scene_args": {"textured": True},
+                   "render": {"nee": True, "nee_mis": False}},
+    "maps": {"scene": {"generator": "maps"}, "render": {"nee": True}},
+}
+
+
+def run(workload: str, seed: int = 2 ** 33 + 5, extra: dict | None = None,
+        **kw) -> dict:
+    """A tiny CPU run of ``workload``; ``extra`` updates its overrides
+    key by key (``NEE_TEX``'s, say)."""
     from portbench import harness
+    ov = overrides(workload)
+    for k, v in (extra or {}).items():
+        ov.setdefault(k, {}).update(v)
     return harness.run(workload, seed, kw.pop("seconds", 0.5), False,
-                       device="cpu", overrides=overrides(workload), **kw)
+                       device="cpu", overrides=ov, **kw)
