@@ -30,6 +30,7 @@ from logipathtracer_tpu_torch.ops.texture import (sample_atlas,
 from logipathtracer_tpu_torch.ops.traverse import (
     intersect_scene, intersect_scene_cluster_wl, intersect_scene_stream,
     intersect_scene_sweep, intersect_scene_worklist)
+from logipathtracer_tpu_torch.utils import trace as tracing
 
 # Residency budgets of the JAX package's sweep kernels.  The port keeps
 # its predicate so both packages compile the same clusters
@@ -293,7 +294,7 @@ def resolve_tex_prologue(scene, cfg: RenderConfig, origin, direction, t,
 
 def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
                alive, seed, bounce, t, obj, tri, prev_pdf=None, isect=None,
-               shadow_count=None):
+               counts=None):
     """One shading iteration of the traceRay loop
     (path_tracing.comp:219-323) given the intersection results.
     ``bounce`` may be a python int or a per-lane int32 tensor.
@@ -305,8 +306,11 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
     diffuse lane; the shadow rays then go through ``isect`` with t_max
     and any-hit, and the pending contribution is added where the light
     is visible (the post-kernel tail of megakernel.py:484-493).
-    ``shadow_count`` (an int64 scalar tensor) is incremented in place by
-    the number of shadow rays cast, without a host sync.
+    ``counts`` (the wavefront pool's trace buffer; None elsewhere) takes,
+    on the device and without a host sync, the number of shadow rays
+    cast into its shadow-ray column, and the stopwatch's stamps where
+    their paths run (utils/trace.py): ``tex`` after the prologue, and
+    with NEE ``shade`` after K2 and ``shadow`` after the visibility add.
     Returns (origin, direction, acc, mask, alive, seed, prev_pdf)."""
     basic = resolve_shade_mode(cfg, scene) == "basic"
     r = origin.shape[0]
@@ -321,6 +325,8 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
         mat, ff_mapped, has_nmap = resolve_tex_prologue(
             scene, cfg, origin, direction, t, obj, tri)
         opt.update(mat=mat, ff_mapped=ff_mapped, has_nmap=has_nmap)
+        if counts is not None:
+            tracing.stamp(counts, "tex")
     if nee:
         opt.update(light_tris=scene.light_tris, light_cdf=scene.light_cdf,
                    prev_pdf=prev_pdf.contiguous(), nee_mis=bool(cfg.nee_mis),
@@ -340,12 +346,17 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
         return (*out, prev_pdf)
     origin, direction, acc, mask, alive, seed, prev_pdf, shadow_o, \
         shadow_d, t_lim, contrib = out
+    if counts is not None:
+        tracing.stamp(counts, "shade")
     t_s, _, _ = isect(scene, shadow_o, shadow_d, eps=cfg.eps, t_max=t_lim,
                       any_hit=True)
-    if shadow_count is not None:
-        shadow_count += (shadow_o[:, 0] != shade_kernel.PARK).sum()
+    if counts is not None:
+        tracing.count_shadow(counts,
+                             (shadow_o[:, 0] != shade_kernel.PARK).sum())
     visible = t_s >= t_lim
     acc = acc + torch.where(visible[:, None], contrib, 0.0)
+    if counts is not None:
+        tracing.stamp(counts, "shadow")
     return origin, direction, acc, mask, alive, seed, prev_pdf
 
 

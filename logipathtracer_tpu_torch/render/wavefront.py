@@ -18,7 +18,8 @@ A persistent pool of P lanes.  Every iteration:
      first, and with NEE the shadow rays K2 prepares go through the
      same intersect kernel again in t_max / any-hit mode — they are not
      counted in ``rays``, as in the JAX package, but in the device
-     counter ``shadow_rays``).
+     counter ``shadow_rays``, the trace's column of the pool's
+     ``counts``).
 
 The iteration is built as the JAX body is, with static shapes: two
 device-only stages around one host read (``_Body``).  Stage A sorts
@@ -136,15 +137,17 @@ def unblock_accum(accum, blocked: bool, bh: int, bw: int, rows: int, w: int):
 
 def wavefront_pool_state(p: int, npix: int, device="cpu"):
     """Fresh pool: every lane free, zero accumulation.  Lane state and
-    the counters ``next_work``, ``rays``, ``it`` and ``shadow_rays``
-    (NEE) are device tensors at fixed addresses; ``counts`` holds stage
-    A's alive, pending and free counts, then the stopwatch's slots and
-    stamp (utils/trace.py); ``host_next_work`` and ``host_it`` are the
-    host's mirrors of ``next_work`` and ``it`` for the loop tests, and
-    ``slots_seen`` the slots as the trace last took them (None off the
-    card)."""
+    the counters ``next_work``, ``rays`` and ``it`` are device tensors at
+    fixed addresses; ``counts`` holds stage A's alive, pending and free
+    counts, then the stopwatch's slots, the shadow rays NEE cast since
+    the pool was made (``shadow_rays``, a view) and the stamp
+    (utils/trace.py); ``host_next_work`` and ``host_it`` are the host's
+    mirrors of ``next_work`` and ``it`` for the loop tests, and
+    ``slots_seen`` and ``shadow_seen`` the slots (None off the card) and
+    shadow rays as the trace last took them."""
     dev = torch.device(device)
     i64 = dict(dtype=torch.int64, device=dev)
+    counts = torch.zeros((tracing.WIDTH,), **i64)
     st = dict(
         origin=torch.empty((p, 3), device=dev),
         direction=torch.empty((p, 3), device=dev),
@@ -159,11 +162,12 @@ def wavefront_pool_state(p: int, npix: int, device="cpu"):
         next_work=torch.empty((), **i64),
         accum=torch.empty((npix, 3), device=dev),
         rays=torch.empty((), **i64),
-        shadow_rays=torch.empty((), **i64),
         it=torch.empty((), **i64),
-        counts=torch.zeros((tracing.WIDTH,), **i64),
+        counts=counts,
+        shadow_rays=counts[tracing.SHADOW],
         slots_seen=([0] * len(tracing.SLOTS) if dev.type == "cuda"
                     else None),
+        shadow_seen=0,
     )
     return reset_pool_state(st)
 
@@ -171,11 +175,11 @@ def wavefront_pool_state(p: int, npix: int, device="cpu"):
 def reset_pool_state(st):
     """Empty the pool in place (a camera move): the state of a fresh
     ``wavefront_pool_state`` at the same addresses, so the stages
-    captured for the pool stay valid.  The stopwatch's slots go on
-    counting.  Returns ``st``."""
+    captured for the pool stay valid.  The stopwatch's slots and the
+    shadow rays go on counting.  Returns ``st``."""
     for k in ("origin", "mask", "acc", "seed", "alive", "pending",
               "prev_pdf", "bounce", "pixid", "next_work", "accum", "rays",
-              "shadow_rays", "it"):
+              "it"):
         st[k].zero_()
     st["counts"][:tracing.COUNTS].zero_()
     st["mask"].fill_(1.0)
@@ -436,7 +440,7 @@ class _Body:
                        sub["acc"], sub["mask"], sub["alive"],
                        sub["seed"], sub["bounce"], t, obj, tri,
                        prev_pdf=sub["prev_pdf"], isect=self.isect,
-                       shadow_count=st["shadow_rays"])
+                       counts=st["counts"])
         bounce = torch.where(sub["alive"], sub["bounce"] + 1,
                              sub["bounce"])
         sub["origin"].copy_(origin)

@@ -4,10 +4,11 @@ read by time window, and host spans for the profiler's timeline.
 
 Stopwatch.  On a CUDA card a pool's ``counts`` buffer (render/
 wavefront.py) holds, after stage A's three counts, one int64 slot of
-nanoseconds for each of ``SLOTS`` and the last stamp.  ``stamp`` launches
-csrc/trace.cu at the stage boundaries inside ``_Body.stage_a``,
-``stage_b`` and ``_trace``, so the launches are captured into the stage
-graphs and run on every replay:
+nanoseconds for each of ``SLOTS``, the shadow-ray counter and the last
+stamp.  ``stamp`` launches csrc/trace.cu at the stage boundaries inside
+``_Body.stage_a``, ``stage_b`` and ``_trace`` and, where their paths
+run, inside ``render/megakernel.py`` ``shade_step``, so the launches are
+captured into the stage graphs and run on every replay:
 
   stage_a    the sort, the ten gathers, K3 and the counts (from the top
              of stage A, where the stamp restarts: no time between
@@ -16,14 +17,21 @@ graphs and run on every replay:
              the host's count read, plan and submit;
   regen      regen, park and the counters;
   intersect  the intersect prepass or worklist kernel, K1 or K4-K8;
-  shade      K2 (with NEE, the shadow rays' intersect), the copy-backs
-             and the bounce update.
+  tex        the texture prologue (textured scenes only);
+  shade      K2, the copy-backs and the bounce update;
+  shadow     with NEE, the shadow rays' worklist and intersect in
+             any-hit mode, their count and the visibility add.
+
+A scene without textures stamps no ``tex``, and without NEE a step
+stamps no ``shadow`` and no ``shade`` between K2 and the shadow rays:
+its stage graphs hold the stamps of the five first slots alone.
 
 The slots are cumulative on the card and reach the host in the
 iteration's one count read, so the stopwatch adds no read; a camera
-reset keeps them.  Stage B's slots of a call's last iteration arrive
-with the next call's first read.  On the CPU nothing is stamped, and a
-window has no slots at all.
+reset keeps them.  So does the shadow-ray counter (``count_shadow``,
+on every device), which the same read brings.  Stage B's slots of a
+call's last iteration arrive with the next call's first read.  On the
+CPU nothing is stamped, and a window has no slots at all.
 
 Counters.  ``host_sync(site)`` counts each blocking wait of the host on
 the card, by ``SITES``: the loop's count read (one an iteration), the
@@ -35,7 +43,8 @@ counted inside a captured stage.
 
 Records.  At the end of each chunk, drain or single-shot call
 (``loop_call``) one record, the host clock and the cumulative
-iterations, syncs and slots, goes into a ring of ``RING`` records;
+iterations, syncs, slots and shadow rays, goes into a ring of ``RING``
+records;
 ``window(t0, t1)`` gives the differences over [t0, t1].  A sync after a
 call's end falls in the next record, unless ``mark()`` records the
 counters where a window should start.  Counters and
@@ -57,23 +66,26 @@ import torch
 
 from logipathtracer_tpu_torch.ops.kernels import _build
 
-SLOTS = ("stage_a", "gap", "regen", "intersect", "shade")
+SLOTS = ("stage_a", "gap", "regen", "intersect", "tex", "shade", "shadow")
 SITES = ("count_read", "fold", "drain", "sync", "radiance", "frame",
          "upload")
-# A pool's counts buffer: alive, pending and free; the slots; the stamp.
+# A pool's counts buffer: alive, pending and free; the slots; the
+# shadow rays; the stamp.
 COUNTS = 3
-WIDTH = COUNTS + len(SLOTS) + 1
+SHADOW = COUNTS + len(SLOTS)
+WIDTH = SHADOW + 2
 _STAMP = WIDTH - 1
 _SLOT = {s: COUNTS + i for i, s in enumerate(SLOTS)}
 # The ring's length: at a few records a frame, minutes of a viewer.
 RING = 1 << 16
 
 # Columns of a record: iterations, iterations timed by the stopwatch,
-# syncs by site, slot nanoseconds.
+# syncs by site, slot nanoseconds, shadow rays.
 _IT, _TIMED = 0, 1
 _SITE = {s: 2 + i for i, s in enumerate(SITES)}
 _NS = 2 + len(SITES)
-_COLUMNS = _NS + len(SLOTS)
+_SHADOW = _NS + len(SLOTS)
+_COLUMNS = _SHADOW + 1
 
 
 def stamp(counts: torch.Tensor, slot: str | None):
@@ -85,6 +97,12 @@ def stamp(counts: torch.Tensor, slot: str | None):
     _build.launch("trace", "lpt_stamp", counts,
                   -1 if slot is None else _SLOT[slot], _STAMP,
                   _build.stream_ptr(counts.device))
+
+
+def count_shadow(counts: torch.Tensor, n: torch.Tensor):
+    """Add ``n`` shadow rays (an int64 scalar tensor) into ``counts``'s
+    shadow-ray column, on the device: the count read brings it."""
+    counts[SHADOW:SHADOW + 1].add_(n)
 
 
 class Trace:
@@ -105,13 +123,17 @@ class Trace:
         """The end of a chunk, drain or single-shot call of pool ``st``:
         its iterations, each with one count read, the stopwatch's slots
         since the pool's last call (``st["slots_seen"]``, None off the
-        card, against the last read ``st["counts_read"]``), a record."""
+        card, against the last read ``st["counts_read"]``), the shadow
+        rays since then (``st["shadow_seen"]``), a record."""
         it = st["host_it"]
         seen, read = st["slots_seen"], st.get("counts_read")
         with _build.COUNT_LOCK:
             cum = self._cum
             cum[_IT] += it
             cum[_SITE["count_read"]] += it
+            if it:
+                cum[_SHADOW] += read[SHADOW] - st["shadow_seen"]
+                st["shadow_seen"] = read[SHADOW]
             if seen is not None and it:
                 cum[_TIMED] += it
                 for i in range(len(SLOTS)):
@@ -153,9 +175,9 @@ class Trace:
     def window(self, t0: float, t1: float | None = None):
         """The counts over [t0, t1] on ``time.perf_counter``'s clock (t1
         None: up to now, the counters as they stand): ``iterations``,
-        ``host_syncs`` by site and, where the stopwatch timed every
-        iteration, ``slots_ns`` by slot; None where the ring no longer
-        holds t0's record."""
+        ``host_syncs`` by site, ``shadow_rays`` and, where the stopwatch
+        timed every iteration, ``slots_ns`` by slot; None where the ring
+        no longer holds t0's record."""
         with _build.COUNT_LOCK:
             a = self._before(t0)
             if a is None:
@@ -164,9 +186,10 @@ class Trace:
                  else self._before(t1))
         d = (b - a).tolist()
         out = {"iterations": d[_IT],
-               "host_syncs": {s: d[i] for s, i in _SITE.items()}}
+               "host_syncs": {s: d[i] for s, i in _SITE.items()},
+               "shadow_rays": d[_SHADOW]}
         if d[_IT] and d[_TIMED] == d[_IT]:
-            out["slots_ns"] = dict(zip(SLOTS, d[_NS:]))
+            out["slots_ns"] = dict(zip(SLOTS, d[_NS:_SHADOW]))
         return out
 
 

@@ -1326,10 +1326,11 @@ def test_graph_replays_two_stages_per_iteration(dev):
 
 def test_stopwatch_on_the_card(dev):
     """The stopwatch's stamps, captured into the stage graphs: after
-    the stages are captured, every slot is positive over a few calls
-    and their sum is no more than the calls' wall time; the stamps add
-    no replay (two an iteration), no capture and no count read (one an
-    iteration, the only ``tolist``)."""
+    the stages are captured, every slot of a path that runs is positive
+    over a few calls (``tex`` and ``shadow`` stay 0 on this untextured
+    scene without NEE) and their sum is no more than the calls' wall
+    time; the stamps add no replay (two an iteration), no capture and no
+    count read (one an iteration, the only ``tolist``)."""
     import time
 
     from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
@@ -1365,12 +1366,51 @@ def test_stopwatch_on_the_card(dev):
     assert it > 0 and w["host_syncs"]["count_read"] == it
     assert reads == [trace.WIDTH] * it
     slots = w["slots_ns"]
-    assert all(v > 0 for v in slots.values()), slots
+    assert slots["tex"] == slots["shadow"] == 0, slots
+    assert all(v > 0 for k, v in slots.items()
+               if k not in ("tex", "shadow")), slots
     assert sum(slots.values()) <= wall * 1e9
     assert cache.captures == seen[0]
     assert cache.replays - seen[1] == 2 * it
     got = trace.per_iteration(w)
     assert set(got["stage_ms"]) == set(trace.SLOTS)
+
+
+def test_stopwatch_splits_the_shade_step_on_the_card(dev):
+    """On a textured scene with NEE the shade step's stamps, captured
+    with the stages, time the texture prologue (``tex``) and the shadow
+    rays (``shadow``) apart from K2 and the copy-backs (``shade``); the
+    window's shadow rays equal the pool's device counter after a drain,
+    and the count read stays the only read (one an iteration)."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.utils import trace
+    cfg = RenderConfig(width=128, height=64, compact_tile=1024,
+                       pool_size=8192, max_depth=6, nee=True)
+    r = ProgressiveRenderer(_graph_scene("textured"), cfg, host_seed=3,
+                            device=dev)
+    r.step(2)
+    r.radiance()
+    torch.cuda.synchronize(dev)
+    shadow0 = int(r._wf_state["shadow_rays"])
+    reads = []
+    tolist = torch.Tensor.tolist
+
+    def counted(self):
+        reads.append(self.numel())
+        return tolist(self)
+    t0 = trace.mark()
+    torch.Tensor.tolist = counted
+    try:
+        r.step(2)
+        r.radiance()
+    finally:
+        torch.Tensor.tolist = tolist
+    w = trace.window(t0)
+    it = w["iterations"]
+    assert it > 0 and reads == [trace.WIDTH] * it
+    assert all(v > 0 for v in w["slots_ns"].values()), w["slots_ns"]
+    shadow = int(r._wf_state["shadow_rays"])
+    assert w["shadow_rays"] == shadow - shadow0 > 0
 
 
 def test_graph_cache_freed_with_its_renderer(dev):

@@ -4,8 +4,9 @@
     iteration, and per call the uploads, the ray fold, the drain's
     pending test, the syncs and the frame and radiance reads;
   * ``window()`` scoping, the ring's bound, and the stopwatch's
-    arithmetic on a pool's slots (cumulative, kept through a camera
-    reset, stage B's last slots taken with the next call);
+    arithmetic on a pool's slots and shadow rays (cumulative, kept
+    through a camera reset, stage B's last slots taken with the next
+    call);
   * no slots and no stamp on the CPU;
   * the ``lpt.*`` spans under a CPU ``torch.profiler``, and no range
     without one.
@@ -80,15 +81,16 @@ def test_host_syncs_by_site_are_exact(scene, monkeypatch):
     assert got == {"count_read": it, "upload": 1, "fold": 1}
 
 
-def _pool(seen=(0, 0, 0, 0, 0)):
-    return {"host_it": 0, "slots_seen": list(seen) if seen else None}
+def _pool(seen=(0,) * len(trace.SLOTS)):
+    return {"host_it": 0, "slots_seen": list(seen) if seen else None,
+            "shadow_seen": 0}
 
 
-def _call(tr, st, iterations, slots):
+def _call(tr, st, iterations, slots, shadow=0):
     """A call of ``iterations`` whose last count read brought the
-    cumulative ``slots``."""
+    cumulative ``slots`` and ``shadow`` rays."""
     st["host_it"] = iterations
-    st["counts_read"] = [7, 8, 9, *slots, 123456]
+    st["counts_read"] = [7, 8, 9, *slots, shadow, 123456]
     tr.loop_call(st)
     return tr._times[(tr._n - 1) % len(tr._times)]
 
@@ -96,17 +98,20 @@ def _call(tr, st, iterations, slots):
 def test_window_scoping_and_slots():
     tr = trace.Trace(ring=8)
     st = _pool()
-    t_a = _call(tr, st, 2, [10, 1, 5, 20, 4])
-    t_b = _call(tr, st, 3, [25, 2, 9, 50, 10])
+    t_a = _call(tr, st, 2, [10, 1, 5, 20, 3, 4, 6], 100)
+    t_b = _call(tr, st, 3, [25, 2, 9, 50, 7, 10, 16], 250)
     tr.host_sync("fold")
-    # A camera reset keeps the slots: the next read goes on from them.
-    t_c = _call(tr, st, 1, [30, 3, 10, 60, 12])
+    # A camera reset keeps the slots and the shadow rays: the next read
+    # goes on from them.
+    t_c = _call(tr, st, 1, [30, 3, 10, 60, 9, 12, 20], 300)
     w = tr.window(t_a, t_c)
     assert w["iterations"] == 4
     assert w["host_syncs"]["count_read"] == 4
     assert w["host_syncs"]["fold"] == 1
     assert w["slots_ns"] == {"stage_a": 20, "gap": 2, "regen": 5,
-                             "intersect": 40, "shade": 8}
+                             "intersect": 40, "tex": 6, "shade": 8,
+                             "shadow": 14}
+    assert w["shadow_rays"] == 200
     assert tr.window(t_b, t_b)["iterations"] == 0
     assert "slots_ns" not in tr.window(t_b, t_b)
     # Before the first record: from zero; up to now: the counters.
@@ -116,15 +121,17 @@ def test_window_scoping_and_slots():
     assert tr.window(t_c, t_c)["host_syncs"]["frame"] == 0
     # A window that mixes timed and untimed iterations shows no slots.
     cpu = _pool(seen=None)
-    t_d = _call(tr, cpu, 5, [0, 0, 0, 0, 0])
+    t_d = _call(tr, cpu, 5, [0] * len(trace.SLOTS), 40)
     assert "slots_ns" not in tr.window(t_a, t_d)
     assert tr.window(t_c, t_d)["iterations"] == 5
+    # Shadow rays are counted off the card too.
+    assert tr.window(t_c, t_d)["shadow_rays"] == 40
 
 
 def test_ring_bound():
     tr = trace.Trace(ring=4)
     st = _pool(seen=None)
-    times = [_call(tr, st, 1, [0] * 5) for _ in range(10)]
+    times = [_call(tr, st, 1, [0] * len(trace.SLOTS)) for _ in range(10)]
     assert tr._n == 10
     # The ring holds the last four records: a window from an older one
     # cannot be read, one from a kept record can.
@@ -189,7 +196,7 @@ def test_counters_under_threads():
             st = _pool()
             for k in range(n):
                 tr.host_sync("fold")
-                _call(tr, st, 1, [k + 1] * 5)
+                _call(tr, st, 1, [k + 1] * len(trace.SLOTS), k + 1)
         threads = [threading.Thread(target=work) for _ in range(n_threads)]
         for t in threads:
             t.start()
@@ -203,8 +210,9 @@ def test_counters_under_threads():
     assert tr._cum[0] == total
     assert tr._cum[2 + trace.SITES.index("fold")] == total
     assert tr._cum[2 + trace.SITES.index("count_read")] == total
-    # Each pool's slots went 0 -> n in steps of one.
-    assert tr._cum[2 + len(trace.SITES):] == [total] * 5
+    # Each pool's slots and shadow rays went 0 -> n in steps of one.
+    assert tr._cum[2 + len(trace.SITES):] == [total] * (len(trace.SLOTS)
+                                                        + 1)
     # The ring holds the last 64 records in time order.
     k = tr._n % 64
     times = list(tr._times[k:]) + list(tr._times[:k])
