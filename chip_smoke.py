@@ -33,8 +33,17 @@ the root of a checkout it:
      and K2 on a scene small enough for the TPU kernel's tri_sel form;
      (c) the NEE main path at 1024x1024, timed as in 4, which must run
      the worklist kernel and K1 at least twice per iteration, K2 and K3,
+     the texture prologue's kernel once for each textured shade step,
      and no plain version;
      (d) the 64x64 card-vs-CPU render of 5 on this path;
+     (e) the texture prologue's kernel against its plain version on the
+     card, bit for bit on every live lane and zeros on the others
+     (``harness.tex_agreement``), on (a)'s pool and at the PBR benchmark
+     cell's shapes: its full-size scene from the benchmark's generator
+     (``portbench/scenes/box_pbr.py`` with the arguments of
+     ``portbench/configs/box_nee_tex_1080p.json``: 34 maps of 1024^2 in
+     a 142.6 MB packed atlas, four slots) on the 2^20-lane bounce pool of
+     a 1024^2 NEE session, timed by events and by device time;
   7. the outside-class path, scenes beyond the resident budget that
      stream cluster blocks: ``make_outside_scene()`` (394,242 triangles,
      51 objects, 1,233 clusters of 512) with the default RenderConfig,
@@ -197,7 +206,11 @@ its plain version does.  K3 moves 4 bytes of pixel id per row, 12 of
 radiance per retired row and a read and a write of each pixel it
 flushes.  K2's operations come from its count pass over the compared
 plain call (``shade_counted``): every lane's prologue, walk orders by
-lobe, light sample, roulette and draws at harness.K2_OPS.
+lobe, light sample, roulette and draws at harness.K2_OPS.  The texture
+prologue's bytes are ``harness.tex_bytes``: the lanes' inputs and
+outputs and four texels a tap, the tri_shade and obj_tex rows once (they
+stay in L2); its row adds ``device_ms`` and ``bound_ms_sectors``, the
+bound with a 32-B sector a texel.
 ``library_ms`` is the time of one PyTorch call that computes
 the same function (``index_add_`` for K3), null where no such call
 exists.  K3's row adds ``device_ms`` and ``library_device_ms``: the
@@ -226,7 +239,8 @@ from logipathtracer_tpu_torch.tools.harness import (  # noqa: E402
     bounce_pool, device_ms, event_ms, group_line, isect_counted, make_tail,
     megakernel_pools, primary_pool, runner, scene_tables, shade_args,
     shade_counted, shade_ops, shade_work, shadow_pool, sub_pool,
-    timed_steps, walk_efficiency)
+    tex_agreement, tex_bytes, tex_live, tex_pool, timed_steps,
+    walk_efficiency)
 
 # Tolerances.  The intersect kernels K1 and K4-K8 must equal their plain
 # versions bit for bit (t, tri and obj; t alone in any-hit); K2 uses the
@@ -396,6 +410,7 @@ COUNTERS = {
                       "order_plain_calls", "order_mode_launches"),
     "dense_sweep": ("cluster_intersect", "sweep_launches",
                     "sweep_plain_calls", "sweep_mode_launches"),
+    "tex_prologue": ("tex_prologue", "launches", "plain_calls", None),
 }
 FLAGSHIP = ("compact_intersect", "worklist_prepass", "shade", "flush")
 
@@ -607,6 +622,56 @@ def check_k3(dev, npix=1 << 20, rows=1 << 20, retired=1 << 18, runs=(10, 3),
     return err, k_ms, p_ms, b, lib_ms, k_dev, lib_dev
 
 
+def check_tex(scene, cfg, pool, t, obj, tri, runs=(10, 3)):
+    """The texture prologue's kernel against its plain version on one
+    pool, with the pool's alive mask: bit for bit on the live lanes,
+    zeros elsewhere.  Returns (max err, kernel ms, plain ms, bound,
+    device ms, live lanes, taps, bound with a 32-B sector a texel)."""
+    from logipathtracer_tpu_torch.ops.kernels import tex_prologue as tp
+    args = (scene, cfg, pool["origin"], pool["direction"], t, obj, tri)
+
+    def kernel():
+        return tp.tex_prologue(*args, alive=pool["alive"])
+
+    equal, err = tex_agreement(kernel(), tp.prologue_plain(*args),
+                               tex_live(pool["alive"], t))
+    assert equal, "texture prologue: differs from its plain version"
+    k_ms = event_ms(kernel, runs[0])
+    p_ms = event_ms(lambda: tp.prologue_plain(*args), runs[1])
+    k_dev = device_ms(kernel, DEVICE_RUNS)[0]
+    b = tex_bytes(scene, t, obj, tri, pool["alive"])
+    return (err, k_ms, p_ms, (b["bytes"] / PEAK_BYTES * 1e3, "bytes"),
+            k_dev, b["live"], b["taps"],
+            b["bytes_sectors"] / PEAK_BYTES * 1e3)
+
+
+def tex_line(what, r, card=None):
+    """The line of one check_tex result."""
+    print(f"texture prologue {what}: {r[5]} live lanes, {r[6]} taps, "
+          f"bit-equal on the live lanes, max|d| {r[0]:.3g}; kernel "
+          f"{r[1]:.4f} ms by events, {r[4]:.4f} ms device; plain "
+          f"{r[2]:.2f} ms; bound {r[3][0]:.4f} ms (bytes), "
+          f"{r[7]:.4f} ms with a 32-B sector a texel"
+          + (f" [{card}]" if card else ""), flush=True)
+
+
+def pbr_scene(cfg):
+    """The PBR benchmark cell's scene at full size, from the benchmark's
+    generator with the cell's arguments, written as a .glb and compiled
+    under ``cfg`` as ``render`` loads it."""
+    import tempfile
+    from logipathtracer_tpu_torch import compile_scene, load_gltf
+    from portbench.scenes import box_pbr
+    from portbench.scenes.glb import write_glb
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "portbench", "configs",
+                           "box_nee_tex_1080p.json")) as f:
+        args = json.load(f)["scene"]["args"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_glb(box_pbr.make(**args), os.path.join(tmp, "pbr.glb"))
+        return compile_scene(load_gltf(path), cfg)
+
+
 def render_radiance(scene, cfg, dev, host_seed, chunks):
     from logipathtracer_tpu_torch import ProgressiveRenderer
     r = ProgressiveRenderer(scene, cfg, host_seed=host_seed, device=dev)
@@ -617,8 +682,8 @@ def render_radiance(scene, cfg, dev, host_seed, chunks):
 
 def nee_phase(dev, card, flagship_rate):
     """Phase 6: the textured + NEE path (module docstring).  Returns the
-    K1 any-hit and K2 tex+nee rows (max err, kernel ms, plain ms) and the
-    main path's launches by mode."""
+    K1 any-hit, K2 tex+nee and texture prologue rows (max err, kernel
+    ms, plain ms, ...) and the main path's launches by mode."""
     from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels import shade as sk
@@ -643,6 +708,8 @@ def nee_phase(dev, card, flagship_rate):
                                         tile=tile)
     mat, ffm, nmap = resolve_tex_prologue(scene, cfg, pool["origin"],
                                           pool["direction"], t, obj, tri)
+    tex_line(f"checker box, {t.shape[0]} lanes",
+             check_tex(scene, cfg, pool, t, obj, tri, runs=(3, 1)))
     opt = dict(mat=mat, ff_mapped=ffm, has_nmap=nmap,
                light_tris=scene.light_tris, light_cdf=scene.light_cdf,
                prev_pdf=pool["prev_pdf"], nee_mis=cfg.nee_mis,
@@ -709,6 +776,7 @@ def nee_phase(dev, card, flagship_rate):
     rays = renderer.total_rays - rays0
     shadow = int(renderer._wf_state["shadow_rays"]) - shadow0
     counts = read_counts(FLAGSHIP)
+    tex_launches, tex_plain = read_counts(("tex_prologue",))["tex_prologue"]
     assert_no_plain()
     modes = {"any_hit": ci.mode_launches["any_hit"],
              "closest": ci.mode_launches["closest"],
@@ -725,6 +793,9 @@ def nee_phase(dev, card, flagship_rate):
         f"K1 launched {counts['compact_intersect'][0]} times in {n_it} " \
         f"iterations"
     assert modes["any_hit"] == modes["tex+nee"] == counts["shade"][0]
+    assert (tex_launches, tex_plain) == (modes["tex+nee"], 0), \
+        f"texture prologue: {tex_launches} launches, {tex_plain} plain " \
+        f"calls in {modes['tex+nee']} textured shade steps"
     spp = sum(timed)
     print(f"NEE+textured main path 1024x1024 spp {spp}: "
           f"{spp / wall:.3f} samples/s, {rays / wall / 1e6:.2f} Mrays/s "
@@ -735,7 +806,8 @@ def nee_phase(dev, card, flagship_rate):
           f"({shadow / wall / 1e6:.2f} M/s), not counted in Mrays/s",
           flush=True)
     print(f"NEE launches: {json.dumps(counts)} by mode "
-          f"{json.dumps(modes)} in {n_it} iterations", flush=True)
+          f"{json.dumps(modes)}, texture prologue {tex_launches} in {n_it} "
+          f"iterations", flush=True)
     assert counts["worklist_prepass"][0] >= 2 * n_it
 
     # (d) card vs CPU on the NEE path
@@ -747,8 +819,21 @@ def nee_phase(dev, card, flagship_rate):
     print(f"NEE card vs CPU 64x64 2+2 spp: {close.mean():.5f} of pixels "
           f"close", flush=True)
     assert close.mean() >= IMG_FRAC, "NEE card and CPU renders disagree"
+
+    # (e) the texture prologue at the PBR cell's shapes
+    t0 = time.perf_counter()
+    pbr = pbr_scene(cfg)
+    print(f"PBR scene: {pbr.num_triangles} triangles, atlas "
+          f"{tuple(pbr.tex_atlas.shape)} ({pbr.tex_atlas.nbytes} B), "
+          f"tex_slots {pbr.tex_slots} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    scene, pool, t, obj, tri = tex_pool(pbr, cfg, dev)
+    tex = check_tex(scene, cfg, pool, t, obj, tri)
+    tex_line(f"PBR cell's scene, {t.shape[0]} lanes", tex, card)
+    del pbr, scene, pool, t, obj, tri
     return {"k1": (*k1[:3], k1[5]), "worklist": k1[6], "k2": k2,
-            "modes": modes, "prepass": counts["worklist_prepass"][0]}
+            "modes": modes, "prepass": counts["worklist_prepass"][0],
+            "tex": tex, "tex_launches": tex_launches}
 
 
 # Phase 7: K4, K5 and K6 are held against their plain versions on the
@@ -2351,7 +2436,8 @@ def main(argv=None) -> int:
     graph_phase(dev, card)
 
     from logipathtracer_tpu_torch.ops.kernels import (compact_intersect,
-                                                      flush, shade)
+                                                      flush, shade,
+                                                      tex_prologue)
     k1_any = "logipathtracer_tpu/ops/pallas/compact_intersect.py:243"
     pool = 1 << 20          # rays, lanes or rows of phases 3 and 6's checks
     main_run, nee_run = "1024^2 main path", "1024^2 NEE main path"
@@ -2387,6 +2473,12 @@ def main(argv=None) -> int:
             main_run, pool, *k3[:3], k3[3], k3[4]),
     ]
     rows[-1].update(device_ms=k3[5][0], library_device_ms=k3[6][0])
+    tex = nee["tex"]
+    rows.append(row("tex_prologue", tex_prologue.SOURCE,
+                    tex_prologue.REPLACES, nee["tex_launches"], nee_run,
+                    pool, *tex[:4]))
+    rows[-1].update(device_ms=tex[4], bound_ms_sectors=tex[7],
+                    scene="the PBR cell's, full size")
     # r: check_isect's (max |dt|, ms, plain ms, fraction, bound, pool)
     rows += [row(n, src, where, launched, run, r[5], *r[:3], r[4])
              for n, src, where, launched, run, r in outside + order_rows]
@@ -2394,8 +2486,10 @@ def main(argv=None) -> int:
     # Beside the contract's keys: "run", the run whose launches are
     # counted, and "pool", the rays (lanes, rows) that max_abs_err, ms,
     # plain_ms and the bound were measured on; on K3's, the device times
-    # of device_ms.  The worklist rows' plain_ms is the plain version on
-    # the card, the prepass the earlier route ran.
+    # of device_ms; on the texture prologue's, its device time, its
+    # bound with a 32-B sector a texel and the scene its pool came from.
+    # The worklist rows' plain_ms is the plain version on the card, the
+    # prepass the earlier route ran.
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,7 @@ EXTRA_FLAGS = {
     "stream_chunk": ["-fmad=false"],
     "cluster_sweep": ["-fmad=false"],
     "shade": ["-fmad=false"],
+    "tex_prologue": ["-fmad=false"],
     "flush": [],
     "trace": [],
 }

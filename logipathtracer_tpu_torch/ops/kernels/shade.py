@@ -9,8 +9,8 @@ roulette — with the parity or Threefry draws in the JAX draw order.
 Two optional modes:
 
   * textures (the TPU kernel's ``tex`` variant, 86 input rows): the
-    texture prologue (render/megakernel.py ``resolve_tex_prologue``,
-    plain torch) resolves the taps into per-lane material overrides
+    texture prologue (ops/kernels/tex_prologue.py, its own kernel on
+    the card) resolves the taps into per-lane material overrides
     ``mat`` [R, MAT_COLS] (base colour, emission, metallic, roughness,
     transmission) and, with a normal map, the mapped front-face normal
     ``ff_mapped`` [R, 3] where ``has_nmap`` [R].  The roughness in

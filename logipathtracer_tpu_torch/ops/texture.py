@@ -9,10 +9,13 @@ neighbourhood packed beside it, ``_build_quad_atlas``).  The reference
 samples at implicit LOD 0; ``sample_atlas_lod`` adds the trilinear mip
 path of the JAX package.
 
-Plain PyTorch on both devices: the JAX package ran this as XLA, outside
-any Pallas kernel.  Every gather index is clamped into its array, so a
-lane whose result is discarded (a miss, whose t = INF puts uv far out)
-never indexes out of bounds; in-range indices are unchanged.
+Plain PyTorch: the JAX package ran this as XLA, outside any Pallas
+kernel.  On the card the texture prologue's kernel
+(ops/kernels/tex_prologue.py) takes the taps itself, bit for bit as
+these functions run there.  Every gather index is clamped into its
+array, so a lane whose result is discarded (a miss, whose t = INF puts
+uv far out) never indexes out of bounds; in-range indices are
+unchanged.
 """
 
 from __future__ import annotations
@@ -32,7 +35,11 @@ def _take(a, idx):
 def _unpack(v):
     """Packed RGBA8 texels (int32 bit patterns) -> [..., 4] f32 in [0, 1].
     ``(v >> 8i) & 0xFF`` is right under the arithmetic shift because of
-    the mask; the /255.0 is an IEEE f32 divide, as the f32 packer's."""
+    the mask.  On the CPU the /255.0 is an IEEE f32 divide, as the f32
+    packer's; on the card torch turns the division by a Python number
+    into a multiply by its f32 reciprocal, which rounds 126 of the 256
+    values one ulp apart, and the texture prologue's kernel takes that
+    multiply as well."""
     return torch.stack([((v >> (8 * i)) & 0xFF).to(torch.float32) / 255.0
                         for i in range(4)], dim=-1)
 

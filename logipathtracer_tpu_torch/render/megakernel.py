@@ -20,13 +20,9 @@ import torch
 
 from logipathtracer_tpu_torch.config import RenderConfig
 from logipathtracer_tpu_torch.ops.camera import generate_ray
-from logipathtracer_tpu_torch.ops.intersect import (barycentric, dot3,
-                                                    transform_dir,
-                                                    transform_point)
 from logipathtracer_tpu_torch.ops.kernels import shade as shade_kernel
+from logipathtracer_tpu_torch.ops.kernels import tex_prologue
 from logipathtracer_tpu_torch.ops.rng import get_rand, seed_from_pixel
-from logipathtracer_tpu_torch.ops.texture import (sample_atlas,
-                                                  sample_atlas_lod)
 from logipathtracer_tpu_torch.ops.traverse import (
     intersect_scene, intersect_scene_cluster_wl, intersect_scene_stream,
     intersect_scene_sweep, intersect_scene_worklist)
@@ -204,92 +200,20 @@ def resolve_shade_mode(cfg: RenderConfig, scene=None) -> str:
 
 
 def resolve_tex_prologue(scene, cfg: RenderConfig, origin, direction, t,
-                         obj, tri):
-    """Texture taps for the shading kernel (megakernel.py:276-387), in
-    plain torch: the per-lane gathers K2 does not do.  Material factors
-    multiply in texture order (base, emissive, metallic-roughness,
-    transmission); the roughness floor applies BEFORE the texture
-    multiply; the normal map rotates about the PRE-map tangent basis.
-    Slots no object textures (scene.tex_slots) are skipped.
+                         obj, tri, alive=None):
+    """Texture taps for the shading kernel (megakernel.py:276-387): the
+    per-lane gathers K2 does not do, through ``tex_prologue`` (the kernel
+    on CUDA tensors, its plain version on CPU ones).  The kernel computes
+    the lanes that are ``alive`` and hit (None: every lane with a hit)
+    and writes zeros on the others; the plain version computes every
+    lane.
 
     Returns (mat [R, MAT_COLS] f32 — base rgba, emission, metallic,
     roughness, transmission — and, when some object has a normal map,
     the mapped front-face normal [R, 3] and has-normal-map [R] bool;
     else None, None)."""
-    ts64 = scene.tri_shade[tri.clamp(min=0).long()]        # [R, 64]
-    tshade = ts64[:, 0:32]
-    oshade = ts64[:, 32:64]
-    world3 = oshade[:, 0:9].reshape(-1, 3, 3)
-    inv34 = oshade[:, 9:21].reshape(-1, 3, 4)
-    pos_loc = (transform_point(inv34, origin)
-               + t[:, None] * transform_dir(inv34, direction))
-    bary = barycentric(pos_loc, tshade[:, 15:18], tshade[:, 18:21],
-                       tshade[:, 21:24])
-    uv = (bary[:, 0:1] * tshade[:, 9:11] + bary[:, 1:2] * tshade[:, 11:13]
-          + bary[:, 2:3] * tshade[:, 13:15])
-
-    base_color = oshade[:, 21:25]
-    emission = oshade[:, 25:28]
-    metallic = oshade[:, 28]
-    roughness = torch.clamp(oshade[:, 29], min=0.001)
-    transmission = oshade[:, 30]
-
-    tex = scene.obj_tex[obj.clamp(min=0).long()]           # [R, 5]
-    if scene.mip_levels > 1:
-        scale = torch.sqrt(torch.clamp(dot3(world3[:, :, 0],
-                                            world3[:, :, 0]), min=1e-20))
-        density_w = tshade[:, 24] / scale
-
-    def tap(slot):
-        tid = tex[:, slot]
-        if scene.mip_levels > 1:
-            base = scene.tex_mip_base[tid.clamp(min=0).long()]
-            e0 = scene.tex_table[base.long()]
-            dim = torch.maximum(e0[:, 2], e0[:, 3]).to(torch.float32)
-            footprint = cfg.mip_spread * t * density_w * dim
-            lod = torch.log2(torch.clamp(footprint, min=1.0))
-            s = sample_atlas_lod(
-                scene.tex_atlas, scene.tex_table, scene.tex_mip_base,
-                scene.tex_mip_count, tid, uv, lod,
-                nearest_aware=scene.has_nearest, quad=scene.tex_quad)
-        else:
-            s = sample_atlas(scene.tex_atlas, scene.tex_table, tid, uv,
-                             nearest_aware=scene.has_nearest,
-                             quad=scene.tex_quad)
-        return tid >= 0, s
-
-    used = scene.tex_slots
-    if used[0]:
-        has_c, c = tap(0)
-        base_color = torch.where(has_c[:, None], base_color * c, base_color)
-    if used[1]:
-        has_e, e = tap(1)
-        emission = torch.where(has_e[:, None], emission * e[:, :3],
-                               emission)
-    if used[2]:
-        has_mr, mr = tap(2)
-        metallic = torch.where(has_mr, metallic * mr[:, 2], metallic)
-        roughness = torch.where(has_mr, roughness * mr[:, 1], roughness)
-    if used[3]:
-        has_t, tt = tap(3)
-        transmission = torch.where(has_t, transmission * tt[:, 0],
-                                   transmission)
-    mat = torch.cat([base_color, emission, metallic[:, None],
-                     roughness[:, None], transmission[:, None]], dim=1)
-    if not used[4]:
-        return mat.contiguous(), None, None
-
-    # Normal map about the pre-map basis (megakernel.py:353-381).
-    n_loc = (bary[:, 0:1] * tshade[:, 0:3] + bary[:, 1:2] * tshade[:, 3:6]
-             + bary[:, 2:3] * tshade[:, 6:9])
-    n = shade_kernel.normalize(transform_dir(world3, n_loc))
-    ff = torch.where((dot3(n, direction) < 0.0)[:, None], n, -n)
-    u, v = shade_kernel.tangent_basis(ff)
-    has_n, nmap = tap(4)
-    tn = shade_kernel.normalize(nmap[:, :3] * 2.0 - 1.0)
-    ff_mapped = shade_kernel.normalize(tn[:, 0:1] * u + tn[:, 1:2] * v
-                                       + tn[:, 2:3] * ff)
-    return mat.contiguous(), ff_mapped.contiguous(), has_n.contiguous()
+    return tex_prologue.tex_prologue(scene, cfg, origin, direction, t, obj,
+                                     tri, alive=alive)
 
 
 def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
@@ -323,7 +247,7 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
     opt = {}
     if scene.has_textures:
         mat, ff_mapped, has_nmap = resolve_tex_prologue(
-            scene, cfg, origin, direction, t, obj, tri)
+            scene, cfg, origin, direction, t, obj, tri, alive=alive)
         opt.update(mat=mat, ff_mapped=ff_mapped, has_nmap=has_nmap)
         if counts is not None:
             tracing.stamp(counts, "tex")

@@ -1,7 +1,8 @@
 """What ``chip_smoke.py`` and ``tools/kernel_times.py`` share: the main
 paths' ray pools, a runner per intersect kernel with its front end and
 the intersect kernels' count pass, the K3 input tail, K2's pools and its
-count pass, and the timers.
+count pass, the texture prologue's pool, comparison and bytes, and the
+timers.
 
 The module imports no part of the package at its top: each function
 imports what it needs when called, so ``tools/kernel_times.py --root``
@@ -497,6 +498,78 @@ def shade_args(scene, cfg, pool, t, tri, parity, opt=None):
               rr_bounces=cfg.rr_bounces, max_order=cfg.heitz_max_order,
               parity=parity, **(opt or {}))
     return args, kw
+
+
+def tex_pool(host, cfg, dev):
+    """The texture prologue's inputs on a textured host scene compiled
+    under ``cfg``: the bounce pool of a session (``bounce_pool``; 2^20
+    lanes at 1024^2) with its hits: (scene, pool, t, obj, tri), the scene
+    on ``dev``."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer
+    from logipathtracer_tpu_torch.render.megakernel import pick_intersect
+    probe = ProgressiveRenderer(host, cfg, host_seed=1, device=dev)
+    pool = bounce_pool(probe)
+    scene = probe.scene
+    t, obj, tri = pick_intersect(cfg, scene)(scene, pool["origin"],
+                                             pool["direction"], cfg.eps)
+    return scene, pool, t, obj, tri
+
+
+def tex_live(alive, t):
+    """The prologue's live lanes: alive and a hit, K2's test."""
+    from logipathtracer_tpu_torch.ops.intersect import INF
+    return alive & ~(t >= INF)
+
+
+def tex_agreement(got, ref, live):
+    """(bit-equal, max |d|) of the prologue kernel's outputs ``got``
+    against the plain version's ``ref``: mat on the live lanes and the
+    mapped normal on the live lanes with a normal map, bit for bit, and
+    zeros everywhere else, as the kernel writes them."""
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    mat, ffm, has = got
+    pairs = [(mat[live], ref[0][live])]
+    zeros = [mat[~live]]
+    ok = ref[1] is None or torch.equal(has, ref[2] & live)
+    if ref[1] is not None:
+        want = ref[2] & live
+        pairs.append((ffm[want], ref[1][want]))
+        zeros.append(ffm[~want])
+    ok = ok and all(torch.equal(bits(g), bits(r)) for g, r in pairs)
+    ok = ok and not any(bool(z.any()) for z in zeros)
+    err = max((float((g - r).abs().max()) if g.numel() else 0.0)
+              for g, r in pairs)
+    return ok, err
+
+
+def tex_bytes(scene, t, obj, tri, alive):
+    """The texture prologue's DRAM bytes on one pool: {live, taps, bytes,
+    bytes_sectors}.  A live lane reads its 37 B of inputs (origin,
+    direction, t, obj, tri, alive), a lane that is not 5 B (t, alive);
+    every lane writes mat (40 B) and, with the normal slot, ff_mapped and
+    has_nmap (13 B).  The tri_shade (256 B) and obj_tex (20 B) rows the
+    live lanes touch count once: the tables stay in L2.  A tap reads four
+    texels (4 B packed, 16 B f32; one 16-B row of the quad atlas), two
+    levels' worth with mips; ``bytes_sectors`` charges each texel read a
+    32-B sector."""
+    live = tex_live(alive, t)
+    n_live, lanes = int(live.sum()), int(t.shape[0])
+    tid = scene.obj_tex[obj.clamp(min=0).long()][live]
+    used = torch.tensor(scene.tex_slots, device=t.device)
+    taps = int(((tid >= 0) & used).sum())
+    out = 40 + (13 if scene.tex_slots[4] else 0)
+    tables = (int(torch.unique(tri[live]).numel()) * 256
+              + int(torch.unique(obj[live]).numel()) * 20)
+    base = n_live * 37 + (lanes - n_live) * 5 + lanes * out + tables
+    reads, size = 4, (4 if scene.tex_atlas.dim() == 2 else 16)
+    if scene.tex_quad is not None:
+        reads, size = 1, 16
+    reads *= 2 if scene.mip_levels > 1 else 1
+    return {"live": n_live, "taps": taps,
+            "bytes": base + taps * reads * size,
+            "bytes_sectors": base + taps * reads * max(size, 32)}
 
 
 def shade_pools(dev, cfg=None):

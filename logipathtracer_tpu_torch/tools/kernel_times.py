@@ -1,7 +1,8 @@
 """Kernel times on the card for this checkout's package or another's:
 K3 beside ``index_add_`` (``flush``), the intersect kernels K1 and
-K4-K8 with the rates of the routes they serve (``isect``), and the shade
-kernel K2 on the main paths' pools (``shade``).
+K4-K8 with the rates of the routes they serve (``isect``), the shade
+kernel K2 on the main paths' pools (``shade``) and the texture
+prologue's kernel (``tex``).
 
     python logipathtracer_tpu_torch/tools/kernel_times.py flush
         [--root DIR] [--label NAME] [--runs 50]
@@ -11,6 +12,8 @@ kernel K2 on the main paths' pools (``shade``).
         [--count-tiles N]
     python logipathtracer_tpu_torch/tools/kernel_times.py shade
         [--root DIR] [--label NAME] [--runs 10] [--main-runs N]
+    python logipathtracer_tpu_torch/tools/kernel_times.py tex
+        --glb SCENE.glb [--root DIR] [--label NAME] [--runs 10]
     python logipathtracer_tpu_torch/tools/kernel_times.py ptxas
         [--root DIR] [--label NAME]
 
@@ -101,6 +104,26 @@ camera rays (the tri_sel class).  Per pool:
   main:      with ``--main-runs N``, as in ``isect``: the flagship, the
              NEE + textured box, the outside class and the megakernel,
              each at its defaults (K2 on each).
+
+``tex``: the texture prologue on the textured scene ``--glb`` (for the
+PBR benchmark cell's shapes, its full-size scene from the benchmark's
+generator: 34 maps of 1024^2 in a 142.6 MB packed atlas, four slots),
+on the 2^20-lane bounce pool of a 1024^2 NEE session
+(``harness.tex_pool``), with its alive mask:
+
+  event_ms, device_ms, stream_ms, host_us: the kernel, as in ``flush``
+             (device_ms and host_us over ``--runs`` x 5 calls);
+  plain_ms:  its plain version on the card, the median of 3 calls
+             between two CUDA events;
+  bit_equal, max_abs_err: the kernel's outputs against the plain
+             version's on the live lanes, zeros elsewhere
+             (``harness.tex_agreement``);
+  live, taps: the live lanes and their texture taps (four texels each);
+  bytes, bound_ms: ``harness.tex_bytes`` ÷ 3.35 TB/s (the lanes' inputs
+             and outputs, 4 B a texel, the tri_shade and obj_tex rows
+             once a call: they stay in L2); bound_ms_sectors with a
+             32-B sector a texel;
+  digest:    sha256 of the outputs.
 
 ``ptxas``: each source built as the package builds it, with ``-Xptxas
 -v``: per kernel, ptxas's lines on its registers, spills and shared
@@ -378,6 +401,39 @@ def shade_times(h, dev, runs):
     return out
 
 
+def tex_times(h, dev, runs, glb):
+    """The texture prologue's kernel beside its plain version on the
+    scene ``glb`` (module docstring)."""
+    from logipathtracer_tpu_torch import (RenderConfig, compile_scene,
+                                          load_gltf)
+    from logipathtracer_tpu_torch.ops.kernels import tex_prologue as tp
+    cfg = RenderConfig(width=1024, height=1024, nee=True)
+    host = compile_scene(load_gltf(glb), cfg)
+    scene, pool, t, obj, tri = h.tex_pool(host, cfg, dev)
+    args = (scene, cfg, pool["origin"], pool["direction"], t, obj, tri)
+    alive = pool["alive"]
+
+    def fn():
+        return tp.tex_prologue(*args, alive=alive)
+
+    def plain():
+        return tp.prologue_plain(*args)
+
+    got = fn()
+    equal, err = h.tex_agreement(got, plain(), h.tex_live(alive, t))
+    b = h.tex_bytes(scene, t, obj, tri, alive)
+    d, st, us = h.device_ms(fn, 5 * runs)
+    return {"lanes": int(t.shape[0]), "live": b["live"], "taps": b["taps"],
+            "atlas_bytes": scene.tex_atlas.numel()
+            * scene.tex_atlas.element_size(),
+            "event_ms": h.event_ms(fn, runs), "device_ms": d,
+            "stream_ms": st, "host_us": us, "plain_ms": h.event_ms(plain, 3),
+            "bit_equal": equal, "max_abs_err": err, "bytes": b["bytes"],
+            "bound_ms": b["bytes"] / 3.35e12 * 1e3,
+            "bound_ms_sectors": b["bytes_sectors"] / 3.35e12 * 1e3,
+            "digest": digest([x for x in got if x is not None])}
+
+
 def ptxas_report():
     """{source: ptxas -v lines}: each csrc source compiled as ``_build``
     compiles it, into the build directory, with ``-Xptxas -v``."""
@@ -396,12 +452,14 @@ def ptxas_report():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernels", choices=("flush", "isect", "shade", "ptxas"))
+    ap.add_argument("kernels",
+                    choices=("flush", "isect", "shade", "tex", "ptxas"))
     ap.add_argument("--root", default=_ROOT,
                     help="checkout whose logipathtracer_tpu_torch to time")
     ap.add_argument("--label", default=None)
     ap.add_argument("--runs", type=int, default=None,
-                    help="calls per time (flush: 50, isect and shade: 10)")
+                    help="calls per time (flush: 50; isect, shade and "
+                    "tex: 10)")
     ap.add_argument("--main-runs", type=int, default=0,
                     help="isect, shade: runs of each main route")
     ap.add_argument("--kinds", default=",".join(ISECT_KINDS),
@@ -409,10 +467,14 @@ def main(argv=None):
     ap.add_argument("--routes", default=None,
                     help="isect, shade: the main routes to run, "
                     "comma-separated (default: all)")
+    ap.add_argument("--glb", default=None,
+                    help="tex: the textured scene to run the prologue on")
     ap.add_argument("--count-tiles", type=int, default=0,
                     help="isect: K4's count pass on this many tiles of "
                     "each pool (0: none)")
     args = ap.parse_args(argv)
+    if args.kernels == "tex" and not args.glb:
+        ap.error("tex needs --glb")
     if not torch.cuda.is_available():
         sys.exit("kernel_times: needs a CUDA card")
     root = os.path.abspath(args.root)
@@ -433,6 +495,9 @@ def main(argv=None):
     elif args.kernels == "flush":
         runs = args.runs or 50
         res = flush_times(h, dev, runs)
+    elif args.kernels == "tex":
+        runs = args.runs or 10
+        res = {"tex": tex_times(h, dev, runs, os.path.abspath(args.glb))}
     elif args.kernels == "shade":
         runs = args.runs or 10
         res = {"shade": shade_times(h, dev, runs),

@@ -1,5 +1,7 @@
-"""Kernels K1-K8 and K1's worklist kernel against their plain versions
-on the card, at small shapes, in every mode (the intersect kernels'
+"""Kernels K1-K8, K1's worklist kernel and the texture prologue's kernel
+against their plain versions on the card, at small shapes, in every mode
+(the prologue on each atlas route, wrap, filter and mip path; the
+intersect kernels'
 t_max / any-hit shadow queries, K1 bit for bit and on crafted ties,
 K3's edges, K6's cap 0 and cap > 0 bodies, K8's sub-tile body, K2
 in every mode with both RNGs on its edges: mixed lobes, 16-order walks,
@@ -478,6 +480,191 @@ def test_wrappers_check_inputs(scene, dev):
     with pytest.raises(ValueError, match="at most"):
         ci.build_chunk_worklists(boxes, boxes,
                                  torch.zeros((8, 1024), device=dev), 1024)
+
+
+# The texture prologue's routes: atlas ("packed" RGBA8 or "f32"), quad
+# atlas asked for, wrap mode, NEAREST samplers, mip levels, normal map,
+# slots (base colour, emission, metallic-roughness, transmission, normal).
+_TEX = dict(atlas="packed", quad=False, wrap="repeat", nearest=False,
+            mips=1, normal=True, slots=(0, 1, 2, 3))
+TEX_PROLOGUE_CASES = {
+    "packed-4gather-repeat": {},
+    "packed-4gather-clamp": dict(wrap="clamp"),
+    "packed-4gather-mirror": dict(wrap="mirror"),
+    "packed-quad-repeat": dict(quad=True),
+    "packed-quad-clamp": dict(quad=True, wrap="clamp"),
+    "f32-repeat": dict(atlas="f32"),
+    "f32-clamp": dict(atlas="f32", wrap="clamp"),
+    "f32-mirror": dict(atlas="f32", wrap="mirror"),
+    "nearest-4gather": dict(nearest=True, wrap="mirror"),
+    "nearest-quad": dict(nearest=True, quad=True, wrap="clamp"),
+    "nearest-f32": dict(nearest=True, atlas="f32"),
+    "mips": dict(mips=4),
+    "mips-nearest-clamp": dict(mips=4, nearest=True, wrap="clamp"),
+    "no-normal-map": dict(normal=False),
+    "slot-subset": dict(slots=(0, 2), normal=False),
+    "slot-subset-normal": dict(slots=(2,), quad=True),
+}
+
+
+def _tex_prologue_scene(case):
+    """A textured box for one case (host scene, RenderConfig): the walls
+    carry every asked slot, with uvs stretched to [-1.3, 2.4] so that
+    taps wrap past both edges; the lamp an emissive map; the first
+    sphere a base-colour map alone; the other none (texture id -1)."""
+    from logipathtracer_tpu_torch import RenderConfig, compile_scene
+    from logipathtracer_tpu_torch.scene.gltf import TextureData
+    from logipathtracer_tpu_torch.scene.procedural import make_box_scene
+    c = dict(_TEX, **TEX_PROLOGUE_CASES[case])
+    wrap = {"repeat": 10497, "clamp": 33071, "mirror": 33648}[c["wrap"]]
+    rng = np.random.default_rng(11)
+    gltf = make_box_scene(spheres=2, subdiv=2)
+    sizes = [(8, 8), (5, 7), (16, 16), (6, 9), (8, 8)]
+    gltf.textures = []
+    for k, (h, w) in enumerate(sizes):
+        px = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+        if c["atlas"] == "f32":
+            px = px.astype(np.float32)
+        # NEAREST on every other map: both filters in one launch.
+        filt = 9728 if c["nearest"] and k % 2 == 0 else 9729
+        gltf.textures.append(TextureData(pixels=px, wrap_s=wrap, wrap_t=wrap,
+                                         mag_filter=filt, min_filter=filt))
+    names = ("base_color_texture", "emissive_texture",
+             "metallic_roughness_texture", "transmission_texture",
+             "normal_texture")
+    walls, lamp, sphere = gltf.materials[0], gltf.materials[1], \
+        gltf.materials[2]
+    for k in c["slots"] + ((4,) if c["normal"] else ()):
+        setattr(walls, names[k], k)
+    if 1 in c["slots"]:
+        lamp.emissive_texture = 1
+    if 0 in c["slots"]:
+        sphere.base_color_texture = 0
+    walls.transmission_factor = 0.7
+    for node in gltf.mesh_nodes:
+        for p in node.primitives:
+            if p.uvs is not None and p.material == 0:
+                p.uvs = (p.uvs * 3.7 - 1.3).astype(np.float32)
+    cfg = RenderConfig(mip_levels=c["mips"], tex_quad=c["quad"],
+                       mip_spread=0.05)
+    host = compile_scene(gltf, cfg)
+    used = tuple(k in c["slots"] or (k == 4 and c["normal"])
+                 for k in range(5))
+    assert host.tex_slots == used
+    assert (host.tex_quad is not None) == (c["quad"] and c["atlas"] ==
+                                           "packed" and c["mips"] == 1
+                                           and c["wrap"] != "mirror")
+    assert (host.tex_atlas.ndim == 2) == (c["atlas"] == "packed"
+                                          and c["mips"] == 1)
+    assert host.has_nearest == c["nearest"] and host.mip_levels == c["mips"]
+    return host, cfg
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("case", sorted(TEX_PROLOGUE_CASES))
+def test_tex_prologue_bit_equal_to_plain(dev, case):
+    """The texture prologue's kernel against its plain version on the
+    card, bit for bit on the lanes K2 reads: with ``alive``, the live
+    lanes (and zeros on the others), without it every hit lane."""
+    from logipathtracer_tpu_torch.ops.intersect import INF
+    from logipathtracer_tpu_torch.ops.kernels import tex_prologue as tp
+    from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
+    from logipathtracer_tpu_torch.tools.harness import tex_agreement
+    host, cfg = _tex_prologue_scene(case)
+    sc = host.to(dev)
+    n = 8192
+    o, d = _rays(n, dev, seed=7)          # a parked tail: misses
+    t, obj, tri = intersect_scene_sweep(sc, o, d, tile=1024)
+    alive = torch.from_numpy(
+        np.random.default_rng(8).random(n) < 0.8).to(dev)
+    live = alive & (t < INF)
+    assert 0 < int(live.sum()) < n
+    args = (sc, cfg, o, d, t, obj, tri)
+    n0, p0 = tp.launches, tp.plain_calls
+    got = tp.tex_prologue(*args, alive=alive)
+    assert (tp.launches, tp.plain_calls) == (n0 + 1, p0)
+    ref = tp.prologue_plain(*args)
+    assert (got[1] is None) == (ref[1] is None) == (not sc.tex_slots[4])
+    mat = got[0]
+    assert torch.equal(_bits(mat[live]), _bits(ref[0][live]))
+    assert not mat[~live].any()
+    if ref[1] is not None:
+        has = ref[2] & live
+        assert torch.equal(got[2], has)
+        assert torch.equal(_bits(got[1][has]), _bits(ref[1][has]))
+        assert not got[1][~has].any()
+    assert tex_agreement(got, ref, live) == (True, 0.0)
+    # The taps read real texels: the floor's roughness varies.
+    floor = live & (obj == 0)
+    assert float(mat[floor, 8].std()) > 0.01
+    hit = t < INF
+    got = tp.tex_prologue(*args)
+    assert torch.equal(_bits(got[0][hit]), _bits(ref[0][hit]))
+    assert not got[0][~hit].any()
+    if ref[1] is not None:
+        has = ref[2] & hit
+        assert torch.equal(got[2], has)
+        assert torch.equal(_bits(got[1][has]), _bits(ref[1][has]))
+
+
+def test_tex_prologue_checks_inputs(dev):
+    """On CUDA tensors the prologue launches its kernel or raises: inputs
+    it does not take never fall back to the plain version."""
+    import dataclasses
+
+    from logipathtracer_tpu_torch.ops.kernels import tex_prologue as tp
+    from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
+    host, cfg = _tex_prologue_scene("packed-quad-repeat")
+    sc = host.to(dev)
+    o, d = _rays(1024, dev, seed=9)
+    t, obj, tri = intersect_scene_sweep(sc, o, d, tile=1024)
+    p0 = tp.plain_calls
+    bad = [((sc, cfg, o, d, t.double(), obj, tri), "dtype"),
+           ((sc, cfg, o[:, :2].contiguous(), d, t, obj, tri), "shape"),
+           ((sc, cfg, o, d, t, obj, tri[:512]), "shape"),
+           ((dataclasses.replace(sc, mip_levels=4), cfg, o, d, t, obj, tri),
+            "mip chains"),
+           ((dataclasses.replace(sc, tex_atlas=sc.tex_quad.float()), cfg, o,
+             d, t, obj, tri), "quad atlas")]
+    for args, what in bad:
+        with pytest.raises(ValueError, match=what):
+            tp.tex_prologue(*args)
+    assert tp.plain_calls == p0
+
+
+def test_tex_prologue_on_the_main_path(dev, tmp_path):
+    """A 64x64 NEE render of the PBR benchmark's scene (its generator at
+    small maps) on the card: every textured shade step runs the kernel,
+    in the graph form and eagerly, the plain version never; both forms
+    give the same radiance."""
+    from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
+                                          compile_scene, load_gltf)
+    from logipathtracer_tpu_torch.ops.kernels import tex_prologue as tp
+    from portbench.scenes import box_pbr
+    from portbench.scenes.glb import write_glb
+    path = write_glb(box_pbr.make(spheres=3, subdiv=1, tex_size=64),
+                     str(tmp_path / "pbr.glb"))
+    cfg = RenderConfig(width=64, height=64, nee=True, pool_size=4096,
+                       compact_tile=256)
+    host = compile_scene(load_gltf(path), cfg)
+    assert host.has_textures and host.tex_slots == (True, True, True,
+                                                    False, True)
+    rads = []
+    for eager in (False, True):
+        r = ProgressiveRenderer(host, cfg, host_seed=3, device=dev)
+        r._eager = eager
+        n0, p0 = tp.launches, tp.plain_calls
+        k0, s0 = shade.mode_launches["tex+nee"], shade.plain_calls
+        r.step(2)
+        launched = tp.launches - n0
+        assert launched > 0
+        assert launched == shade.mode_launches["tex+nee"] - k0
+        assert (tp.plain_calls, shade.plain_calls) == (p0, s0)
+        rads.append(r.radiance())
+    np.testing.assert_array_equal(rads[0], rads[1])
 
 
 @pytest.mark.parametrize("knob", [

@@ -10,6 +10,8 @@ both packages take the same f32 operations in the same order (floor,
 lerp, the IEEE /255 of the packed atlas).  The textured shading step is
 held to ``shade.shade_agreement``."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from logipathtracer_tpu.scene.procedural import _look_at, _quad
 from logipathtracer_tpu_torch.config import RenderConfig
 from logipathtracer_tpu_torch.ops import texture as ttex
 from logipathtracer_tpu_torch.ops.kernels import shade as tshade
+from logipathtracer_tpu_torch.ops.kernels import tex_prologue as ttp
 from logipathtracer_tpu_torch.render import megakernel as tmk
 from logipathtracer_tpu_torch.scene.types import SceneSoA
 
@@ -275,3 +278,115 @@ def test_textured_shade_matches_jax_kernel(nm_state, parity):
         *(f(st[k]) for k in ("t", "obj", "tri")))
     assert tshade.plain_calls == before + 1
     tshade.shade_agreement(ref, [x.numpy() for x in got[:6]])
+
+
+def _bits(x):
+    """Float tensors as their int32 bit patterns, for bit-for-bit
+    comparison (NaN included)."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.fixture(scope="module")
+def nm_frame(nm_state):
+    """nm_state's scene with the hits of a whole 64x64 frame (about half
+    its rays hit the quad)."""
+    jscene, tscene, _ = nm_state
+    return tscene, _hit_state(jscene, n=64 * 64)
+
+
+@pytest.mark.parametrize("mask", ["state", "all", "none", "alternate"])
+def test_tex_prologue_alive_mask_keeps_live_lanes(nm_frame, mask):
+    """The prologue with an ``alive`` mask (``resolve_tex_prologue``, as
+    ``shade_step`` calls it) equals the plain version bit for bit on
+    every live lane (alive and a hit), the mapped normal on the live
+    lanes with a normal map: the lanes K2 reads."""
+    tscene, st = nm_frame
+    n = st["t"].shape[0]
+    alive = {"state": st["alive"], "all": np.ones(n, bool),
+             "none": np.zeros(n, bool),
+             "alternate": np.arange(n) % 2 == 0}[mask]
+    f = torch.from_numpy
+    args = (tscene, RenderConfig(width=32, height=32), f(st["origin"]),
+            f(st["direction"]), f(st["t"]), f(st["obj"]), f(st["tri"]))
+    full = ttp.prologue_plain(*args)
+    got = tmk.resolve_tex_prologue(*args, alive=f(alive))
+    live = f(alive & (st["t"] < 3.4e38))
+    assert int(live.sum()) > 800 or mask == "none"
+    assert bool(live.any()) == (mask != "none") and bool((~live).any())
+    for g, r in zip(got, full):
+        assert g.shape == r.shape and g.dtype == r.dtype
+    mat, ffm, has = got
+    assert torch.equal(_bits(mat[live]), _bits(full[0][live]))
+    assert torch.equal(has[live], full[2][live])
+    want = has & live
+    assert bool(want.any()) == (mask != "none")
+    assert torch.equal(_bits(ffm[want]), _bits(full[1][want]))
+
+
+def test_tex_prologue_cpu_takes_plain_version(nm_frame):
+    """On CPU tensors the wrapper, and the megakernel's prologue that
+    delegates to it, run the plain version and count it; no launch."""
+    tscene, st = nm_frame
+    f = torch.from_numpy
+    args = (tscene, RenderConfig(width=32, height=32), f(st["origin"]),
+            f(st["direction"]), f(st["t"]), f(st["obj"]), f(st["tri"]))
+    n0, p0 = ttp.launches, ttp.plain_calls
+    got = ttp.tex_prologue(*args, alive=f(st["alive"]))
+    assert (ttp.launches, ttp.plain_calls) == (n0, p0 + 1)
+    ref = ttp.prologue_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(_bits(g), _bits(r))
+    via = tmk.resolve_tex_prologue(*args)
+    assert (ttp.launches, ttp.plain_calls) == (n0, p0 + 3)
+    for g, r in zip(via, ttp.prologue_plain(*args)):
+        assert torch.equal(_bits(g), _bits(r))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ttp.tex_prologue(tscene, args[1], *(x.to("meta") for x in args[2:]))
+
+
+def test_tex_agreement_and_bytes(nm_frame):
+    """The harness's comparison of the prologue kernel with its plain
+    version takes the live lanes bit for bit and asks zeros elsewhere,
+    and its byte count charges the lanes' inputs and outputs, four
+    texels a tap and the tri_shade and obj_tex rows once."""
+    from logipathtracer_tpu_torch.tools import harness
+    tscene, st = nm_frame
+    f = torch.from_numpy
+    t, obj, tri = f(st["t"]), f(st["obj"]), f(st["tri"])
+    alive = f(np.arange(t.shape[0]) % 3 != 0)
+    args = (tscene, RenderConfig(width=32, height=32), f(st["origin"]),
+            f(st["direction"]), t, obj, tri)
+    ref = ttp.prologue_plain(*args)
+    live = harness.tex_live(alive, t)
+    assert torch.equal(live, alive & (t < 3.4e38))
+    # What the kernel writes: the plain outputs on the live lanes.
+    has = ref[2] & live
+    got = (torch.where(live[:, None], ref[0], 0.0),
+           torch.where(has[:, None], ref[1], 0.0), has)
+    assert harness.tex_agreement(got, ref, live) == (True, 0.0)
+    off = got[0].clone()
+    off[live.nonzero()[0, 0], 3] += 1.0
+    assert harness.tex_agreement((off, *got[1:]), ref, live) == (False, 1.0)
+    dead = got[0].clone()
+    dead[(~live).nonzero()[0, 0], 0] = 0.5
+    assert not harness.tex_agreement((dead, *got[1:]), ref, live)[0]
+    assert not harness.tex_agreement((got[0], got[1], ref[2]), ref, live)[0]
+
+    b = harness.tex_bytes(tscene, t, obj, tri, alive)
+    n_live, lanes = int(live.sum()), t.shape[0]
+    tid = tscene.obj_tex[obj.clamp(min=0).long()][live]
+    taps = int(((tid >= 0) & torch.tensor(tscene.tex_slots)).sum())
+    assert b["live"] == n_live and b["taps"] == taps > n_live
+    out = 40 + 13 * tscene.tex_slots[4]
+    base = (37 * n_live + 5 * (lanes - n_live) + out * lanes
+            + 256 * len(set(tri[live].tolist()))
+            + 20 * len(set(obj[live].tolist())))
+    # The quad atlas: one 16-B row a tap, in one sector.
+    assert tscene.tex_atlas.dim() == 2 and tscene.tex_quad is not None
+    assert b["bytes"] == base + 16 * taps
+    assert b["bytes_sectors"] == base + 32 * taps
+    # The four-gather route: four texels of 4 B a tap, a sector each.
+    b = harness.tex_bytes(dataclasses.replace(tscene, tex_quad=None), t,
+                          obj, tri, alive)
+    assert b["bytes"] == base + 16 * taps
+    assert b["bytes_sectors"] == base + 128 * taps
