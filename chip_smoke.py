@@ -94,9 +94,7 @@ the root of a checkout it:
      line — (a) the basic main path at 1024x1024, timed as in 4, which
      must run the worklist kernel, K1, K3 and the basic route, never K2
      and no plain version (phase 3 holds those kernels to their plain
-     versions at the same shapes), with the route's ms per iteration
-     from one more step(2) with every stage between device syncs
-     (``tools/stages.py`` ``stage_timers``); (b) one
+     versions at the same shapes); (b) one
      1024x1024 step(1) with NEE, which must run K1 in its any-hit mode;
      (c) one 1024x1024 step(1) of the megakernel; (d) the 64x64
      card-vs-CPU render of 5, NEE off and on;
@@ -166,8 +164,7 @@ the root of a checkout it:
      iterations, equal launch counters (a replay adds its capture's) and
      no plain version, two stage replays (or a first use's warm-up and
      capture) per iteration; then, after a camera reset, each form timed
-     as in 4 (samples/s, Mrays/s, ms per iteration) with its device
-     busy share (``tools/stages.py`` ``busy_share``), and the captures'
+     as in 4 (samples/s, Mrays/s, ms per iteration), and the captures'
      count, seconds and reserved MiB; (b) the 480x270 depth-4 preview,
      a camera turn before each of 12 frames, every frame bit-equal; (c)
      a 1024^2 ``render_wavefront`` frame, then another camera and field
@@ -235,6 +232,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
 
+from logipathtracer_tpu_torch.ops.kernels import _build  # noqa: E402
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS  # noqa: E402
 from logipathtracer_tpu_torch.tools.harness import (  # noqa: E402
     bounce_pool, device_ms, event_ms, group_line, isect_counted, make_tail,
     megakernel_pools, primary_pool, runner, scene_tables, shade_args,
@@ -390,58 +389,19 @@ def isect_bound(work, scene, inputs, r: int, saved: int = 0):
     return bound(ops, nbytes(*inputs) + 12 * r)
 
 
-# Every kernel's counts: name -> (module, launches, plain calls, launches
-# by mode).  K5 sits beside K1 in compact_intersect with its own counts,
-# K7 too, and K8 beside K6 in cluster_intersect.
-COUNTERS = {
-    "compact_intersect": ("compact_intersect", "launches", "plain_calls",
-                          "mode_launches"),
-    "worklist_prepass": ("compact_intersect", "prepass_launches",
-                         "prepass_plain_calls", None),
-    "shade": ("shade", "launches", "plain_calls", "mode_launches"),
-    "flush": ("flush", "launches", "plain_calls", None),
-    "stream_cluster": ("stream_cluster", "launches", "plain_calls",
-                       "mode_launches"),
-    "worklist_chunk": ("compact_intersect", "worklist_launches",
-                       "worklist_plain_calls", "worklist_mode_launches"),
-    "octant_chunk": ("cluster_intersect", "launches", "plain_calls",
-                     "mode_launches"),
-    "compact_order": ("compact_intersect", "order_launches",
-                      "order_plain_calls", "order_mode_launches"),
-    "dense_sweep": ("cluster_intersect", "sweep_launches",
-                    "sweep_plain_calls", "sweep_mode_launches"),
-    "tex_prologue": ("tex_prologue", "launches", "plain_calls", None),
-}
 FLAGSHIP = ("compact_intersect", "worklist_prepass", "shade", "flush")
 
 
-def _module(name):
-    import importlib
-    return importlib.import_module(
-        f"logipathtracer_tpu_torch.ops.kernels.{COUNTERS[name][0]}")
-
-
-def reset_counts():
-    for name, (_, launched, plain, modes) in COUNTERS.items():
-        m = _module(name)
-        setattr(m, launched, 0)
-        setattr(m, plain, 0)
-        if modes:
-            getattr(m, modes).clear()
-
-
-def read_counts(names=tuple(COUNTERS)):
-    out = {}
-    for name in names:
-        _, launched, plain, _ = COUNTERS[name]
-        m = _module(name)
-        out[name] = (getattr(m, launched), getattr(m, plain))
-    return out
+def read_counts(names=None):
+    """{name: (launches, plain calls)} of ``names``, else of every
+    kernel."""
+    if names is None:
+        names = [n for n, c in COUNTS.items() if c.kernel]
+    return {n: (COUNTS[n].launches, COUNTS[n].plain_calls) for n in names}
 
 
 def modes_of(name):
-    m = _module(name)
-    return dict(getattr(m, COUNTERS[name][3]))
+    return dict(COUNTS[name].modes)
 
 
 def assert_no_plain():
@@ -685,7 +645,6 @@ def nee_phase(dev, card, flagship_rate):
     K1 any-hit, K2 tex+nee and texture prologue rows (max err, kernel
     ms, plain ms, ...) and the main path's launches by mode."""
     from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
-    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels import shade as sk
     from logipathtracer_tpu_torch.ops.traverse import intersect_scene_sweep
     from logipathtracer_tpu_torch.render.megakernel import \
@@ -760,7 +719,7 @@ def nee_phase(dev, card, flagship_rate):
 
     # (c) the NEE main path
     renderer = ProgressiveRenderer(host_scene, cfg, host_seed=0, device=dev)
-    reset_counts()
+    _build.reset()
     renderer.step(1)                        # warm-up
     iters = [renderer.last_iterations]
     torch.cuda.synchronize()
@@ -778,9 +737,9 @@ def nee_phase(dev, card, flagship_rate):
     counts = read_counts(FLAGSHIP)
     tex_launches, tex_plain = read_counts(("tex_prologue",))["tex_prologue"]
     assert_no_plain()
-    modes = {"any_hit": ci.mode_launches["any_hit"],
-             "closest": ci.mode_launches["closest"],
-             "tex+nee": sk.mode_launches["tex+nee"]}
+    modes = {"any_hit": COUNTS["compact_intersect"].modes["any_hit"],
+             "closest": COUNTS["compact_intersect"].modes["closest"],
+             "tex+nee": COUNTS["shade"].modes["tex+nee"]}
     rad = renderer.radiance()
     assert rad.shape == (1024, 1024, 3) and np.isfinite(rad).all()
     mean = float(rad.mean())
@@ -1017,7 +976,7 @@ def outside_phase(dev, card):
 
     # (b) the main path
     renderer = ProgressiveRenderer(host, cfg, host_seed=0, device=dev)
-    reset_counts()
+    _build.reset()
     sps, mrays, iters, rad = timed_steps(renderer)
     counts = read_counts()
     modes = modes_of("stream_cluster")
@@ -1054,7 +1013,7 @@ def outside_phase(dev, card):
             ("K4 any_hit", dict(nee=True), "stream_cluster", "any_hit")):
         r = ProgressiveRenderer(host, cfg.replace(**kw), host_seed=0,
                                 device=dev)
-        reset_counts()
+        _build.reset()
         sps_r, mrays_r, iters, rad = timed_steps(r)
         n = modes_of(name)[mode]
         assert n > 0, f"{kw}: kernel {label} never launched"
@@ -1114,7 +1073,7 @@ def wavefront_k7(host_scene, cfg, dev, card, flagship_rate):
     renderer = ProgressiveRenderer(host_scene,
                                    cfg.replace(compact_worklist=False),
                                    host_seed=0, device=dev)
-    reset_counts()
+    _build.reset()
     sps, mrays, iters, rad = timed_steps(renderer)
     counts = read_counts()
     assert np.isfinite(rad).all() and 1e-3 < float(rad.mean()) < 10.0
@@ -1187,7 +1146,7 @@ def megakernel_phase(dev, card):
 
     # (b) the megakernel main path through K1 and K2
     renderer = ProgressiveRenderer(host, cfg, host_seed=0, device=dev)
-    reset_counts()
+    _build.reset()
     sps, mrays, _, rad = timed_steps(renderer)
     counts = read_counts()
     assert rad.shape == (1024, 1024, 3) and np.isfinite(rad).all()
@@ -1218,7 +1177,7 @@ def megakernel_phase(dev, card):
              "base")):
         rcfg = cfg.replace(**kw)
         r = ProgressiveRenderer(host, rcfg, host_seed=2, device=dev)
-        reset_counts()
+        _build.reset()
         t0 = time.perf_counter()
         r.step(1)
         torch.cuda.synchronize()
@@ -1415,9 +1374,6 @@ def basic_phase(dev, card, flagship_rate):
     The kernels it launches are held to their plain versions in phase 3
     at the same shapes."""
     from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
-    from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    from logipathtracer_tpu_torch.ops.kernels import shade as sk
-    from logipathtracer_tpu_torch.tools.stages import eager, stage_timers
 
     t_phase = time.perf_counter()
     host = load_scene(None)
@@ -1425,11 +1381,10 @@ def basic_phase(dev, card, flagship_rate):
 
     # (a) the basic main path: the worklist kernel, K1, K3, never K2
     renderer = ProgressiveRenderer(host, cfg, host_seed=0, device=dev)
-    reset_counts()
-    sk.basic_calls = 0
+    _build.reset()
     sps, mrays, iters, rad = timed_steps(renderer)
     counts = read_counts(FLAGSHIP)
-    basic_calls = sk.basic_calls
+    basic_calls = COUNTS["shade_basic"].plain_calls
     assert rad.shape == (1024, 1024, 3) and np.isfinite(rad).all()
     mean = float(rad.mean())
     assert 1e-3 < mean < 10.0, f"implausible mean radiance {mean}"
@@ -1438,21 +1393,10 @@ def basic_phase(dev, card, flagship_rate):
     assert counts["shade"][0] == 0, "the basic path launched K2"
     assert basic_calls > 0, "the basic path never ran the basic route"
     assert_no_plain()
-    # The basic route's time per iteration: one more step(2) with every
-    # stage between device syncs (tools/stages.py), in the eager form
-    # (a replayed graph calls no Python stage).
-    seconds = {}
-    with eager(renderer), stage_timers(dev, seconds):
-        renderer.step(2)
-    route_s, calls = seconds["basic route"]
-    it_s, n_it = seconds["iteration total"]
     print(f"basic main path 1024x1024 spp 4: {sps:.3f} samples/s, "
           f"{mrays:.2f} Mrays/s, iterations per chunk {iters}, mean "
           f"radiance {mean:.6f}; flagship {flagship_rate[0]:.3f} samples/s, "
           f"{flagship_rate[1]:.2f} Mrays/s [{card}]", flush=True)
-    print(f"basic route: {1e3 * route_s / calls:.3f} ms per iteration, "
-          f"{route_s / it_s:.1%} of a step(2)'s {n_it} iterations of "
-          f"{1e3 * it_s / n_it:.3f} ms with every stage synced", flush=True)
     print(f"basic launches: {json.dumps(counts)}, basic route calls "
           f"{basic_calls}", flush=True)
     del renderer
@@ -1462,8 +1406,7 @@ def basic_phase(dev, card, flagship_rate):
                       ("megakernel", dict(renderer="megakernel"))):
         r = ProgressiveRenderer(host, cfg.replace(**kw), host_seed=2,
                                 device=dev)
-        reset_counts()
-        sk.basic_calls = 0
+        _build.reset()
         t0 = time.perf_counter()
         r.step(1)
         rad = r.radiance()              # the wavefront drains its pool
@@ -1473,9 +1416,11 @@ def basic_phase(dev, card, flagship_rate):
         assert counts["worklist_prepass"][0] > 0, \
             f"{label}: the worklist kernel never ran"
         assert counts["shade"][0] == 0, f"{label}: K2 launched"
-        assert sk.basic_calls > 0, f"{label}: the basic route never ran"
+        basic_calls = COUNTS["shade_basic"].plain_calls
+        assert basic_calls > 0, f"{label}: the basic route never ran"
         if label == "NEE":
-            assert ci.mode_launches["any_hit"] > 0, "NEE: no K1 any-hit"
+            assert COUNTS["compact_intersect"].modes["any_hit"] > 0, \
+                "NEE: no K1 any-hit"
         else:
             assert counts["flush"][0] == 0, "megakernel: K3 launched"
         assert_no_plain()
@@ -1484,8 +1429,8 @@ def basic_phase(dev, card, flagship_rate):
               f"{wall:.3f} s, "
               f"{1e-6 * r.total_rays / wall:.2f} Mrays/s, mean radiance "
               f"{float(rad.mean()):.6f}; K1 by mode "
-              f"{json.dumps(dict(ci.mode_launches))}, basic route calls "
-              f"{sk.basic_calls}", flush=True)
+              f"{json.dumps(modes_of('compact_intersect'))}, basic route "
+              f"calls {basic_calls}", flush=True)
         del r
 
     # (d) card vs CPU, NEE off and on
@@ -1518,7 +1463,7 @@ def _slabs_equal(scene, cfg, cam, fov, seeds, what, rows=512):
     launches by mode)."""
     from logipathtracer_tpu_torch import render_wavefront
     h = cfg.render_height
-    reset_counts()
+    _build.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     full, rays, iters = render_wavefront(scene, cfg, cam, fov, seeds)
@@ -1573,7 +1518,7 @@ def single_shot_phase(dev, card, flagship_rate):
         "render_wavefront with NEE never launched K1 any-hit"
     outside = outside_scene()
     cam_o = outside.cameras[0]
-    reset_counts()
+    _build.reset()
     t0 = time.perf_counter()
     img, rays, iters = render_wavefront(
         outside.to(dev), cfg, torch.from_numpy(np.asarray(
@@ -1594,7 +1539,7 @@ def single_shot_phase(dev, card, flagship_rate):
     # (c) the single-shot session, timed as phase 4
     single = cfg.replace(pool_carryover=False)
     renderer = ProgressiveRenderer(host, single, host_seed=0, device=dev)
-    reset_counts()
+    _build.reset()
     sps, mrays, iters, rad = timed_steps(renderer)
     counts = read_counts(FLAGSHIP)
     assert_no_plain()
@@ -1617,7 +1562,7 @@ def single_shot_phase(dev, card, flagship_rate):
             r = ProgressiveRenderer(host, c, host_seed=5, device=dev)
         else:
             r = MeshRenderer(host, c, mesh, host_seed=5)
-        reset_counts()
+        _build.reset()
         t0 = time.perf_counter()
         for _ in range(rounds):
             r.step(1)
@@ -1794,7 +1739,7 @@ def step_launches(renderer, chunks, what):
     """Step ``renderer`` through ``chunks`` with the launch counts set
     to 0 just before; returns (wall s, launches, radiance), the radiance
     finite and plausible and no plain version run."""
-    reset_counts()
+    _build.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for n in chunks:
@@ -1904,7 +1849,7 @@ def default_config_phase(dev, card, flagship):
     lists_1024 = mean_lists(host, cfg.replace(width=1024, height=1024), dev)
     assert not lists[2] and lists_1024[2], "pixel layouts not as expected"
     renderer = ProgressiveRenderer(host, cfg, host_seed=0, device=dev)
-    reset_counts()
+    _build.reset()
     sps, mrays, iters, rad = timed_steps(renderer)
     counts = read_counts(FLAGSHIP)
     assert_no_plain()
@@ -1955,8 +1900,8 @@ def default_config_phase(dev, card, flagship):
     r = ProgressiveRenderer(tex, cfg.replace(nee=True), host_seed=2,
                             device=dev)
     wall, counts, rad = step_launches(r, (2,), "NEE + textured")
-    modes = {"K1 any_hit": ci.mode_launches["any_hit"],
-             "K2 tex+nee": sk.mode_launches["tex+nee"]}
+    modes = {"K1 any_hit": COUNTS["compact_intersect"].modes["any_hit"],
+             "K2 tex+nee": COUNTS["shade"].modes["tex+nee"]}
     assert all(modes.values()), f"1080p NEE + textured: {modes}"
     print(f"(c) NEE + textured {w}x{h} step(2): {wall:.3f} s, mean radiance "
           f"{float(rad.mean()):.6f}; launches by mode {json.dumps(modes)}",
@@ -1980,7 +1925,7 @@ def default_config_phase(dev, card, flagship):
     torch.cuda.reset_peak_memory_stats(dev)
     r = ProgressiveRenderer(host, cfg.replace(render_scale=2), host_seed=2,
                             device=dev)
-    reset_counts()
+    _build.reset()
     t0 = time.perf_counter()
     r.step(1)
     img = r.image()
@@ -2012,7 +1957,7 @@ def default_config_phase(dev, card, flagship):
 
     # (f) the interactive loop, tools/interactive.py, at its defaults
     with tempfile.TemporaryDirectory() as tmp:
-        reset_counts()
+        _build.reset()
         report, _ = interactive.run(interactive.parse_args(
             ["--out", os.path.join(tmp, "session")]))
         counts = read_counts(FLAGSHIP)
@@ -2127,15 +2072,14 @@ def graph_stats(cache):
 
 def graph_session(host, cfg, dev, eager):
     """One form of a phase-12 session: step(1), step(2), step(2) and the
-    drain, counted; then, after a camera reset, ``timed_steps`` and the
-    busy share (tools/stages.py ``busy_share``).  Returns a dict."""
+    drain, counted; then, after a camera reset, ``timed_steps``.
+    Returns a dict."""
     from logipathtracer_tpu_torch import ProgressiveRenderer
     from logipathtracer_tpu_torch.render.graph import graph_cache
-    from logipathtracer_tpu_torch.tools.stages import busy_share
     r = ProgressiveRenderer(host, cfg, host_seed=0, device=dev)
     r._eager = eager
     cache = None if eager else graph_cache(r.scene)
-    reset_counts()
+    _build.reset()
     before = graph_stats(cache)
     iters = []
     for n in (1, 2, 2):
@@ -2144,18 +2088,16 @@ def graph_session(host, cfg, dev, eager):
     frame = r._frame_sum().clone()           # drains the pool
     iters.append(r.last_iterations)
     counts = read_counts()
-    modes = {k: modes_of(k) for k, v in COUNTERS.items() if v[3]}
+    modes = {k: modes_of(k) for k, c in COUNTS.items() if c.modes}
     assert_no_plain()
     after = graph_stats(cache)
     rays = r.total_rays
     r.reset()
     sps, mrays, t_iters, _ = timed_steps(r)
-    busy = busy_share(r)
     out = dict(frame=frame, rays=rays, iters=iters, counts=counts,
                modes=modes, sps=sps, mrays=mrays,
                ms_per_iteration=sum((2, 2)) / sps * 1e3 / sum(t_iters),
-               busy=busy, stages=tuple(a - b for a, b in zip(after,
-                                                             before)))
+               stages=tuple(a - b for a, b in zip(after, before)))
     if cache is not None:
         out.update(captures=cache.captures,
                    capture_s=cache.capture_seconds,
@@ -2174,7 +2116,7 @@ def preview_frames(host, dev, eager, frames=12):
                                                max_depth=4),
                             host_seed=0, device=dev)
     r._eager = eager
-    reset_counts()
+    _build.reset()
     sums, rays = [], []
     for _ in range(frames):
         r.rotate(1, TURN)
@@ -2231,13 +2173,8 @@ def graph_phase(dev, card):
               f"({g['stages'][1]} of them warm-ups), {g['stages'][2]} "
               f"replays [{card}]", flush=True)
         for form, x in (("graph", g), ("eager", e)):
-            b = x["busy"]
             print(f"    {form}: {x['sps']:.3f} samples/s, {x['mrays']:.2f} "
-                  f"Mrays/s, {x['ms_per_iteration']:.3f} ms per iteration; "
-                  f"busy {b['busy']:.3f} ({b['device_ms_per_iteration']:.3f}"
-                  f" device ms per iteration of a profiled step(2) of "
-                  f"{b['iterations']}, {b['wall_ms_per_iteration']:.3f} wall"
-                  f" ms per iteration of three of {b['wall_iterations']})"
+                  f"Mrays/s, {x['ms_per_iteration']:.3f} ms per iteration"
                   + (
                       f"; {x['captures']} graphs captured in "
                       f"{x['capture_s']:.3f} s, {x['pool_mib']:.1f} MiB "
@@ -2266,11 +2203,11 @@ def graph_phase(dev, card):
     moved[:3, 3] += 0.05
     cache = graph_cache(scene)
     before = graph_stats(cache)
-    reset_counts()
+    _build.reset()
     g = render_wavefront(scene, cfg, moved, fov * 0.9, seeds)
     g_counts = read_counts()
     after = graph_stats(cache)
-    reset_counts()
+    _build.reset()
     e = render_wavefront(scene, cfg, moved, fov * 0.9, seeds, _eager=True)
     assert torch.equal(g[0], e[0]) and g[1:] == e[1:], \
         "render_wavefront: graph and eager differ"
@@ -2328,7 +2265,6 @@ def main(argv=None) -> int:
     # The package comes first: a copy of this script without the rest
     # of the repository fails here, before printing anything.
     from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
-    from logipathtracer_tpu_torch.ops.kernels import _build
 
     dev = torch.device("cuda:0")
     card = card_line()
@@ -2383,7 +2319,7 @@ def main(argv=None) -> int:
 
     # ---- 4. the main path ----------------------------------------------
     renderer = ProgressiveRenderer(host_scene, cfg, host_seed=0, device=dev)
-    reset_counts()
+    _build.reset()
     sps, mrays, iters, rad = timed_steps(renderer)
     counts = read_counts(FLAGSHIP)
     assert rad.shape == (1024, 1024, 3) and np.isfinite(rad).all()

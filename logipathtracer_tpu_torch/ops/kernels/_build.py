@@ -9,10 +9,18 @@ the CPU tests import every module on a machine without ``nvcc``.
 Every C entry point takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch; ``check``
 raises on a non-zero code.
+
+The launch counts live here too (``COUNTS``, one entry a kernel): its
+wrapper counts a launch (``launched``) or a call of its plain version
+(``plain``).  ``recording`` and ``add`` let a
+CUDA graph's capture and its replays (render/graph.py) count as the
+eager calls do.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import os
 import shutil
@@ -46,9 +54,9 @@ EXTRA_FLAGS = {
 BUILD_SECONDS: dict[str, float] = {}
 
 _LOCK = threading.Lock()
-# Guards the wrappers' launch and plain-call counters, which the mesh's
-# worker threads (one per device) update at once.  Re-entrant: a graph
-# capture (render/graph.py) holds it while the wrappers it runs take it.
+# Guards the launch counts (``COUNTS``), which the mesh's worker threads
+# (one per device) update at once.  Re-entrant: a graph capture
+# (render/graph.py) holds it while the wrappers it runs take it.
 COUNT_LOCK = threading.RLock()
 _NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -177,3 +185,91 @@ def require(t, name: str, dtype, shape, device):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+class Counts:
+    """One entry of ``COUNTS``: a kernel's ``launches``, its plain
+    version's calls (``plain_calls``) and its launches by mode
+    (``modes``).  ``kernel`` is False for a route with no kernel (plain
+    torch on every device): its calls count as plain calls, and they are
+    no fallback."""
+
+    def __init__(self, kernel: bool = True):
+        self.kernel = kernel
+        self.launches = 0
+        self.plain_calls = 0
+        self.modes = collections.Counter()
+
+
+# Every hand-written kernel's counts by name, whatever has been
+# imported; a wrapper counts only under a name listed here.  Modes:
+# compact_intersect (K1), stream_cluster (K4), worklist_chunk (K5) and
+# compact_order (K7) "closest" / "tmax" / "any_hit"; octant_chunk (K6)
+# those after "cap0/" or "cap/"; dense_sweep (K8) "closest" / "tmax";
+# shade (K2) "base" / "tex" / "nee" / "tex+nee".  shade_basic is the
+# basic BSDF's route, plain torch on every device.
+COUNTS: dict[str, Counts] = {name: Counts() for name in (
+    "compact_intersect", "worklist_prepass", "shade", "flush",
+    "stream_cluster", "worklist_chunk", "octant_chunk", "compact_order",
+    "dense_sweep", "tex_prologue")}
+COUNTS["shade_basic"] = Counts(kernel=False)
+
+
+def launched(name: str, mode: str | None = None):
+    """Count one launch of kernel ``name``, in ``mode`` if given."""
+    with COUNT_LOCK:
+        c = COUNTS[name]
+        c.launches += 1
+        if mode is not None:
+            c.modes[mode] += 1
+
+
+def plain(name: str):
+    """Count one call of ``name``'s plain version."""
+    with COUNT_LOCK:
+        COUNTS[name].plain_calls += 1
+
+
+def reset():
+    """Zero every count."""
+    with COUNT_LOCK:
+        for c in COUNTS.values():
+            c.launches = c.plain_calls = 0
+            c.modes.clear()
+
+
+def _values() -> dict:
+    return {name: (c.launches, c.plain_calls, collections.Counter(c.modes))
+            for name, c in COUNTS.items()}
+
+
+@contextlib.contextmanager
+def recording():
+    """Record what the counts gain inside the block and put them back
+    after it.  Yields a dict that, once the block ends, holds the gains
+    as name -> (launches, plain calls, modes), for ``add``.  Holds
+    COUNT_LOCK through the block, so no other thread's counts mix in."""
+    delta = {}
+    with COUNT_LOCK:
+        before = _values()
+        try:
+            yield delta
+        finally:
+            for name, c in COUNTS.items():
+                n, p, m = before.get(name, (0, 0, collections.Counter()))
+                gain = (c.launches - n, c.plain_calls - p, c.modes - m)
+                if any(gain):
+                    delta[name] = gain
+                c.launches, c.plain_calls = n, p
+                c.modes.clear()
+                c.modes.update(m)
+
+
+def add(delta: dict):
+    """Add a delta of ``recording`` to the counts."""
+    with COUNT_LOCK:
+        for name, (n, p, m) in delta.items():
+            c = COUNTS[name]
+            c.launches += n
+            c.plain_calls += p
+            c.modes.update(m)

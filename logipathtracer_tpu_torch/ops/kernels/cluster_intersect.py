@@ -46,15 +46,13 @@ Kernel K8 sits here too, as in the JAX package: ``dense_sweep_intersect``
 ``intersect="sweep"``: every cluster in ``cl_order[octant of the tile's
 first ray]``, with the cap = 0 body's per-ray contract above (no chunks,
 no tile skipped), on the same sub-tile visit, bit-equal to its plain
-version.  It counts its launches in ``sweep_launches`` /
-``sweep_plain_calls``.  ``cluster_intersect_jnp`` is the port of the JAX
+version.  It counts as ``dense_sweep``, K6 as ``octant_chunk``
+(``_build.COUNTS``).  ``cluster_intersect_jnp`` is the port of the JAX
 package's jnp twin (``intersect="sweep_jnp"``): plain torch, every
 cluster in index order, every ray tested, no slab.
 """
 
 from __future__ import annotations
-
-import collections
 
 import torch
 
@@ -65,21 +63,10 @@ from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
 # 128-ray sub-tile of the cap = 0 body (cluster_intersect.py:171-194).
 SUBTILE = 128
 
-launches = 0
-plain_calls = 0
-# Kernel launches by body and mode: "cap0" / "cap" x "closest", "tmax",
-# "any_hit".
-mode_launches = collections.Counter()
-
 SOURCE = "logipathtracer_tpu_torch/csrc/stream_chunk.cu"
 REPLACES = "logipathtracer_tpu/ops/pallas/cluster_intersect.py:478"
 REPLACES_CAP = "logipathtracer_tpu/ops/pallas/compact_intersect.py:400"
-
-# Kernel K8 (the dense resident sweep): its counts, by mode "closest" /
-# "tmax".
-sweep_launches = 0
-sweep_plain_calls = 0
-sweep_mode_launches = collections.Counter()
+# Kernel K8 (the dense resident sweep).
 SWEEP_SOURCE = "logipathtracer_tpu_torch/csrc/cluster_sweep.cu"
 SWEEP_REPLACES = "logipathtracer_tpu/ops/pallas/cluster_intersect.py:265"
 
@@ -120,9 +107,7 @@ def octant_chunk_intersect_plain(rays8, oct_, order, live, chunk_aabb,
                                  any_hit: bool = False):
     """Plain PyTorch version of K6: tiles, chunks and member clusters in
     host loops, each visit vectorized over the tile's rays."""
-    global plain_calls
-    with _build.COUNT_LOCK:
-        plain_calls += 1
+    _build.plain("octant_chunk")
     r = rays8.shape[1]
     block = _threads(r, tile, cap)
     best0 = (ci.best_init(rays8, has_tmax) if cap
@@ -155,7 +140,6 @@ def octant_chunk_intersect(rays8, oct_, order, live, chunk_aabb, cl_meta,
     the cap = 0 body (module docstring), > 0 K1's contract; the TPU
     block width it names is not used.  A CPU tensor takes the plain
     version, a CUDA tensor the kernel."""
-    global launches
     dev = rays8.device
     args = (rays8, oct_, order, live, chunk_aabb, cl_meta, cl_inv, cl_aabb,
             cl_tris, tile, chunk, eps, cap, has_tmax, any_hit)
@@ -180,10 +164,8 @@ def octant_chunk_intersect(rays8, oct_, order, live, chunk_aabb, cl_meta,
                   chunk_aabb, cl_meta, cl_inv, cl_aabb, cl_tris, s,
                   float(eps), threads, not cap, bool(has_tmax),
                   bool(any_hit), t, tri, obj, _build.stream_ptr(dev))
-    with _build.COUNT_LOCK:
-        launches += 1
-        mode_launches[("cap" if cap else "cap0") + "/"
-                      + ci._mode(has_tmax, any_hit)] += 1
+    _build.launched("octant_chunk", ("cap" if cap else "cap0") + "/"
+                    + ci._mode(has_tmax, any_hit))
     return t, tri, obj
 
 
@@ -222,9 +204,7 @@ def dense_sweep_intersect_plain(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
                                 has_tmax: bool = False):
     """Plain PyTorch version of K8 (``compact_intersect.order_sweep_plain``
     with the cap = 0 body's contract and 128-ray sub-tiles)."""
-    global sweep_plain_calls
-    with _build.COUNT_LOCK:
-        sweep_plain_calls += 1
+    _build.plain("dense_sweep")
     return ci.order_sweep_plain(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
                                 cl_tris, tile, eps,
                                 _sweep_best0(rays8, has_tmax),
@@ -239,7 +219,6 @@ def dense_sweep_intersect(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
     cap = 0 body's contract (module docstring).  A CPU tensor takes the
     plain version, a CUDA tensor the kernel (S a multiple of 4, cl_tris
     16-byte aligned)."""
-    global sweep_launches
     dev = rays8.device
     if dev.type == "cpu":
         return dense_sweep_intersect_plain(rays8, oct_, order, cl_meta, cl_inv,
@@ -251,9 +230,7 @@ def dense_sweep_intersect(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
     t, tri, obj = ci.launch_order(rays8, oct_, order, cl_meta, cl_inv,
                                   cl_aabb, cl_tris, tile, eps, SUBTILE, True,
                                   has_tmax, False)
-    with _build.COUNT_LOCK:
-        sweep_launches += 1
-        sweep_mode_launches[ci._mode(has_tmax, False)] += 1
+    _build.launched("dense_sweep", ci._mode(has_tmax, False))
     return t, tri, obj
 
 

@@ -40,8 +40,8 @@ same source on the card, one block per tile: the world slab of every
 ray against every box, ORed over the tile, then the fired boxes ranked
 by the tile's mean direction — a fixed pairwise tree, written out the
 same way in ``build_chunk_worklists_plain`` so that the two agree bit
-for bit.  It counts its launches in ``prepass_launches`` /
-``prepass_plain_calls``.  ``chunk_world_bounds`` and the ``pack_rays8``
+for bit.  It counts as ``worklist_prepass`` (``_build.COUNTS``), K1 as
+``compact_intersect``.  ``chunk_world_bounds`` and the ``pack_rays8``
 ray pack stay plain torch.  ``PlainSweep`` is the per-ray core in plain
 torch, shared by the plain versions of K1 and K4-K8.
 
@@ -49,21 +49,17 @@ Kernel K5 sits beside K1, as in the JAX package: ``worklist_chunk_
 intersect`` (csrc/stream_chunk.cu) replaces ``compact_intersect.py::
 cluster_intersect_worklist`` (``_worklist_compact_kernel``), the sweep
 of scenes beyond the resident budget over per-tile fired 16-cluster
-chunks, with K1's per-ray contract.  It counts its launches in
-``worklist_launches`` / ``worklist_plain_calls``.
+chunks, with K1's per-ray contract.  It counts as ``worklist_chunk``.
 
 So does kernel K7: ``compact_order_intersect`` (csrc/cluster_sweep.cu)
 replaces ``cluster_intersect_compact(worklist=False)`` (``_compact_kernel``
 → ``_compact_loop``), K1's contract with every cluster visited in
 ``cl_order[octant of the tile's first ray]`` and no prepass, its rays
 compacted as K4's are (csrc/closest_hit.cuh ``compact_visit``), bit-equal
-to its plain version.  It counts its launches in ``order_launches`` /
-``order_plain_calls``.
+to its plain version.  It counts as ``compact_order``.
 """
 
 from __future__ import annotations
-
-import collections
 
 import torch
 
@@ -74,34 +70,20 @@ from logipathtracer_tpu_torch.ops.kernels import _build
 # best t starts here, and hits at or beyond it do not count.
 BIG = 1e30
 
-launches = 0
-plain_calls = 0
-# Kernel launches by mode: "closest", "tmax", "any_hit".
-mode_launches = collections.Counter()
-
 SOURCE = "logipathtracer_tpu_torch/csrc/compact_intersect.cu"
 REPLACES = "logipathtracer_tpu/ops/pallas/compact_intersect.py:801"
-
-# The worklist kernel (same source): its counts.
-prepass_launches = 0
-prepass_plain_calls = 0
+# The worklist kernel (same source).
 PREPASS_REPLACES = "logipathtracer_tpu/ops/pallas/compact_intersect.py:587"
 # Boxes the worklist kernel takes: a 4-byte key and a bit each in shared
 # memory.
 MAX_BOXES = 8192
 
 # Kernel K5 (the chunk worklist sweep of streamed scenes), beside K1 as
-# in the JAX package: its own counts.
-worklist_launches = 0
-worklist_plain_calls = 0
-worklist_mode_launches = collections.Counter()
+# in the JAX package.
 WORKLIST_SOURCE = "logipathtracer_tpu_torch/csrc/stream_chunk.cu"
 WORKLIST_REPLACES = "logipathtracer_tpu/ops/pallas/compact_intersect.py:690"
 
-# Kernel K7 (every cluster in per-octant order, no prepass): its counts.
-order_launches = 0
-order_plain_calls = 0
-order_mode_launches = collections.Counter()
+# Kernel K7 (every cluster in per-octant order, no prepass).
 ORDER_SOURCE = "logipathtracer_tpu_torch/csrc/cluster_sweep.cu"
 ORDER_REPLACES = "logipathtracer_tpu/ops/pallas/compact_intersect.py:889"
 
@@ -160,9 +142,7 @@ def _slab_ok(t0, t1, best):
 def build_chunk_worklists_plain(chunk_min, chunk_max, rays8, tile: int,
                                 has_tmax: bool = False):
     """Plain PyTorch version of the worklist kernel."""
-    global prepass_plain_calls
-    with _build.COUNT_LOCK:
-        prepass_plain_calls += 1
+    _build.plain("worklist_prepass")
     fired = fired_chunks(chunk_min, chunk_max, rays8, tile, has_tmax)
     return _order_fired(fired, chunk_min, chunk_max, rays8, tile)
 
@@ -176,7 +156,6 @@ def build_chunk_worklists(chunk_min, chunk_max, rays8, tile: int,
     back.  Returns (wl [tiles, NC] i32, wn [tiles] i32).  A CPU tensor
     takes the plain version, a CUDA tensor the worklist kernel (R a
     multiple of ``tile``, 32 <= tile <= 8192, NC <= MAX_BOXES)."""
-    global prepass_launches
     dev = rays8.device
     if dev.type == "cpu":
         return build_chunk_worklists_plain(chunk_min, chunk_max, rays8,
@@ -200,8 +179,7 @@ def build_chunk_worklists(chunk_min, chunk_max, rays8, tile: int,
         _build.launch("compact_intersect", "lpt_build_worklists", chunk_min,
                       chunk_max, nc, rays8, r, tile, bool(has_tmax), wl, wn,
                       _build.stream_ptr(dev))
-        with _build.COUNT_LOCK:
-            prepass_launches += 1
+        _build.launched("worklist_prepass")
     return wl, wn
 
 
@@ -425,9 +403,7 @@ def compact_wl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
     """Plain PyTorch version of the kernel: tiles and their worklists in
     a host loop, each visited cluster's slab and Möller–Trumbore
     vectorized over the tile's rays."""
-    global plain_calls
-    with _build.COUNT_LOCK:
-        plain_calls += 1
+    _build.plain("compact_intersect")
     sweep = PlainSweep(rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps,
                        best_init(rays8, has_tmax))
     wl_h = wl.cpu().tolist()
@@ -476,7 +452,6 @@ def compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
     ``has_tmax``/``any_hit``: the shadow-query modes (module docstring).
     Returns (t [R] f32, tri [R] i32, obj [R] i32).  A CPU tensor takes
     the plain version, a CUDA tensor the kernel (compacted visits)."""
-    global launches
     dev = rays8.device
     if dev.type == "cpu":
         return compact_wl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv,
@@ -496,9 +471,7 @@ def compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
                   rays8, r, wl, wn, c, tile, cl_meta, cl_inv, cl_aabb,
                   cl_tris, s, float(eps), threads, bool(has_tmax),
                   bool(any_hit), t, tri, obj, _build.stream_ptr(dev))
-    with _build.COUNT_LOCK:
-        launches += 1
-        mode_launches[_mode(has_tmax, any_hit)] += 1
+    _build.launched("compact_intersect", _mode(has_tmax, any_hit))
     return t, tri, obj
 
 
@@ -553,9 +526,7 @@ def compact_order_intersect_plain(rays8, oct_, order, cl_meta, cl_inv,
                                   any_hit: bool = False):
     """Plain PyTorch version of K7 (``order_sweep_plain`` with K1's
     contract)."""
-    global order_plain_calls
-    with _build.COUNT_LOCK:
-        order_plain_calls += 1
+    _build.plain("compact_order")
     return order_sweep_plain(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
                              cl_tris, tile, eps, best_init(rays8, has_tmax),
                              any_hit=any_hit)
@@ -569,7 +540,6 @@ def compact_order_intersect(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
     [R/tile] i32 from ``tile_octants``).  K1's contract, shadow modes
     included.  A CPU tensor takes the plain version, a CUDA tensor the
     kernel."""
-    global order_launches
     dev = rays8.device
     args = (rays8, oct_, order, cl_meta, cl_inv, cl_aabb, cl_tris, tile, eps,
             has_tmax, any_hit)
@@ -582,9 +552,7 @@ def compact_order_intersect(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
     t, tri, obj = launch_order(rays8, oct_, order, cl_meta, cl_inv, cl_aabb,
                                cl_tris, tile, eps, threads, False, has_tmax,
                                any_hit)
-    with _build.COUNT_LOCK:
-        order_launches += 1
-        order_mode_launches[_mode(has_tmax, any_hit)] += 1
+    _build.launched("compact_order", _mode(has_tmax, any_hit))
     return t, tri, obj
 
 
@@ -667,9 +635,7 @@ def worklist_chunk_intersect_plain(rays8, wl, wn, chunk_aabb, cl_meta,
     """Plain PyTorch version of K5: tiles, their fired chunks and the
     chunks' member clusters in host loops, each visit vectorized over
     the tile's rays."""
-    global worklist_plain_calls
-    with _build.COUNT_LOCK:
-        worklist_plain_calls += 1
+    _build.plain("worklist_chunk")
     r = rays8.shape[1]
     block = _block_threads(r, tile, "worklist_chunk_intersect")
     sweep = PlainSweep(rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps,
@@ -695,7 +661,6 @@ def worklist_chunk_intersect(rays8, wl, wn, chunk_aabb, cl_meta, cl_inv,
     clusters at or beyond C are never visited.  K1's contract, shadow
     modes included.  A CPU tensor takes the plain version, a CUDA tensor
     the kernel."""
-    global worklist_launches
     dev = rays8.device
     args = (rays8, wl, wn, chunk_aabb, cl_meta, cl_inv, cl_aabb, cl_tris,
             tile, chunk, eps, has_tmax, any_hit)
@@ -718,9 +683,7 @@ def worklist_chunk_intersect(rays8, wl, wn, chunk_aabb, cl_meta, cl_inv,
                   cl_inv, cl_aabb, cl_tris, s, float(eps), threads,
                   bool(has_tmax), bool(any_hit), t, tri, obj,
                   _build.stream_ptr(dev))
-    with _build.COUNT_LOCK:
-        worklist_launches += 1
-        worklist_mode_launches[_mode(has_tmax, any_hit)] += 1
+    _build.launched("worklist_chunk", _mode(has_tmax, any_hit))
     return t, tri, obj
 
 

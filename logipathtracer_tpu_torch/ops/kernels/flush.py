@@ -26,15 +26,9 @@ order.
 
 from __future__ import annotations
 
-
 import torch
 
 from logipathtracer_tpu_torch.ops.kernels import _build
-
-# Launch counter of the CUDA kernel and call counter of the plain
-# version (the main path must run the first and never the second).
-launches = 0
-plain_calls = 0
 
 SOURCE = "logipathtracer_tpu_torch/csrc/flush.cu"
 REPLACES = "logipathtracer_tpu/ops/pallas/flush.py:144"
@@ -43,9 +37,7 @@ REPLACES = "logipathtracer_tpu/ops/pallas/flush.py:144"
 def flush_sorted_plain(accum, pix, acc):
     """Plain PyTorch version: rows of rank k within their pixel's run
     are added in pass k, so each pixel receives its rows in order."""
-    global plain_calls
-    with _build.COUNT_LOCK:
-        plain_calls += 1
+    _build.plain("flush")
     n = pix.shape[0]
     if n == 0:
         return accum
@@ -67,7 +59,6 @@ def flush_sorted(accum, pix, acc):
     """accum [npix, 3] f32 += per-pixel runs of acc [P, 3] f32 keyed by
     pix [P] i32 (ascending, -1 = skip).  In place; returns accum.  A
     CPU tensor takes the plain version, a CUDA tensor the kernel."""
-    global launches
     if accum.device.type == "cpu":
         return flush_sorted_plain(accum, pix, acc)
     if accum.device.type != "cuda":
@@ -80,6 +71,5 @@ def flush_sorted(accum, pix, acc):
     if p:
         _build.launch("flush", "lpt_flush_sorted", accum, pix, acc, p,
                       accum.shape[0], _build.stream_ptr(dev))
-        with _build.COUNT_LOCK:
-            launches += 1
+        _build.launched("flush")
     return accum

@@ -38,7 +38,8 @@ path (``render/megakernel.py::shade_step``, the oracle the Pallas
 kernel is held to); the CUDA kernel repeats its arithmetic lane by
 lane.  The same sequence with the basic BSDF is ``shade_basic``, the
 route of ``use_microfacet=False`` on every device, counted apart
-(``basic_calls``): the JAX package has no kernel for it either.
+(as ``shade_basic``'s plain calls): the JAX package has no kernel for
+it either.
 
 On the card (csrc/shade.cu): one thread a lane.  A dead lane copies
 through and a miss writes the environment, neither reading tri_shade; a
@@ -50,8 +51,6 @@ sin/cos, divides and draws); the counted bound is ``tools/harness.py``
 
 from __future__ import annotations
 
-import collections
-
 import torch
 
 from logipathtracer_tpu_torch.film.image import srgb_to_linear
@@ -61,13 +60,6 @@ from logipathtracer_tpu_torch.ops.intersect import (INF, barycentric, cross3,
                                                     transform_point)
 from logipathtracer_tpu_torch.ops.kernels import _build
 from logipathtracer_tpu_torch.ops.rng import get_rand
-
-launches = 0
-plain_calls = 0
-# Calls of the basic-BSDF route (shade_basic), plain torch on any device.
-basic_calls = 0
-# Kernel launches by mode: "base", "tex", "nee", "tex+nee".
-mode_launches = collections.Counter()
 
 SOURCE = "logipathtracer_tpu_torch/csrc/shade.cu"
 REPLACES = "logipathtracer_tpu/ops/pallas/shade.py:765"
@@ -102,9 +94,7 @@ def shade_plain(*args, **kw):
     version, with ``shade``'s arguments.  Returns (origin, direction,
     acc, mask, alive, seed), and with a light table (prev_pdf', shadow
     origin, shadow direction, t_lim, contribution) after them."""
-    global plain_calls
-    with _build.COUNT_LOCK:
-        plain_calls += 1
+    _build.plain("shade")
     return _shade_step(*args, basic=False, **kw)
 
 
@@ -114,9 +104,7 @@ def shade_basic(*args, **kw):
     and has no kernel for it.  Arguments and results as ``shade``'s,
     without ``max_order``; with NEE the light sample's f is
     base * max(cos, 0) / pi."""
-    global basic_calls
-    with _build.COUNT_LOCK:
-        basic_calls += 1
+    _build.plain("shade_basic")
     return _shade_step(*args, max_order=0, basic=True, **kw)
 
 
@@ -291,7 +279,6 @@ def shade(tri_shade, origin, direction, acc, mask, alive, seed, bounce, t,
     mask, alive, seed), and with NEE (prev_pdf', shadow origin [R, 3],
     shadow direction [R, 3], t_lim [R], contribution [R, 3]) after them.
     A CPU tensor takes the plain version, a CUDA tensor the kernel."""
-    global launches
     kw = dict(env=env, rr_threshold=rr_threshold, rr_bounces=rr_bounces,
               max_order=max_order, parity=parity)
     opt = dict(mat=mat, ff_mapped=ff_mapped, has_nmap=has_nmap,
@@ -354,11 +341,9 @@ def shade(tri_shade, origin, direction, acc, mask, alive, seed, bounce, t,
                   light_cdf, prev_pdf if nee else None, n_lights,
                   *(nee_outs if nee else (None,) * 5), bool(nee_mis),
                   float(total_light_area), _build.stream_ptr(dev))
-    with _build.COUNT_LOCK:
-        launches += 1
-        mode_launches["+".join(m for m, on in (("tex", mat is not None),
-                                               ("nee", nee)) if on)
-                      or "base"] += 1
+    _build.launched("shade", "+".join(
+        m for m, on in (("tex", mat is not None), ("nee", nee)) if on)
+        or "base")
     return outs + nee_outs
 
 

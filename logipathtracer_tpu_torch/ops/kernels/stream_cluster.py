@@ -25,18 +25,11 @@ passes.  See the source's note.
 
 from __future__ import annotations
 
-import collections
-
 import torch
 
 from logipathtracer_tpu_torch.ops.frustum import frustum_cluster_mask
 from logipathtracer_tpu_torch.ops.kernels import _build
 from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-
-launches = 0
-plain_calls = 0
-# Kernel launches by mode: "closest", "tmax", "any_hit".
-mode_launches = collections.Counter()
 
 SOURCE = "logipathtracer_tpu_torch/csrc/stream_cluster.cu"
 REPLACES = "logipathtracer_tpu/ops/pallas/stream_cluster.py:218"
@@ -138,9 +131,7 @@ def stream_cl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
                               has_tmax: bool = False, any_hit: bool = False):
     """Plain PyTorch version of K4: tiles and their fired clusters in a
     host loop, each visit vectorized over the tile's rays."""
-    global plain_calls
-    with _build.COUNT_LOCK:
-        plain_calls += 1
+    _build.plain("stream_cluster")
     sweep = ci.PlainSweep(rays8, cl_meta, cl_inv, cl_aabb, cl_tris, eps,
                           ci.best_init(rays8, has_tmax))
     wl_h = wl.cpu().tolist()
@@ -161,7 +152,6 @@ def stream_cl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
     ops/traverse.py ``scene_cluster_groups``).  Returns (t [R] f32, tri
     [R] i32, obj [R] i32).  A CPU tensor takes the plain version, a CUDA
     tensor the kernel."""
-    global launches
     dev = rays8.device
     if dev.type == "cpu":
         return stream_cl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv,
@@ -189,9 +179,7 @@ def stream_cl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
                   cl_tris, s, gbox, gn, g, float(eps), threads,
                   bool(has_tmax), bool(any_hit), t, tri, obj,
                   _build.stream_ptr(dev))
-    with _build.COUNT_LOCK:
-        launches += 1
-        mode_launches[ci._mode(has_tmax, any_hit)] += 1
+    _build.launched("stream_cluster", ci._mode(has_tmax, any_hit))
     return t, tri, obj
 
 

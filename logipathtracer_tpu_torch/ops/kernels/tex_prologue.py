@@ -35,11 +35,6 @@ from logipathtracer_tpu_torch.ops.kernels import shade as shade_kernel
 from logipathtracer_tpu_torch.ops.texture import (sample_atlas,
                                                   sample_atlas_lod)
 
-# Launch counter of the CUDA kernel and call counter of the plain
-# version (the main path must run the first and never the second).
-launches = 0
-plain_calls = 0
-
 SOURCE = "logipathtracer_tpu_torch/csrc/tex_prologue.cu"
 REPLACES = ("none: logipathtracer_tpu/render/megakernel.py "
             "_resolve_tex_prologue ran as XLA")
@@ -52,9 +47,7 @@ def prologue_plain(scene, cfg, origin, direction, t, obj, tri):
     on every lane, misses included (the JAX package's outputs).  K2
     reads only the live lanes, where the kernel's outputs equal these
     bit for bit."""
-    global plain_calls
-    with _build.COUNT_LOCK:
-        plain_calls += 1
+    _build.plain("tex_prologue")
     ts64 = scene.tri_shade[tri.clamp(min=0).long()]        # [R, 64]
     tshade = ts64[:, 0:32]
     oshade = ts64[:, 32:64]
@@ -143,7 +136,6 @@ def tex_prologue(scene, cfg, origin, direction, t, obj, tri, alive=None):
     tensor the kernel, which writes zeros on the lanes that are not live
     (K2 reads none of them): a CUDA input the kernel does not take
     raises."""
-    global launches
     dev = origin.device
     if dev.type == "cpu":
         return prologue_plain(scene, cfg, origin, direction, t, obj, tri)
@@ -205,6 +197,5 @@ def tex_prologue(scene, cfg, origin, direction, t, obj, tri, alive=None):
                   bool(scene.has_nearest), packed, scene.mip_levels > 1,
                   float(cfg.mip_spread), mat, ffm, nmap,
                   _build.stream_ptr(dev))
-    with _build.COUNT_LOCK:
-        launches += 1
+    _build.launched("tex_prologue")
     return mat, ffm, nmap

@@ -22,24 +22,21 @@ binds the kernels' libraries, ``ops/kernels/_build.py``) and does that
 iteration's work; the capture follows.  Once a stage B has run regen
 and trace, the body captures stage B at every other window of the
 ladder too, without running them, so no later iteration waits on a
-capture.  A capture records the launch counters the wrappers bumped
-while it ran, the int and Counter globals of ``ops/kernels`` that
-moved (a capture launches nothing, so they are put back), and adds
-them again at every replay, so the counters count launches as the
-eager loop does.  A capture that fails raises: nothing falls back to
-the eager loop.
+capture.  A capture records what the wrappers it ran added to the
+launch counts (``_build.recording``: a capture launches nothing, so
+the counts are put back), and every replay adds that again
+(``_build.add``), so the counts count launches as the eager loop does.
+A capture that fails raises: nothing falls back to the eager loop.
 
 Captures use ``capture_error_mode="thread_local"``: the device mesh
 (``parallel/mesh.py``) renders on one worker thread per device, and a
-capture on one must not fail another thread's launches.  The counters'
+capture on one must not fail another thread's launches.  The counts'
 lock (``_build.COUNT_LOCK``, re-entrant) is held through a capture, so
 another thread's launches are not taken for the captured ones.
 """
 
 from __future__ import annotations
 
-import collections
-import sys
 import time
 import weakref
 
@@ -57,58 +54,11 @@ from logipathtracer_tpu_torch.utils import trace as tracing
 EAGER_MODES = ("bvh", "sweep_jnp")
 
 
-def _counter_modules():
-    """The kernel modules loaded: ``ops/kernels/*`` (their wrappers hold
-    the launch and plain-call counters)."""
-    prefix = _build.__name__.rpartition(".")[0] + "."
-    return [m for name, m in list(sys.modules.items())
-            if name.startswith(prefix) and m is not None]
-
-
-def _snapshot() -> dict:
-    """Every int and Counter global of the kernel modules: the counters
-    are the ones a stage moves, whatever their names (the others, the
-    modules' constants, do not move)."""
-    out = {}
-    for m in _counter_modules():
-        for name, v in vars(m).items():
-            if isinstance(v, collections.Counter):
-                out[(m, name)] = collections.Counter(v)
-            elif isinstance(v, int) and not isinstance(v, bool):
-                out[(m, name)] = v
-    return out
-
-
-def _delta(before: dict, after: dict) -> list:
-    """[(module, name, increase)] for the counters that moved (a module
-    first loaded in between is not counted: a warm-up loads them)."""
-    out = []
-    for (m, name), v in after.items():
-        if (m, name) not in before:
-            continue
-        d = v - before[(m, name)]
-        if d:
-            out.append((m, name, d))
-    return out
-
-
-def _restore(before: dict, deltas: list):
-    """Put back the counters that moved."""
-    for m, name, _ in deltas:
-        v = before[(m, name)]
-        if isinstance(v, collections.Counter):
-            cur = getattr(m, name)
-            cur.clear()
-            cur.update(v)
-        else:
-            setattr(m, name, v)
-
-
 class CapturedStage:
-    """One captured stage: its graph and the counter increases its
-    capture recorded.  It refers to its cache weakly: the cache holds
-    it, and a cycle would keep the graphs' memory until a garbage
-    collection."""
+    """One captured stage: its graph and what its capture added to the
+    launch counts (a ``_build.recording`` delta).  It refers to its
+    cache weakly: the cache holds it, and a cycle would keep the graphs'
+    memory until a garbage collection."""
 
     def __init__(self, graph, deltas, cache):
         self.graph = graph
@@ -118,11 +68,7 @@ class CapturedStage:
     def replay(self):
         self.graph.replay()
         with _build.COUNT_LOCK:
-            for m, name, d in self.deltas:
-                if isinstance(d, collections.Counter):
-                    getattr(m, name).update(d)
-                else:
-                    setattr(m, name, getattr(m, name) + d)
+            _build.add(self.deltas)
             cache = self._cache()
             if cache is not None:
                 cache.replays += 1
@@ -205,16 +151,14 @@ class GraphCache:
             if self._pool.live == 0 and self.captures:
                 self._pool = _PoolUse()
             pool = self._pool
-            before = _snapshot()
-            with torch.cuda.stream(self._side):
+            with _build.recording() as deltas, \
+                    torch.cuda.stream(self._side):
                 graph.capture_begin(pool=pool.handle,
                                     capture_error_mode="thread_local")
                 try:
                     fn()
                 finally:
                     graph.capture_end()
-            deltas = _delta(before, _snapshot())
-            _restore(before, deltas)
             pool.live += 1
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0

@@ -50,7 +50,7 @@ fixed addresses, copied into before a call.  Intersect modes that read
 the host in their own loop (graph.EAGER_MODES: the BVH walk and the jnp
 twin of the sweep) run eagerly, as does the CPU, which runs the same
 stages; ``_eager=True`` asks the loop functions for the eager form on
-the card (for comparisons and the stage timers of tools/stages.py).
+the card (for comparisons: chip_smoke.py holds the two bit-equal).
 
 The loop reports into utils/trace.py: on the card a stopwatch stamp at
 each stage boundary, captured with the stages, times them on the
@@ -195,7 +195,7 @@ def _rows(x, idx):
     the flat array.  Rows of 16 bytes (the [P, 2] int64 seeds) would
     take torch's row-vectorised gather by indexing or ``torch.gather``
     alike, which ran 0.63 ms for 2^20 rows on an H100 (the sort's seed
-    gather; ``tools/loop_ab.py``'s profile)."""
+    gather, in a torch.profiler trace of the loop)."""
     if x.dim() == 1:
         return x[idx]
     k = x.shape[1]

@@ -30,8 +30,8 @@ from logipathtracer_tpu.scene.compile import compile_scene
 from logipathtracer_tpu.scene.procedural import make_box_scene
 from logipathtracer_tpu_torch.config import RenderConfig
 from logipathtracer_tpu_torch.ops import bsdf as tbsdf
-from logipathtracer_tpu_torch.ops.kernels import compact_intersect as tci
 from logipathtracer_tpu_torch.ops.kernels import shade as tshade
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.ops.rng import get_rand
 from logipathtracer_tpu_torch.render import megakernel as tmk
 from logipathtracer_tpu_torch.render.progressive import ProgressiveRenderer
@@ -158,7 +158,9 @@ def test_basic_shade_step_matches_jax(box, nee):
     tcfg = RenderConfig(width=32, height=32, use_microfacet=False, nee=nee,
                         compact_tile=256)
     assert tmk.resolve_shade_mode(tcfg, tscene) == "basic"
-    before = (tshade.basic_calls, tshade.plain_calls, tci.plain_calls)
+    calls = lambda: tuple(COUNTS[k].plain_calls for k in (
+        "shade_basic", "shade", "compact_intersect"))
+    before = calls()
     f = torch.from_numpy
     got = tmk.shade_step(
         tscene, tcfg, *(f(st[k]) for k in ("origin", "direction", "acc",
@@ -169,8 +171,7 @@ def test_basic_shade_step_matches_jax(box, nee):
     got = [x.numpy() for x in got]
     # The basic route ran, K2's plain twin did not; with NEE one shadow
     # query through the plain K1.
-    assert (tshade.basic_calls, tshade.plain_calls, tci.plain_calls) == (
-        before[0] + 1, before[1], before[2] + int(nee))
+    assert calls() == (before[0] + 1, before[1], before[2] + int(nee))
     tshade.shade_agreement(ref[:6], got[:6])
     assert (~got[4] & st["alive"]).any() and got[4].any()
     if nee:
@@ -201,7 +202,7 @@ def test_basic_render_matches_jax(box, renderer, nee):
                   intersect="compact_interpret")
     chunks = (2, 2) if renderer == "wavefront" else (2,)
     jr = JaxRenderer(jscene, JaxConfig(**fields), host_seed=3)
-    before = (tshade.basic_calls, tshade.plain_calls)
+    before = (COUNTS["shade_basic"].plain_calls, COUNTS["shade"].plain_calls)
     tr = ProgressiveRenderer(jscene, RenderConfig(**fields), host_seed=3,
                              device="cpu")
     for r in (jr, tr):
@@ -212,5 +213,6 @@ def test_basic_render_matches_jax(box, renderer, nee):
     assert close.mean() >= 0.995, f"{close.mean():.4f} of pixels close"
     assert tr.sample_count == jr.sample_count == sum(chunks)
     assert tr.total_rays == jr.total_rays
-    assert tshade.basic_calls > before[0] and tshade.plain_calls == before[1]
+    assert COUNTS["shade_basic"].plain_calls > before[0]
+    assert COUNTS["shade"].plain_calls == before[1]
     assert a.mean() > 0.01 and np.isfinite(a).all()

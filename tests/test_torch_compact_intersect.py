@@ -23,6 +23,7 @@ from logipathtracer_tpu.scene.compile import compile_scene
 from logipathtracer_tpu.scene.procedural import make_box_scene
 from logipathtracer_tpu_torch.ops import traverse as ttrav
 from logipathtracer_tpu_torch.ops.kernels import compact_intersect as tci
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.scene.types import SceneSoA
 
 TILE = 256
@@ -87,10 +88,11 @@ def test_plain_k1_matches_jax_interpret(scenes, kind):
     tj, oj, rj = intersect_scene_sweep(
         jscene, jnp.asarray(o), jnp.asarray(d), backend="compact_interpret",
         tile=TILE, worklist=True)
-    before = tci.plain_calls
+    k1 = COUNTS["compact_intersect"]
+    before = k1.plain_calls
     tt, ot, rt = ttrav.intersect_scene_sweep(
         tscene, torch.from_numpy(o), torch.from_numpy(d), tile=TILE)
-    assert tci.plain_calls == before + 1 and tci.launches == 0
+    assert k1.plain_calls == before + 1 and k1.launches == 0
     tci.hits_agree((tj, rj, oj), (tt, rt, ot))
     assert (np.asarray(rt) >= 0).mean() > 0.2   # the rays hit something
     if kind == "parked":
@@ -165,11 +167,11 @@ def test_plain_k1_tmax_matches_jax(nee_scenes, parked, any_hit):
     tj, oj, rj = intersect_scene_sweep(
         jscene, jnp.asarray(o), jnp.asarray(d), backend="compact_interpret",
         tile=TILE, worklist=True, t_max=jnp.asarray(t_max), any_hit=any_hit)
-    before = tci.plain_calls
+    before = COUNTS["compact_intersect"].plain_calls
     tt, ot, rt = ttrav.intersect_scene_sweep(
         tscene, torch.from_numpy(o), torch.from_numpy(d), tile=TILE,
         t_max=torch.from_numpy(t_max), any_hit=any_hit)
-    assert tci.plain_calls == before + 1
+    assert COUNTS["compact_intersect"].plain_calls == before + 1
     tj, tt = np.asarray(tj), tt.numpy()
     blocked = tt < t_max
     np.testing.assert_array_equal(blocked, tj < t_max)
@@ -190,11 +192,10 @@ def test_unported_modes_raise(scenes):
     """Every sweep backend is ported: "compact" without worklists runs K7,
     "pallas" and "interpret" K8, "jnp" the jnp twin; an unknown backend
     raises."""
-    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as tk8
     _, tscene = scenes
     o, d = (torch.from_numpy(x) for x in _random_rays(8, 3))
-    counts = lambda: (tci.plain_calls, tci.order_plain_calls,
-                      tk8.sweep_plain_calls)
+    counts = lambda: tuple(COUNTS[k].plain_calls for k in (
+        "compact_intersect", "compact_order", "dense_sweep"))
     for kw, moved in ((dict(worklist=False), 1),
                       (dict(backend="compact_interpret", worklist=False), 1),
                       (dict(backend="pallas"), 2),

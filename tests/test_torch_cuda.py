@@ -18,12 +18,15 @@ conftest):
 
 ``chip_smoke.py`` repeats the comparison at the main path's shapes."""
 
+import collections
+
 import numpy as np
 import pytest
 import torch
 
 from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
 from logipathtracer_tpu_torch.ops.kernels import flush, shade
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
 
 pytestmark = pytest.mark.cuda
@@ -63,9 +66,9 @@ def test_k1_matches_plain(scene, dev):
     inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
     args = (rays8, wl, wn, scene.cl_meta, inv, scene.cl_aabb, scene.cl_tris,
             tile, 1e-4)
-    n0 = ci.launches
+    n0 = COUNTS["compact_intersect"].launches
     got = ci.compact_wl_intersect(*args)
-    assert ci.launches == n0 + 1
+    assert COUNTS["compact_intersect"].launches == n0 + 1
     ref = ci.compact_wl_intersect_plain(*args)
     ci.hits_agree([x.cpu() for x in ref], [x.cpu() for x in got])
 
@@ -81,9 +84,9 @@ def test_worklist_kernel_matches_plain(scene, dev, tile, has_tmax):
         0.05, 4.0, 16384).astype(np.float32)).to(dev)
     rays8, _ = ci.pack_rays8(o, d, tile, t_max=t_max if has_tmax else None)
     bounds = scene_cluster_bounds(scene)
-    n0 = ci.prepass_launches
+    n0 = COUNTS["worklist_prepass"].launches
     wl, wn = ci.build_chunk_worklists(*bounds, rays8, tile, has_tmax=has_tmax)
-    assert ci.prepass_launches == n0 + 1
+    assert COUNTS["worklist_prepass"].launches == n0 + 1
     wlp, wnp = ci.build_chunk_worklists_plain(*bounds, rays8, tile,
                                               has_tmax=has_tmax)
     assert torch.equal(wn, wnp) and torch.equal(wl, wlp)
@@ -197,10 +200,12 @@ def test_k1_any_hit_matches_plain(scene, dev):
     inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
     args = (rays8, wl, wn, scene.cl_meta, inv, scene.cl_aabb, scene.cl_tris,
             tile, 1e-4)
+    modes = COUNTS["compact_intersect"].modes
     for any_hit in (False, True):
-        n0 = ci.mode_launches["any_hit" if any_hit else "tmax"]
+        mode = "any_hit" if any_hit else "tmax"
+        n0 = modes[mode]
         got = ci.compact_wl_intersect(*args, has_tmax=True, any_hit=any_hit)
-        assert ci.mode_launches["any_hit" if any_hit else "tmax"] == n0 + 1
+        assert modes[mode] == n0 + 1
         ref = ci.compact_wl_intersect_plain(*args, has_tmax=True,
                                             any_hit=any_hit)
         blocked = got[0] < t_max
@@ -242,9 +247,9 @@ def test_k2_tex_nee_matches_plain(dev, parity):
               light_cdf=sc.light_cdf,
               prev_pdf=g((r.random(n) * 0.3).astype(np.float32)),
               nee_mis=cfg.nee_mis, total_light_area=sc.total_light_area)
-    n0 = shade.mode_launches["tex+nee"]
+    n0 = COUNTS["shade"].modes["tex+nee"]
     got = shade.shade(*args, **kw)
-    assert shade.mode_launches["tex+nee"] == n0 + 1 and len(got) == 11
+    assert COUNTS["shade"].modes["tex+nee"] == n0 + 1 and len(got) == 11
     ref = shade.shade_plain(*args, **kw)
     shade.shade_agreement([x.cpu() for x in ref], [x.cpu() for x in got])
     assert bool((got[9] != 1.0).any())   # some lanes sampled a light
@@ -372,10 +377,10 @@ def _k2_long_call(dev, mode, parity):
 
 
 def _k2_check(args, kw, mode):
-    n0 = shade.mode_launches[mode]
+    n0 = COUNTS["shade"].modes[mode]
     got = shade.shade(*args, **kw)
     torch.cuda.synchronize()
-    assert shade.mode_launches[mode] == n0 + 1
+    assert COUNTS["shade"].modes[mode] == n0 + 1
     ref = shade.shade_plain(*args, **kw)
     shade.shade_agreement([x.cpu() for x in ref], [x.cpu() for x in got])
     return got
@@ -583,9 +588,10 @@ def test_tex_prologue_bit_equal_to_plain(dev, case):
     live = alive & (t < INF)
     assert 0 < int(live.sum()) < n
     args = (sc, cfg, o, d, t, obj, tri)
-    n0, p0 = tp.launches, tp.plain_calls
+    c = COUNTS["tex_prologue"]
+    n0, p0 = c.launches, c.plain_calls
     got = tp.tex_prologue(*args, alive=alive)
-    assert (tp.launches, tp.plain_calls) == (n0 + 1, p0)
+    assert (c.launches, c.plain_calls) == (n0 + 1, p0)
     ref = tp.prologue_plain(*args)
     assert (got[1] is None) == (ref[1] is None) == (not sc.tex_slots[4])
     mat = got[0]
@@ -621,7 +627,7 @@ def test_tex_prologue_checks_inputs(dev):
     sc = host.to(dev)
     o, d = _rays(1024, dev, seed=9)
     t, obj, tri = intersect_scene_sweep(sc, o, d, tile=1024)
-    p0 = tp.plain_calls
+    p0 = COUNTS["tex_prologue"].plain_calls
     bad = [((sc, cfg, o, d, t.double(), obj, tri), "dtype"),
            ((sc, cfg, o[:, :2].contiguous(), d, t, obj, tri), "shape"),
            ((sc, cfg, o, d, t, obj, tri[:512]), "shape"),
@@ -632,7 +638,7 @@ def test_tex_prologue_checks_inputs(dev):
     for args, what in bad:
         with pytest.raises(ValueError, match=what):
             tp.tex_prologue(*args)
-    assert tp.plain_calls == p0
+    assert COUNTS["tex_prologue"].plain_calls == p0
 
 
 def test_tex_prologue_on_the_main_path(dev, tmp_path):
@@ -642,7 +648,6 @@ def test_tex_prologue_on_the_main_path(dev, tmp_path):
     give the same radiance."""
     from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
                                           compile_scene, load_gltf)
-    from logipathtracer_tpu_torch.ops.kernels import tex_prologue as tp
     from portbench.scenes import box_pbr
     from portbench.scenes.glb import write_glb
     path = write_glb(box_pbr.make(spheres=3, subdiv=1, tex_size=64),
@@ -653,16 +658,17 @@ def test_tex_prologue_on_the_main_path(dev, tmp_path):
     assert host.has_textures and host.tex_slots == (True, True, True,
                                                     False, True)
     rads = []
+    tp, k2 = COUNTS["tex_prologue"], COUNTS["shade"]
     for eager in (False, True):
         r = ProgressiveRenderer(host, cfg, host_seed=3, device=dev)
         r._eager = eager
         n0, p0 = tp.launches, tp.plain_calls
-        k0, s0 = shade.mode_launches["tex+nee"], shade.plain_calls
+        k0, s0 = k2.modes["tex+nee"], k2.plain_calls
         r.step(2)
         launched = tp.launches - n0
         assert launched > 0
-        assert launched == shade.mode_launches["tex+nee"] - k0
-        assert (tp.plain_calls, shade.plain_calls) == (p0, s0)
+        assert launched == k2.modes["tex+nee"] - k0
+        assert (tp.plain_calls, k2.plain_calls) == (p0, s0)
         rads.append(r.radiance())
     np.testing.assert_array_equal(rads[0], rads[1])
 
@@ -774,11 +780,10 @@ def test_stream_kernels_match_plain(outside, dev, kernel):
     hits under hits_agree (K6's cap = 0 body bit for bit), and the shadow
     query's visibility on every lane (the cap = 0 body, which ignores
     any_hit, bit for bit)."""
-    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
-    from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
     o, d, t_max = _outside_rays(4096, dev)
     tile = 1024
-    counts = lambda: (k4.launches, ci.worklist_launches, k6.launches)
+    counts = lambda: tuple(COUNTS[k].launches for k in (
+        "stream_cluster", "worklist_chunk", "octant_chunk"))
     rays8, _ = ci.pack_rays8(o, d, tile)
     n0 = sum(counts())
     got = _stream_call(kernel, outside, rays8, tile, plain=False)
@@ -1045,9 +1050,9 @@ def test_k4_groups_bit_equal_to_plain(dev, case, mode):
                                         has_tmax=kw["has_tmax"])
     args = (rays8, wl, wn, *tables, tile, 1e-4)
     groups = k4.cluster_groups(*tables)
-    n0 = k4.launches
+    n0 = COUNTS["stream_cluster"].launches
     got = k4.stream_cl_intersect(*args, groups=groups, **kw)
-    assert k4.launches == n0 + 1
+    assert COUNTS["stream_cluster"].launches == n0 + 1
     ref = k4.stream_cl_intersect_plain(*args, **kw)
     assert _same(got, ref, kw["any_hit"])
     live = rays8[0] < 1e29
@@ -1104,11 +1109,11 @@ def test_k7_k8_match_plain(scene, dev, kernel, tile):
     hits_agree (with a tile whose first ray is parked; K8 bit for bit),
     and the t_max query's visibility on every lane (K7 also with
     any-hit)."""
-    from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k8
     o, d = _rays(8192, dev, seed=9)
     o[tile:tile + 50] = 1e30                  # a tile led by parked lanes
     d[tile:tile + 50] = 1.0
-    counts = lambda: (ci.order_launches, k8.sweep_launches)
+    counts = lambda: (COUNTS["compact_order"].launches,
+                      COUNTS["dense_sweep"].launches)
     rays8, _ = ci.pack_rays8(o, d, tile)
     n0 = counts()
     got = _order_call(kernel, scene, rays8, tile, plain=False)
@@ -1252,22 +1257,23 @@ def test_basic_route_launches_no_k2(dev, nee, renderer):
                        compact_tile=256, use_microfacet=False, nee=nee,
                        renderer=renderer)
     host = compile_scene(make_box_scene(spheres=2, subdiv=3), cfg)
-    before = dict(k1=ci.launches, wl=ci.prepass_launches,
-                  any_hit=ci.mode_launches["any_hit"], k3=flush.launches,
-                  k2=shade.launches, basic=shade.basic_calls,
-                  plain=(ci.plain_calls, ci.prepass_plain_calls,
-                         shade.plain_calls, flush.plain_calls))
+    k1, wl, k2, k3 = (COUNTS[k] for k in (
+        "compact_intersect", "worklist_prepass", "shade", "flush"))
+    plain = lambda: tuple(c.plain_calls for c in (k1, wl, k2, k3))
+    before = dict(k1=k1.launches, wl=wl.launches,
+                  any_hit=k1.modes["any_hit"], k3=k3.launches,
+                  k2=k2.launches, basic=COUNTS["shade_basic"].plain_calls,
+                  plain=plain())
     r = ProgressiveRenderer(host, cfg, host_seed=5, device=dev)
     r.step(2)
     r.step(1)
     a = r.radiance()
-    assert ci.launches > before["k1"] and ci.prepass_launches > before["wl"]
-    assert (ci.mode_launches["any_hit"] > before["any_hit"]) == nee
-    assert (flush.launches > before["k3"]) == (renderer == "wavefront")
-    assert shade.launches == before["k2"]
-    assert shade.basic_calls > before["basic"]
-    assert (ci.plain_calls, ci.prepass_plain_calls, shade.plain_calls,
-            flush.plain_calls) == before["plain"]
+    assert k1.launches > before["k1"] and wl.launches > before["wl"]
+    assert (k1.modes["any_hit"] > before["any_hit"]) == nee
+    assert (k3.launches > before["k3"]) == (renderer == "wavefront")
+    assert k2.launches == before["k2"]
+    assert COUNTS["shade_basic"].plain_calls > before["basic"]
+    assert plain() == before["plain"]
     c = ProgressiveRenderer(host, cfg, host_seed=5, device="cpu")
     c.step(2)
     c.step(1)
@@ -1323,10 +1329,10 @@ def test_render_wavefront_and_mesh_on_card(dev, nee):
         args = (host.to(d), cfg, world.to(d), float(cam.yfov), seeds.to(d))
         out[d.type] = render_wavefront(*args)
         if d == dev:
-            n0 = ci.launches
+            n0 = COUNTS["compact_intersect"].launches
             parts = [render_wavefront(*args, y0=y0, rows=32)
                      for y0 in (0, 32)]
-            assert ci.launches > n0
+            assert COUNTS["compact_intersect"].launches > n0
             assert torch.equal(torch.cat([p[0] for p in parts]),
                                out["cuda"][0])
             assert sum(p[1] for p in parts) == out["cuda"][1]
@@ -1430,8 +1436,11 @@ def _graph_scene(kind):
 
 
 def _counts():
-    from logipathtracer_tpu_torch.render.graph import _snapshot
-    return {f"{m.__name__}.{n}": v for (m, n), v in _snapshot().items()}
+    """Every entry's counts, its modes copied."""
+    return {(name, f): (collections.Counter(c.modes) if f == "modes"
+                        else getattr(c, f))
+            for name, c in COUNTS.items()
+            for f in ("launches", "plain_calls", "modes")}
 
 
 @pytest.mark.parametrize("route", sorted(GRAPH_ROUTES))
@@ -1483,7 +1492,8 @@ def test_graph_loop_bit_equal_to_eager(dev, route, monkeypatch):
     assert (re_, ie) == (rg, ig)
     assert de == dg
     assert se == sg
-    assert not any(v for k, v in dg.items() if "plain_calls" in k)
+    assert not any(v for (name, f), v in dg.items()
+                   if f == "plain_calls" and COUNTS[name].kernel)
 
 
 def test_graph_replays_two_stages_per_iteration(dev):

@@ -36,8 +36,7 @@ from logipathtracer_tpu.render.progressive import \
 from logipathtracer_tpu.scene.compile import compile_scene
 from logipathtracer_tpu.scene.procedural import make_box_scene
 from logipathtracer_tpu_torch.config import RenderConfig
-from logipathtracer_tpu_torch.ops.kernels import (compact_intersect, flush,
-                                                  shade)
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.render.progressive import ProgressiveRenderer
 from logipathtracer_tpu_torch.render.wavefront import pix_layout
 
@@ -62,14 +61,14 @@ def render_both(fields, image=False):
     jscene = compile_scene(make_box_scene(spheres=2, subdiv=3),
                            use_native=False)
     fields = dict(BASE, **fields)
-    mods = (compact_intersect, shade) + (
-        (flush,) if fields["renderer"] == "wavefront" else ())
-    calls = {m: m.plain_calls for m in mods}
+    names = ("compact_intersect", "shade") + (
+        ("flush",) if fields["renderer"] == "wavefront" else ())
+    calls = {k: COUNTS[k].plain_calls for k in names}
     jr = _session(JaxRenderer(jscene, JaxConfig(**fields),
                               host_seed=HOST_SEED))
     tr = _session(ProgressiveRenderer(jscene, RenderConfig(**fields),
                                       host_seed=HOST_SEED, device="cpu"))
-    assert all(m.plain_calls > n for m, n in calls.items())
+    assert all(COUNTS[k].plain_calls > n for k, n in calls.items())
     if image:
         return jr, tr, np.asarray(jr.image()), tr.image().numpy()
     return jr, tr, jr.radiance(), tr.radiance()

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from logipathtracer_tpu_torch.ops.kernels import flush as tflush
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.render.wavefront import _flush_unsorted
 
 
@@ -37,10 +38,11 @@ def _jax_scatter(base, pix, acc):
 def test_plain_flush_matches_jax_scatter(npix, rows, retired):
     pix, acc, base = _tail(npix, rows, retired, seed=npix + rows)
     ref = _jax_scatter(base, pix, acc)
-    before = tflush.plain_calls
+    k3 = COUNTS["flush"]
+    before = k3.plain_calls
     got = tflush.flush_sorted(torch.from_numpy(base.copy()),
                               torch.from_numpy(pix), torch.from_numpy(acc))
-    assert tflush.plain_calls == before + 1 and tflush.launches == 0
+    assert k3.plain_calls == before + 1 and k3.launches == 0
     np.testing.assert_array_equal(got.numpy(), ref)
 
 

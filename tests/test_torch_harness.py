@@ -12,6 +12,7 @@ from logipathtracer_tpu_torch import RenderConfig, compile_scene
 from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
 from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
 from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.scene.procedural import (make_box_scene,
                                                        make_outside_scene)
 from logipathtracer_tpu_torch.tools import harness, kernel_times
@@ -41,14 +42,13 @@ def test_pools_are_the_main_paths(outside):
     assert bool(torch.isfinite(t_max).all()) and float(t_max.min()) > 0
 
 
-# kind -> (its counts: plain calls, launches; tile; whether the list is
-# every cluster / chunk)
-COUNTS = {
-    "K4": (lambda: (k4.plain_calls, k4.launches), 1024, False),
-    "K5": (lambda: (ci.worklist_plain_calls, ci.worklist_launches), 1024,
-           False),
-    "K6[cap>0]": (lambda: (k6.plain_calls, k6.launches), 1024, True),
-    "K7": (lambda: (ci.order_plain_calls, ci.order_launches), 256, True),
+# kind -> (its entry in COUNTS; tile; whether the list is every cluster /
+# chunk)
+KINDS = {
+    "K4": ("stream_cluster", 1024, False),
+    "K5": ("worklist_chunk", 1024, False),
+    "K6[cap>0]": ("octant_chunk", 1024, True),
+    "K7": ("compact_order", 256, True),
 }
 
 
@@ -57,11 +57,12 @@ def box():
     return compile_scene(make_box_scene(spheres=2, subdiv=3))
 
 
-@pytest.mark.parametrize("kind", list(COUNTS))
+@pytest.mark.parametrize("kind", list(KINDS))
 def test_runner_drives_the_streamed_entry_points(outside, box, kind):
     """K4, K5 and K6 (cap > 0) on the outside class, K7 on the box, each
     on its main path's primary pool."""
-    calls, tile, every = COUNTS[kind]
+    name, tile, every = KINDS[kind]
+    calls = lambda: (COUNTS[name].plain_calls, COUNTS[name].launches)
     host, cfg = ((box, CFG.replace(compact_worklist=False)) if kind == "K7"
                  else (outside, CFG.replace(intersect="stream")))
     scene = host.to("cpu")
@@ -84,9 +85,10 @@ def test_runner_drives_k1():
     box = compile_scene(make_box_scene(spheres=2, subdiv=3))
     rays8 = harness.pools(box, CFG, "cpu", 256)["primary"][0]
     kernel, _, _, wn = harness.runner("K1", box.to("cpu"), rays8, 256)
-    before = ci.plain_calls
+    before = COUNTS["compact_intersect"].plain_calls
     t, tri, _ = kernel()
-    assert ci.plain_calls == before + 1 and wn.shape == (4,)
+    assert COUNTS["compact_intersect"].plain_calls == before + 1
+    assert wn.shape == (4,)
     assert float((tri >= 0).float().mean()) > 0.5
 
 

@@ -22,8 +22,7 @@ from logipathtracer_tpu.render.megakernel import \
 from logipathtracer_tpu.scene.compile import compile_scene
 from logipathtracer_tpu.scene.procedural import make_box_scene
 from logipathtracer_tpu_torch.config import RenderConfig
-from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as tk8
-from logipathtracer_tpu_torch.ops.kernels import compact_intersect as tci
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.render import megakernel as tmk
 from logipathtracer_tpu_torch.scene.types import SceneSoA
 
@@ -31,13 +30,14 @@ FIELDS = dict(width=32, height=16, max_depth=4, renderer="megakernel",
               compact_tile=256, sweep_tile=256)
 SEED = (5, 7)
 
-# route -> (config fields, plain-call counter the route must advance)
+# route -> (config fields, the kernel whose plain calls the route must
+# advance)
 ROUTES = {
     "bvh": (dict(intersect="bvh"), None),
-    "k1": (dict(intersect="compact_interpret"), (tci, "plain_calls")),
+    "k1": (dict(intersect="compact_interpret"), "compact_intersect"),
     "k7": (dict(intersect="compact_interpret", compact_worklist=False),
-           (tci, "order_plain_calls")),
-    "k8": (dict(intersect="sweep_interpret"), (tk8, "sweep_plain_calls")),
+           "compact_order"),
+    "k8": (dict(intersect="sweep_interpret"), "dense_sweep"),
     "sweep_jnp": (dict(intersect="sweep_jnp"), None),
 }
 
@@ -82,11 +82,11 @@ def check_route(scenes, route, **extra):
     jscene, tscene = scenes
     fields, counter = ROUTES[route]
     fields = dict(FIELDS, **fields, **extra)
-    before = getattr(*counter) if counter else 0
+    before = COUNTS[counter].plain_calls if counter else 0
     img = _port_image(tscene, fields)
     if counter and not fields.get("nee"):
         # One intersect per bounce.
-        assert getattr(*counter) == before + FIELDS["max_depth"]
+        assert COUNTS[counter].plain_calls == before + FIELDS["max_depth"]
     assert img.shape == (16, 32, 3) and np.isfinite(img).all()
     frac = _close_frac(img, _jax_image(jscene, fields))
     assert frac >= 0.995, f"{frac:.4f} of pixels close"

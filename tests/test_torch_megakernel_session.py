@@ -20,7 +20,7 @@ from logipathtracer_tpu.render.megakernel import \
 from logipathtracer_tpu.render.progressive import \
     ProgressiveRenderer as JaxRenderer
 from logipathtracer_tpu_torch.config import RenderConfig
-from logipathtracer_tpu_torch.ops.kernels import compact_intersect as tci
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.render import megakernel as tmk
 from logipathtracer_tpu_torch.render.progressive import ProgressiveRenderer
 
@@ -43,13 +43,14 @@ def scenes():
 def renders(scenes):
     jscene, tscene = scenes
     jr = JaxRenderer(jscene, JaxConfig(**SESSION), host_seed=HOST_SEED)
-    before = tci.plain_calls
+    before = COUNTS["compact_intersect"].plain_calls
     tr = ProgressiveRenderer(tscene, RenderConfig(**SESSION),
                              host_seed=HOST_SEED, device="cpu")
     for r in (jr, tr):
         r.step(2)
         r.step(1)
-    return dict(jax=jr, port=tr, calls=tci.plain_calls - before)
+    return dict(jax=jr, port=tr,
+                calls=COUNTS["compact_intersect"].plain_calls - before)
 
 
 def test_accumulate_sample_matches_jax(scenes):

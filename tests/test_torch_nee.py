@@ -27,8 +27,8 @@ from logipathtracer_tpu.render.progressive import \
 from logipathtracer_tpu.scene.compile import compile_scene
 from logipathtracer_tpu.scene.procedural import make_box_scene
 from logipathtracer_tpu_torch.config import RenderConfig
-from logipathtracer_tpu_torch.ops.kernels import compact_intersect as tci
 from logipathtracer_tpu_torch.ops.kernels import shade as tshade
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.render import megakernel as tmk
 from logipathtracer_tpu_torch.render.progressive import ProgressiveRenderer
 from logipathtracer_tpu_torch.scene.types import SceneSoA
@@ -110,17 +110,21 @@ def _agree_with_pdf(ref, got):
                                rtol=tshade.ALL_RTOL, atol=tshade.ALL_ATOL)
 
 
+def _plain_calls():
+    """(K2's, K1's) plain-version calls."""
+    return COUNTS["shade"].plain_calls, COUNTS["compact_intersect"].plain_calls
+
+
 # Parity draws with MIS, Threefry draws without: each draw kind and
 # each MIS setting once (the JAX interpret kernel costs ~10 s a case).
 @pytest.mark.parametrize("parity,mis", [(True, True), (False, False)])
 def test_shade_tex_nee_matches_jax_kernel(box, parity, mis):
     jscene, tscene = box
     st = _hit_state(jscene)
-    before = (tshade.plain_calls, tci.plain_calls)
+    before = _plain_calls()
     ref, got = _shade_both(jscene, tscene, st, parity, mis)
     # One shading step and one shadow query, both plain versions.
-    assert (tshade.plain_calls, tci.plain_calls) == (before[0] + 1,
-                                                     before[1] + 1)
+    assert _plain_calls() == (before[0] + 1, before[1] + 1)
     _agree_with_pdf(ref, got)
     # NEE ran: some lanes carry a light-sampled pdf, and light reached
     # lanes that did not start on an emitter.
@@ -137,7 +141,7 @@ def test_slice_nee_textured_matches_jax(box):
     with the pool carried over, against the JAX package's."""
     jscene, _ = box
     jr = JaxRenderer(jscene, JaxConfig(**FIELDS), host_seed=3)
-    calls = (tshade.plain_calls, tci.plain_calls)
+    calls = _plain_calls()
     tr = ProgressiveRenderer(jscene, RenderConfig(**FIELDS), host_seed=3,
                              device="cpu")
     for r in (jr, tr):
@@ -150,6 +154,6 @@ def test_slice_nee_textured_matches_jax(box):
     # Shadow rays are not counted, as in the JAX package.
     assert tr.total_rays == jr.total_rays
     # Every iteration traced twice: the path rays and the shadow rays.
-    n_shade = tshade.plain_calls - calls[0]
-    assert n_shade > 0 and tci.plain_calls - calls[1] == 2 * n_shade
+    n_shade, n_isect = (a - b for a, b in zip(_plain_calls(), calls))
+    assert n_shade > 0 and n_isect == 2 * n_shade
     assert a.mean() > 0.01 and np.isfinite(a).all()

@@ -25,8 +25,7 @@ from logipathtracer_tpu.render.wavefront import \
 from logipathtracer_tpu.scene.compile import compile_scene
 from logipathtracer_tpu.scene.procedural import make_box_scene
 from logipathtracer_tpu_torch.config import RenderConfig
-from logipathtracer_tpu_torch.ops.kernels import (compact_intersect, flush,
-                                                  shade)
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.render.progressive import ProgressiveRenderer
 from logipathtracer_tpu_torch.render.wavefront import render_wavefront
 from logipathtracer_tpu_torch.scene.types import SceneSoA
@@ -79,7 +78,8 @@ def _port(scene, fields, seeds, **kw):
 def test_full_frame_matches_jax(scenes, nee):
     jscene, scene = box_scenes(textured=True) if nee else scenes
     fields = dict(FIELDS, nee=nee)
-    calls = {m: m.plain_calls for m in (compact_intersect, shade, flush)}
+    calls = {k: COUNTS[k].plain_calls
+             for k in ("compact_intersect", "shade", "flush")}
     img, rays, it = _port(scene, fields, SEEDS)
     ref, ref_rays, ref_it = _jax(jscene, fields, SEEDS)
     assert img.shape == (32, 32, 3) and img.device.type == "cpu"
@@ -88,7 +88,7 @@ def test_full_frame_matches_jax(scenes, nee):
     assert rays == ref_rays and it == ref_it
     assert img.mean() > 0.01
     # The plain versions of K1, K2 and K3 ran.
-    assert all(m.plain_calls > n for m, n in calls.items())
+    assert all(COUNTS[k].plain_calls > n for k, n in calls.items())
 
 
 @pytest.mark.parametrize("n_seeds", [1, 2])

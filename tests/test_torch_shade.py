@@ -31,6 +31,7 @@ from logipathtracer_tpu_torch.film import image as timage
 from logipathtracer_tpu_torch.ops import bsdf as tbsdf
 from logipathtracer_tpu_torch.ops.camera import generate_ray
 from logipathtracer_tpu_torch.ops.kernels import shade as tshade
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.ops.rng import get_rand, seed_from_pixel
 from logipathtracer_tpu_torch.render.megakernel import shade_step
 from logipathtracer_tpu_torch.scene.types import SceneSoA
@@ -91,9 +92,10 @@ def _port_shade(tscene, st, parity, bounce):
 def test_shade_step_matches_jax_kernel(hit_state, parity):
     jscene, tscene, st = hit_state
     ref = _jax_shade(jscene, st, parity, jnp.asarray(st["bounce"]))
-    before = tshade.plain_calls
+    k2 = COUNTS["shade"]
+    before = k2.plain_calls
     got = _port_shade(tscene, st, parity, torch.from_numpy(st["bounce"]))
-    assert tshade.plain_calls == before + 1 and tshade.launches == 0
+    assert k2.plain_calls == before + 1 and k2.launches == 0
     ref[5] = ref[5].astype(np.int64)
     diverged, _ = tshade.shade_agreement(ref, got)
     # The inputs exercise every branch: misses, hits, kills, survivors.
@@ -265,13 +267,15 @@ def test_unported_shading_raises(hit_state, field, value, item):
     twin, as the JAX package's jnp shade_step does."""
     jscene, tscene, st = hit_state
     cfg = RenderConfig(width=32, height=32).replace(**{field: value})
-    counts = (tshade.basic_calls, tshade.plain_calls, tshade.launches)
+    k2 = COUNTS["shade"]
+    calls = lambda: (COUNTS["shade_basic"].plain_calls, k2.plain_calls,
+                     k2.launches)
+    counts = calls()
     got = shade_step(tscene, cfg, *[torch.from_numpy(st[k]) for k in (
         "origin", "direction", "acc", "mask", "alive")],
         torch.from_numpy(st["seed"].astype(np.int64)), 0,
         *[torch.from_numpy(st[k]) for k in ("t", "obj", "tri")])
-    assert (tshade.basic_calls, tshade.plain_calls, tshade.launches) == (
-        counts[0] + 1, counts[1], counts[2]), item
+    assert calls() == (counts[0] + 1, counts[1], counts[2]), item
     jcfg = JaxConfig(width=32, height=32, shade="jnp").replace(
         **{field: value})
     ref = jax_shade_step(

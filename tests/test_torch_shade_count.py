@@ -11,6 +11,7 @@ import torch
 
 from logipathtracer_tpu_torch import RenderConfig
 from logipathtracer_tpu_torch.ops.kernels import shade as sk
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.tools import harness, kernel_times
 
 CFG = RenderConfig(width=32, height=32, pool_size=1024, compact_tile=256)
@@ -163,9 +164,9 @@ def test_shade_pools_are_the_main_paths(pools):
         assert args[1].shape == (1024, 3)
         assert kw["parity"] == (name != "bounce threefry")
         assert ("mat" in kw) == ("light_tris" in kw) == (name == "tex+nee")
-        before = sk.plain_calls
+        before = COUNTS["shade"].plain_calls
         out = sk.shade(*args, **kw)
-        assert sk.plain_calls == before + 1
+        assert COUNTS["shade"].plain_calls == before + 1
         assert len(out) == (11 if name == "tex+nee" else 6)
     assert pools["tri_sel"][0][0].shape[0] <= 512
     args = pools["megakernel"][0]

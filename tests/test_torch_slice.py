@@ -19,8 +19,7 @@ from logipathtracer_tpu.render.progressive import \
 from logipathtracer_tpu.scene.compile import compile_scene
 from logipathtracer_tpu.scene.procedural import make_box_scene
 from logipathtracer_tpu_torch.config import RenderConfig
-from logipathtracer_tpu_torch.ops.kernels import (compact_intersect, flush,
-                                                  shade)
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.render.progressive import ProgressiveRenderer
 
 FIELDS = dict(width=32, height=32, max_depth=10, renderer="wavefront",
@@ -38,7 +37,8 @@ def renders():
     jscene = compile_scene(make_box_scene(spheres=2, subdiv=3),
                            use_native=False)
     jr = JaxRenderer(jscene, JaxConfig(**FIELDS), host_seed=HOST_SEED)
-    calls = {m: m.plain_calls for m in (compact_intersect, shade, flush)}
+    calls = {k: COUNTS[k].plain_calls
+             for k in ("compact_intersect", "shade", "flush")}
     tr = ProgressiveRenderer(jscene, RenderConfig(**FIELDS),
                              host_seed=HOST_SEED, device="cpu")
     for r in (jr, tr):
@@ -46,7 +46,8 @@ def renders():
         r.step(2)
     out = dict(jscene=jscene, jax=jr, port=tr,
                jax_rad=jr.radiance(), port_rad=tr.radiance(),
-               calls={m: m.plain_calls - n for m, n in calls.items()})
+               calls={k: COUNTS[k].plain_calls - n
+                      for k, n in calls.items()})
     return out
 
 
@@ -133,14 +134,15 @@ def test_unported_configs_raise(renders):
     js = renders["jscene"]
     # The basic BSDF is ported: it constructs and renders through its
     # own route, K2's plain twin never.
-    calls = (shade.basic_calls, shade.plain_calls)
+    calls = (COUNTS["shade_basic"].plain_calls, COUNTS["shade"].plain_calls)
     basic = ProgressiveRenderer(js, RenderConfig(**FIELDS).replace(
         use_microfacet=False, max_depth=3), host_seed=HOST_SEED,
         device="cpu")
     basic.step(1)
     rad = basic.radiance()
     assert np.isfinite(rad).all() and rad.mean() > 0.01
-    assert shade.basic_calls > calls[0] and shade.plain_calls == calls[1]
+    assert COUNTS["shade_basic"].plain_calls > calls[0]
+    assert COUNTS["shade"].plain_calls == calls[1]
     # The megakernel, the BVH walk, K7 and K8 are ported: each constructs,
     # and so does every routing of the streamed intersect.
     for kw in (dict(renderer="megakernel"), dict(intersect="bvh"),

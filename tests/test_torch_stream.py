@@ -32,7 +32,7 @@ from logipathtracer_tpu.scene.procedural import make_outside_scene
 from logipathtracer_tpu_torch.ops import traverse as ttrav
 from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as tk6
 from logipathtracer_tpu_torch.ops.kernels import compact_intersect as tci
-from logipathtracer_tpu_torch.ops.kernels import stream_cluster as tk4
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.scene.types import SceneSoA
 
 TILE = 512
@@ -100,18 +100,19 @@ def jax_hits(scenes):
 def _port(kernel, tscene, o, d, **kw):
     """(t, tri, obj) of one port entry point; checks it took the plain
     version once and launched no kernel."""
-    mod, fn, extra = {
-        "k4": (tk4, ttrav.intersect_scene_cluster_wl, {}),
-        "k5": (tci, ttrav.intersect_scene_worklist, {}),
-        "k6": (tk6, ttrav.intersect_scene_stream, dict(cap=32)),
-        "k6_cap0": (tk6, ttrav.intersect_scene_stream, dict(cap=0)),
+    name, fn, extra = {
+        "k4": ("stream_cluster", ttrav.intersect_scene_cluster_wl, {}),
+        "k5": ("worklist_chunk", ttrav.intersect_scene_worklist, {}),
+        "k6": ("octant_chunk", ttrav.intersect_scene_stream, dict(cap=32)),
+        "k6_cap0": ("octant_chunk", ttrav.intersect_scene_stream,
+                    dict(cap=0)),
     }[kernel]
-    calls = "worklist_plain_calls" if kernel == "k5" else "plain_calls"
-    before = getattr(mod, calls)
+    before = COUNTS[name].plain_calls
     t, obj, tri = fn(tscene, torch.from_numpy(o), torch.from_numpy(d),
                      tile=TILE, **extra, **kw)
-    assert getattr(mod, calls) == before + 1
-    assert (tk4.launches, tci.worklist_launches, tk6.launches) == (0, 0, 0)
+    assert COUNTS[name].plain_calls == before + 1
+    assert all(COUNTS[k].launches == 0 for k in (
+        "stream_cluster", "worklist_chunk", "octant_chunk"))
     return t.numpy(), tri.numpy(), obj.numpy()
 
 

@@ -28,9 +28,7 @@ from logipathtracer_tpu.render.progressive import \
 from logipathtracer_tpu.scene.compile import compile_scene
 from logipathtracer_tpu.scene.procedural import make_outside_scene
 from logipathtracer_tpu_torch.config import RenderConfig
-from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as tk6
-from logipathtracer_tpu_torch.ops.kernels import compact_intersect as tci
-from logipathtracer_tpu_torch.ops.kernels import stream_cluster as tk4
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.render.megakernel import (pick_intersect,
                                                         resolve_intersect_mode)
 from logipathtracer_tpu_torch.render.progressive import ProgressiveRenderer
@@ -39,13 +37,12 @@ FIELDS = dict(width=32, height=32, max_depth=10, renderer="wavefront",
               pool_size=1024, stream_tile=1024, cluster_size=512)
 HOST_SEED = 3
 
-# The three routings of the stream branch, and the plain-version count
-# each must move: (module, counter name).
+# The three routings of the stream branch, and the kernel whose plain
+# calls each must move.
 ROUTES = {
-    "cluster": ({}, (tk4, "plain_calls")),
-    "chunk": (dict(stream_granularity="chunk"),
-              (tci, "worklist_plain_calls")),
-    "no_worklist": (dict(stream_worklist=False), (tk6, "plain_calls")),
+    "cluster": ({}, "stream_cluster"),
+    "chunk": (dict(stream_granularity="chunk"), "worklist_chunk"),
+    "no_worklist": (dict(stream_worklist=False), "octant_chunk"),
 }
 
 
@@ -66,8 +63,9 @@ def render_both(jscene, nee: bool):
     jr.step(2)
 
     def port(route):
-        kw, (mod, name) = ROUTES[route]
-        before = (getattr(mod, name), tci.plain_calls)
+        kw, name = ROUTES[route]
+        before = (COUNTS[name].plain_calls,
+                  COUNTS["compact_intersect"].plain_calls)
         tr = ProgressiveRenderer(
             jscene, RenderConfig(**FIELDS, nee=nee, intersect="stream", **kw),
             host_seed=HOST_SEED, device="cpu")
@@ -75,7 +73,8 @@ def render_both(jscene, nee: bool):
         tr.step(2)
         assert tr.sample_count == 4
         return (tr.radiance(), tr.total_rays,
-                getattr(mod, name) - before[0], tci.plain_calls - before[1])
+                COUNTS[name].plain_calls - before[0],
+                COUNTS["compact_intersect"].plain_calls - before[1])
     return (np.asarray(jr.radiance()), jr.total_rays), port
 
 

@@ -35,6 +35,7 @@ from logipathtracer_tpu.ops.pallas.compact_intersect import \
 from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as tk6
 from logipathtracer_tpu_torch.ops.kernels import compact_intersect as tci
 from logipathtracer_tpu_torch.ops.kernels import stream_cluster as tk4
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from test_torch_worklist import tie_case, tie_rays
 
 TILE = 256
@@ -44,31 +45,31 @@ def _port(kernel, tables, order, rays8, any_hit):
     kw = dict(tile=TILE, eps=1e-4, has_tmax=any_hit, any_hit=any_hit)
     meta, inv, aabb, tris, world = tables
     if kernel == "k4":
-        before = tk4.plain_calls
+        before = COUNTS["stream_cluster"].plain_calls
         out = tk4.cluster_intersect_stream_cl(*tables, rays8, **kw)
-        assert tk4.plain_calls == before + 1
+        assert COUNTS["stream_cluster"].plain_calls == before + 1
     elif kernel == "k5":
-        before = tci.worklist_plain_calls
+        before = COUNTS["worklist_chunk"].plain_calls
         out = tci.cluster_intersect_worklist(*tables, rays8, chunk=1, **kw)
-        assert tci.worklist_plain_calls == before + 1
+        assert COUNTS["worklist_chunk"].plain_calls == before + 1
     elif kernel in ("k6", "k6_cap0"):
-        before = tk6.plain_calls
+        before = COUNTS["octant_chunk"].plain_calls
         out = tk6.cluster_intersect_stream(*tables, rays8, chunk=1,
                                            cap=32 if kernel == "k6" else 0,
                                            **kw)
-        assert tk6.plain_calls == before + 1
+        assert COUNTS["octant_chunk"].plain_calls == before + 1
     elif kernel == "k8":
-        before = tk6.sweep_plain_calls
+        before = COUNTS["dense_sweep"].plain_calls
         out = tk6.cluster_intersect_pallas(meta, inv, order, aabb, tris,
                                            rays8, tile=TILE, eps=1e-4,
                                            has_tmax=any_hit)
-        assert tk6.sweep_plain_calls == before + 1
+        assert COUNTS["dense_sweep"].plain_calls == before + 1
     else:
-        before = tci.order_plain_calls
+        before = COUNTS["compact_order"].plain_calls
         out = tci.cluster_intersect_compact(meta, inv, aabb, tris, rays8,
                                             world, worklist=False,
                                             cl_order=order, **kw)
-        assert tci.order_plain_calls == before + 1
+        assert COUNTS["compact_order"].plain_calls == before + 1
     return [x.numpy() for x in out]
 
 

@@ -32,6 +32,7 @@ from logipathtracer_tpu.scene.procedural import make_box_scene as jax_box
 from logipathtracer_tpu_torch.ops import traverse as ttrav
 from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as tk8
 from logipathtracer_tpu_torch.ops.kernels import compact_intersect as tci
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.scene.compile import compile_scene
 from logipathtracer_tpu_torch.scene.procedural import make_box_scene
 
@@ -92,24 +93,25 @@ RAYS = {
     "random": lambda js: _random_rays(512, 0),
 }
 
-# (JAX backend, port backend, port module and its plain-call counter)
+# (JAX backend, port backend, the kernel whose plain calls it counts)
 ROUTES = {
     "k7": ("compact_interpret", dict(backend="compact", worklist=False),
-           tci, "order_plain_calls"),
-    "k8": ("interpret", dict(backend="pallas"), tk8, "sweep_plain_calls"),
-    "jnp": ("jnp", dict(backend="jnp"), None, None),
+           "compact_order"),
+    "k8": ("interpret", dict(backend="pallas"), "dense_sweep"),
+    "jnp": ("jnp", dict(backend="jnp"), None),
 }
 
 
 def _port(tscene, route, o, d, **kw):
-    _, port_kw, mod, counter = ROUTES[route]
-    before = getattr(mod, counter) if mod else 0
+    _, port_kw, name = ROUTES[route]
+    before = COUNTS[name].plain_calls if name else 0
     t, obj, tri = ttrav.intersect_scene_sweep(
         tscene, torch.from_numpy(o), torch.from_numpy(d), tile=TILE,
         **port_kw, **kw)
-    if mod:
-        assert getattr(mod, counter) == before + 1
-    assert (tci.order_launches, tk8.sweep_launches) == (0, 0)
+    if name:
+        assert COUNTS[name].plain_calls == before + 1
+    assert (COUNTS["compact_order"].launches,
+            COUNTS["dense_sweep"].launches) == (0, 0)
     return t.numpy(), tri.numpy(), obj.numpy()
 
 

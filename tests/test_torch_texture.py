@@ -31,6 +31,7 @@ from logipathtracer_tpu_torch.config import RenderConfig
 from logipathtracer_tpu_torch.ops import texture as ttex
 from logipathtracer_tpu_torch.ops.kernels import shade as tshade
 from logipathtracer_tpu_torch.ops.kernels import tex_prologue as ttp
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.render import megakernel as tmk
 from logipathtracer_tpu_torch.scene.types import SceneSoA
 
@@ -269,14 +270,14 @@ def test_textured_shade_matches_jax_kernel(nm_state, parity):
     ref = [np.asarray(x) for x in ref[:6]]
     ref[5] = ref[5].astype(np.int64)
     f = torch.from_numpy
-    before = tshade.plain_calls
+    before = COUNTS["shade"].plain_calls
     got = tmk.shade_step(
         tscene, RenderConfig(width=32, height=32, parity_rng=parity),
         *(f(st[k]) for k in ("origin", "direction", "acc", "mask",
                              "alive")),
         f(st["seed"].astype(np.int64)), f(st["bounce"]),
         *(f(st[k]) for k in ("t", "obj", "tri")))
-    assert tshade.plain_calls == before + 1
+    assert COUNTS["shade"].plain_calls == before + 1
     tshade.shade_agreement(ref, [x.numpy() for x in got[:6]])
 
 
@@ -330,14 +331,15 @@ def test_tex_prologue_cpu_takes_plain_version(nm_frame):
     f = torch.from_numpy
     args = (tscene, RenderConfig(width=32, height=32), f(st["origin"]),
             f(st["direction"]), f(st["t"]), f(st["obj"]), f(st["tri"]))
-    n0, p0 = ttp.launches, ttp.plain_calls
+    tp = COUNTS["tex_prologue"]
+    n0, p0 = tp.launches, tp.plain_calls
     got = ttp.tex_prologue(*args, alive=f(st["alive"]))
-    assert (ttp.launches, ttp.plain_calls) == (n0, p0 + 1)
+    assert (tp.launches, tp.plain_calls) == (n0, p0 + 1)
     ref = ttp.prologue_plain(*args)
     for g, r in zip(got, ref):
         assert torch.equal(_bits(g), _bits(r))
     via = tmk.resolve_tex_prologue(*args)
-    assert (ttp.launches, ttp.plain_calls) == (n0, p0 + 3)
+    assert (tp.launches, tp.plain_calls) == (n0, p0 + 3)
     for g, r in zip(via, ttp.prologue_plain(*args)):
         assert torch.equal(_bits(g), _bits(r))
     with pytest.raises(ValueError, match="unsupported device"):

@@ -25,6 +25,7 @@ from logipathtracer_tpu.scene.compile import compile_scene
 from logipathtracer_tpu.scene.procedural import make_box_scene
 from logipathtracer_tpu_torch.ops import traverse as ttrav
 from logipathtracer_tpu_torch.ops.kernels import compact_intersect as tci
+from logipathtracer_tpu_torch.ops.kernels._build import COUNTS
 from logipathtracer_tpu_torch.scene.types import SceneSoA
 
 TILE = 256
@@ -65,12 +66,12 @@ def test_plain_worklist_matches_jax(bounds, kind, has_tmax):
     rays8, _ = tci.pack_rays8(torch.from_numpy(o), torch.from_numpy(d), TILE,
                               t_max=torch.from_numpy(t_max) if has_tmax
                               else None)
-    before = tci.prepass_plain_calls
-    launched = tci.prepass_launches
+    before = COUNTS["worklist_prepass"].plain_calls
+    launched = COUNTS["worklist_prepass"].launches
     wl, wn = tci.build_chunk_worklists(*bounds, rays8, TILE,
                                        has_tmax=has_tmax)
-    assert tci.prepass_plain_calls == before + 1
-    assert tci.prepass_launches == launched
+    assert COUNTS["worklist_prepass"].plain_calls == before + 1
+    assert COUNTS["worklist_prepass"].launches == launched
     wlj, wnj = jci.build_chunk_worklists(
         *(jnp.asarray(b.numpy()) for b in bounds), jnp.asarray(rays8.numpy()),
         TILE, has_tmax=has_tmax)
