@@ -193,11 +193,11 @@ over the plain version's run on the same pool
 (``harness.isect_counted``): SLAB_OPS per slab test it made and MT_OPS
 per ray-triangle test the kernel's contract implies — S per own slab
 pass for the compacted visit, less, with any_hit, the tests after the
-first accepted triangle (``any_hit_saved``); for K4, whose warps test
-a queued ray against the boxes of a cluster's 32-slot groups first,
-SLAB_OPS per group box test and MT_OPS per slot of the groups it
-tests; S per ray of every gated 128-ray sub-tile for K6's cap = 0 body
-and K8.  The worklist kernel makes
+first accepted triangle (``any_hit_saved``); for K1 and K4, whose
+warps test a queued ray against the boxes of a cluster's 32-slot
+groups first, SLAB_OPS per group box test and MT_OPS per slot of the
+groups it tests; S per ray of every gated 128-ray sub-tile for K6's
+cap = 0 body and K8.  The worklist kernel makes
 WORLD_SLAB_OPS per (ray, box) slab test, every ray against every box as
 its plain version does.  K3 moves 4 bytes of pixel id per row, 12 of
 radiance per retired row and a read and a write of each pixel it
@@ -235,9 +235,9 @@ import torch  # noqa: E402
 from logipathtracer_tpu_torch.ops.kernels import _build  # noqa: E402
 from logipathtracer_tpu_torch.ops.kernels._build import COUNTS  # noqa: E402
 from logipathtracer_tpu_torch.tools.harness import (  # noqa: E402
-    bounce_pool, device_ms, event_ms, group_line, isect_counted, make_tail,
-    megakernel_pools, primary_pool, runner, scene_tables, shade_args,
-    shade_counted, shade_ops, shade_work, shadow_pool, sub_pool,
+    bounce_pool, device_ms, event_ms, group_line, isect_counted, isect_ops,
+    make_tail, megakernel_pools, primary_pool, runner, scene_tables,
+    shade_args, shade_counted, shade_ops, shade_work, shadow_pool, sub_pool,
     tex_agreement, tex_bytes, tex_live, tex_pool, timed_steps,
     walk_efficiency)
 
@@ -248,10 +248,8 @@ from logipathtracer_tpu_torch.tools.harness import (  # noqa: E402
 K3_RTOL, K3_ATOL = 1e-6, 1e-6           # f32 reassociation
 
 # Bounds (module docstring).  Operation counts, a divide or a compare
-# counted as one: a slab test is 64, the local ray (33), three
-# reciprocals (3) and the slab table (28: 12 for the six plane
-# distances, 10 for t0 and t1, 6 compares); a ray-triangle test is
-# Möller–Trumbore with its acceptance (52).  The kernels build with
+# counted as one (the intersect kernels' in harness.isect_ops: a slab
+# test SLAB_OPS, a ray-triangle test MT_OPS).  The kernels build with
 # -fmad=false, so every operation is one instruction: the card issues
 # about half of PEAK_FLOPS, which counts an FMA as two.  K2's operations
 # come from its count pass over the compared plain call
@@ -261,11 +259,6 @@ K3_RTOL, K3_ATOL = 1e-6, 1e-6           # f32 reassociation
 # channel.
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-SLAB_OPS, MT_OPS = 64, 52
-# The part of a triangle test up to its u decision (csrc/closest_hit.cuh
-# mt_u and the u test): the P vector (9), det and its reciprocal (6), the
-# T vector (3), u (6) and its two compares.
-MT_U_OPS = 26
 WORLD_SLAB_OPS = 28                     # the slab table alone
 DEVICE_RUNS = 50
 IMG_RTOL, IMG_ATOL, IMG_FRAC = 1e-4, 1e-6, 0.995  # test_wavefront.py:36-37
@@ -370,22 +363,9 @@ def any_hit_saved(rays8, tri, obj, tables, eps):
 
 def isect_bound(work, scene, inputs, r: int, saved: int = 0):
     """Bound of an intersect kernel on an R-ray pool: the count pass's
-    operations — its slab tests and S triangle tests for every lane that
-    runs them ("tested": the own passes of the compacted visit, every
-    lane of a gated sub-tile), ``saved`` triangle tests fewer; with K4's
-    32-slot groups its group box tests at SLAB_OPS and the slots of the
-    groups it tests in place of the S tests; with the sub-tile visit's
-    early exit MT_U_OPS for each and the rest only for the "rest" — or
-    its inputs read once and (t, tri, obj) written once."""
-    s = scene.cl_tris.shape[2]
-    tests = work["tested"] * s - saved
-    ops = work["slab"] * SLAB_OPS + tests * MT_OPS
-    if work.get("group_slots") is not None:     # K4's 32-slot groups
-        ops = ((work["slab"] + work["group_tests"]) * SLAB_OPS
-               + work["group_slots"] * MT_OPS)
-    if work.get("rest") is not None:    # the sub-tile visit's early exit
-        ops = (work["slab"] * SLAB_OPS + tests * MT_U_OPS
-               + work["rest"] * (MT_OPS - MT_U_OPS))
+    operations (``isect_ops``) or its inputs read once and (t, tri, obj)
+    written once."""
+    ops = isect_ops(work, scene.cl_tris.shape[2], saved)
     return bound(ops, nbytes(*inputs) + 12 * r)
 
 
@@ -435,28 +415,31 @@ def check_worklist(wmin, wmax, rays8, tile, has_tmax=False, runs=10):
 
 
 def check_k1(scene, origin, direction, tile, eps, runs=(10, 3)):
-    """The worklist kernel and K1 against their plain versions on one
-    pool, K1 bit for bit (t, tri, obj); returns (max_abs_err, kernel_ms,
-    plain_ms, hit fraction, bound, worklist row (ms, plain ms,
-    bound)).  ``runs``: the kernel's timed calls and the plain
-    version's; with 0 of the latter, plain_ms is the compared call's
-    time, its count pass included."""
+    """The worklist kernel and K1 (with the scene's 32-slot groups)
+    against their plain versions on one pool, K1 bit for bit (t, tri,
+    obj); returns (max_abs_err, kernel_ms, plain_ms, hit fraction,
+    bound, worklist row (ms, plain ms, bound)).  ``runs``: the kernel's
+    timed calls and the plain version's; with 0 of the latter, plain_ms
+    is the compared call's time, its count pass included."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
-    from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
+    from logipathtracer_tpu_torch.ops.traverse import (scene_cluster_bounds,
+                                                       scene_cluster_groups)
     rays8, _ = ci.pack_rays8(origin, direction, tile)
     wmin, wmax = scene_cluster_bounds(scene)
     wl, wn, *wrow = check_worklist(wmin, wmax, rays8, tile)
     inv = scene.obj_world_inv[:, :3, :4].reshape(-1, 12).contiguous()
     args = (rays8, wl, wn, scene.cl_meta, inv, scene.cl_aabb,
             scene.cl_tris, tile, eps)
-    got = ci.compact_wl_intersect(*args)
+    groups = scene_cluster_groups(scene)
+    got = ci.compact_wl_intersect(*args, groups=groups)
     ref, p_ms, work = plain_work(
-        lambda: ci.compact_wl_intersect_plain(*args))
+        lambda: ci.compact_wl_intersect_plain(*args), groups=True)
     for name, g, p in zip(("t", "tri", "obj"), got, ref):
         assert torch.equal(g, p), f"K1: {name} differs from the plain version"
     err = float((got[0] - ref[0]).abs().max())
     hit_frac = float((ref[0] < ci.BIG).float().mean())
-    k_ms = event_ms(lambda: ci.compact_wl_intersect(*args), runs[0])
+    k_ms = event_ms(lambda: ci.compact_wl_intersect(*args, groups=groups),
+                    runs[0])
     if runs[1]:
         p_ms = event_ms(lambda: ci.compact_wl_intersect_plain(*args),
                         runs[1])
@@ -518,7 +501,8 @@ def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
     with a light sample, bound, worklist row (ms, plain ms, bound))."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels.shade import PARK
-    from logipathtracer_tpu_torch.ops.traverse import scene_cluster_bounds
+    from logipathtracer_tpu_torch.ops.traverse import (scene_cluster_bounds,
+                                                       scene_cluster_groups)
     rays8, r = ci.pack_rays8(origin, direction, tile, t_max=t_lim)
     wmin, wmax = scene_cluster_bounds(scene)
     wl, wn, *wrow = check_worklist(wmin, wmax, rays8, tile, has_tmax=True)
@@ -526,10 +510,10 @@ def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
     args = (rays8, wl, wn, scene.cl_meta, inv, scene.cl_aabb,
             scene.cl_tris, tile, eps)
     kw = dict(has_tmax=True, any_hit=True)
-    got = ci.compact_wl_intersect(*args, **kw)
+    groups = scene_cluster_groups(scene)
+    got = ci.compact_wl_intersect(*args, groups=groups, **kw)
     ref, p_ms, work = plain_work(
-        lambda: ci.compact_wl_intersect_plain(*args, **kw))
-    saved = any_hit_saved(rays8, ref[1], ref[2], scene_tables(scene), eps)
+        lambda: ci.compact_wl_intersect_plain(*args, **kw), groups=True)
     blocked_k = got[0][:r] < t_lim
     blocked_p = ref[0][:r] < t_lim
     bad = int((blocked_k != blocked_p).sum())
@@ -539,8 +523,9 @@ def check_k1_shadow(scene, origin, direction, t_lim, tile, eps, runs=10):
     shadow = origin[:, 0] != PARK
     n_shadow = int(shadow.sum())
     frac = float(blocked_k[shadow].float().mean()) if n_shadow else 0.0
-    k_ms = event_ms(lambda: ci.compact_wl_intersect(*args, **kw), runs)
-    b = isect_bound(work, scene, args[:7], rays8.shape[1], saved)
+    k_ms = event_ms(lambda: ci.compact_wl_intersect(*args, groups=groups,
+                                                    **kw), runs)
+    b = isect_bound(work, scene, args[:7], rays8.shape[1])
     return err, k_ms, p_ms, frac, n_shadow, b, wrow
 
 
@@ -1663,8 +1648,8 @@ def cpu_shadowed():
             seen["calls"] += 1
         return got
 
-    def k1(*a, **kw):
-        got = saved[1](*a, **kw)
+    def k1(*a, groups=None, **kw):
+        got = saved[1](*a, groups=groups, **kw)
         if got[0].is_cuda:
             ref = ci.compact_wl_intersect_plain(*on_cpu(a), **kw)
             n = 1 if kw.get("any_hit") else 3

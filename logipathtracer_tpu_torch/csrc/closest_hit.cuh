@@ -5,7 +5,7 @@
 // function, K1's kernel, whose visits queue the rays that pass a
 // cluster's slab for whole warps to work through (compact_list_kernel),
 // the same compacted visit for K4-K7 as a device function
-// (compact_visit; K4's takes the triangle test by 32-slot groups,
+// (compact_visit; K1 and K4 take the triangle test by 32-slot groups,
 // warp_groups), and the sub-tile visit of K6's cap = 0 body and K8,
 // where every ray of a 128-ray block runs a cluster's triangle test once
 // one of them passes its slab (subtile_visit).
@@ -354,12 +354,12 @@ __device__ __forceinline__ int warp_closest(const float* tri, int S,
   return tm < best ? sm : -1;
 }
 
-// A cluster's 32-slot groups (K4): box [C, G, 8] f32, G = ceil(S / 32),
-// group g's box (min.xyz, max.xyz, pad, pad) bounding v0, v0 + e1 and
-// v0 + e2 of its real slots 32g .. 32g + 31 in the cluster's object
+// A cluster's 32-slot groups (K1, K4): box [C, G, 8] f32, G = ceil(S /
+// 32), group g's box (min.xyz, max.xyz, pad, pad) bounding v0, v0 + e1
+// and v0 + e2 of its real slots 32g .. 32g + 31 in the cluster's object
 // space, padded outward; n [C] i32, the groups that hold real slots
 // (real slots are a prefix of the cluster, so these are groups 0 ..
-// n - 1).  Built by ops/kernels/stream_cluster.py cluster_groups.
+// n - 1).  Built by ops/kernels/compact_intersect.py cluster_groups.
 struct Groups {
   const float* box;
   const int* n;
@@ -440,15 +440,19 @@ __device__ __forceinline__ int warp_groups(const float* tri, int S,
 //      counts — with their local ray and best, each owner keeping its
 //      queue position; nothing passes: next cluster, the triangles
 //      never read;
-//   3. the cluster's [9, S] block is staged; warps take queued rays in
-//      turn and run warp_closest on each;
+//   3. the rows' prefix of the cluster's groups that hold real slots
+//      (gn[c] groups of 32 slots) is staged with plain loads; warps take
+//      queued rays in turn and run warp_groups on each: the ray's slab
+//      against each group's box (gbox), then Moller-Trumbore on the
+//      slots of the groups it passes only;
 //   4. each owner reads its queued ray's answer and accepts it.
 // The same slab decisions, the same Moller-Trumbore arithmetic and the
-// same acceptance rule as the sequential loop: bit-identical results.
+// same acceptance rule as the sequential loop: bit-identical results
+// (warp_groups culls only groups that hold no slot it would accept).
 // Any-hit parks an accepted lane's best at -kBig, which fails every
 // later slab (slab_inv's best > 0 guard), so it is never queued again.
 // Shared memory: compact_bytes(S, blockDim.x).  At most 256 threads, 64
-// registers each (four blocks an SM): ptxas would take 83 and fit three.
+// registers each (four blocks an SM).
 __global__ void __launch_bounds__(256, 4)
     compact_list_kernel(const float* __restrict__ rays8, int R,
                         const int* __restrict__ wl,
@@ -456,7 +460,9 @@ __global__ void __launch_bounds__(256, 4)
                         const int* __restrict__ meta,
                         const float* __restrict__ inv,
                         const float* __restrict__ aabb,
-                        const float* __restrict__ tris, int S, float eps,
+                        const float* __restrict__ tris, int S,
+                        const float* __restrict__ gbox,
+                        const int* __restrict__ gn, int G, float eps,
                         int has_tmax, int any_hit, float* __restrict__ t_out,
                         int* __restrict__ tri_out,
                         int* __restrict__ obj_out) {
@@ -508,15 +514,21 @@ __global__ void __launch_bounds__(256, 4)
       q_ray[5 * nt + pos] = l.dz;
       q_best[pos] = best;
     }
+    const int ng = gn[c];
+    const int width = min(S, 32 * ng);  // the real slots' prefix a row
     const float* src = tris + static_cast<size_t>(c) * 9 * S;
-    for (int i = threadIdx.x; i < 9 * S; i += nt) staged[i] = src[i];
+    for (int i = threadIdx.x; i < width; i += nt) {
+#pragma unroll
+      for (int j = 0; j < 9; ++j) staged[j * S + i] = src[j * S + i];
+    }
     __syncthreads();
+    const float* box = gbox + static_cast<size_t>(c) * 8 * G;
     for (int q = warp; q < total; q += nwarps) {
       const Ray lq{q_ray[0 * nt + q], q_ray[1 * nt + q], q_ray[2 * nt + q],
                    q_ray[3 * nt + q], q_ray[4 * nt + q], q_ray[5 * nt + q]};
       float tq = 0.0f;
-      const int slot = warp_closest(staged, S, lq, eps, q_best[q],
-                                    any_hit != 0, tq);
+      const int slot = warp_groups(staged, S, box, ng, lq, eps, q_best[q],
+                                   any_hit != 0, tq);
       if (lane == 0) {
         q_slot[q] = slot;
         q_t[q] = tq;
@@ -813,6 +825,7 @@ inline int launch_compact_list(const void* rays8, int R, const void* wl,
                                const void* wn, int C, int tile,
                                const void* meta, const void* inv,
                                const void* aabb, const void* tris, int S,
+                               const void* gbox, const void* gn, int G,
                                float eps, int threads, int has_tmax,
                                int any_hit, void* t, void* tri, void* obj,
                                void* stream) {
@@ -824,7 +837,8 @@ inline int launch_compact_list(const void* rays8, int R, const void* wl,
       static_cast<const float*>(rays8), R, static_cast<const int*>(wl),
       static_cast<const int*>(wn), C, tile, static_cast<const int*>(meta),
       static_cast<const float*>(inv), static_cast<const float*>(aabb),
-      static_cast<const float*>(tris), S, eps, has_tmax, any_hit,
+      static_cast<const float*>(tris), S, static_cast<const float*>(gbox),
+      static_cast<const int*>(gn), G, eps, has_tmax, any_hit,
       static_cast<float*>(t), static_cast<int*>(tri), static_cast<int*>(obj));
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,10 +29,12 @@
 // object space; slab-test the cluster AABB against the running best t
 // (the _slab_inv decision table with its best_t > 0 guard); on a pass,
 // Moller-Trumbore against the cluster's S triangles, accepting t > eps
-// and strictly closer than the best, so the lowest slot wins ties.
-// Miss: t = INF, tri = obj = -1.  Shadow queries (next-event
-// estimation): with has_tmax the best t starts at min(rays8[6], BIG), so
-// only hits closer than t_max count.  With any_hit as well, a lane's
+// and strictly closer than the best, so the lowest slot wins ties (the
+// triangle test skips the 32-slot groups whose padded box the ray
+// misses, which hold no triangle it could accept).  Miss: t = INF,
+// tri = obj = -1.  Shadow queries (next-event estimation): with
+// has_tmax the best t starts at min(rays8[6], BIG), so only hits closer
+// than t_max count.  With any_hit as well, a lane's
 // first accepted hit (lowest slot) parks its best t at -BIG (the TPU
 // kernel's compact_intersect.py:243-250): every later slab test fails,
 // and t comes out -BIG.  tri/obj are then not closest-hit values; only
@@ -42,14 +44,19 @@
 // own: the rays of a 256-ray block that pass a cluster's slab are
 // compacted — a warp ballot, a prefix, one offset per warp — into a
 // shared-memory queue, and whole warps then test one queued ray each
-// against the staged [9, S] block, lane l on slots l + 32k, with a
-// shuffle reduction to the lowest (t, slot).  Bound: operations (~52
-// per ray-triangle test, one divide).  A one-thread-per-ray visit makes
-// a whole warp run all S tests whenever one lane passes; the queue makes
-// the triangle tests proportional to the rays that pass, whatever warp
-// they sit in.  nvcc -Xptxas -v (sm_90a, -fmad=false): K1 64 registers
-// under its launch bounds (83 without, three blocks an SM instead of
-// four), no spills; the worklist kernel 32, no spills.
+// against the staged block: lane l slab-tests the box of the cluster's
+// 32-slot group l (the groups that hold real slots), one ballot gives
+// the groups the ray passes, and the warp runs Moller-Trumbore on their
+// slots only, lane l on slot 32g + l, with a shuffle reduction to the
+// lowest (t, slot) (warp_groups).  Bound: operations (~52 per
+// ray-triangle test, one divide; 64 per group box).  A one-thread-per-ray
+// visit makes a whole warp run all S tests whenever one lane passes; the
+// queue makes the triangle tests proportional to the rays that pass,
+// whatever warp they sit in, and the groups keep them to the slots near
+// the ray (the padding of a sparse cluster is never tested).  nvcc
+// -Xptxas -v (sm_90a, -fmad=false): K1 64 registers under its launch
+// bounds (four blocks an SM), no spills; the worklist kernel 32, no
+// spills.
 //
 // The per-ray core (local ray, _slab_inv, Moller-Trumbore, acceptance)
 // lives in closest_hit.cuh, shared with K4-K8; it states the rounding
@@ -241,9 +248,10 @@ extern "C" int lpt_build_worklists(const void* bmin, const void* bmax,
 extern "C" int lpt_compact_wl_intersect(
     const void* rays8, int R, const void* wl, const void* wn, int C,
     int tile, const void* meta, const void* inv, const void* aabb,
-    const void* tris, int S, float eps, int threads, int has_tmax,
-    int any_hit, void* t, void* tri, void* obj, void* stream) {
+    const void* tris, int S, const void* gbox, const void* gn, int G,
+    float eps, int threads, int has_tmax, int any_hit, void* t, void* tri,
+    void* obj, void* stream) {
   return lpt::launch_compact_list(rays8, R, wl, wn, C, tile, meta, inv, aabb,
-                                  tris, S, eps, threads, has_tmax, any_hit,
-                                  t, tri, obj, stream);
+                                  tris, S, gbox, gn, G, eps, threads,
+                                  has_tmax, any_hit, t, tri, obj, stream);
 }

@@ -29,11 +29,14 @@ t < t_max is part of the contract.
 On the card: a block of 256 rays inside one worklist tile, each thread
 owning one ray's best hit.  Per listed cluster, the rays that pass its
 slab enter a shared-memory queue (warp ballot and prefix); the block
-stages the cluster's 9 x S triangle floats only when the queue is not
-empty, and whole warps test one queued ray each, 32 slots at a time,
-reducing to the lowest (t, slot).  Bound: operations — ~52 per (ray,
-triangle) Möller–Trumbore test, one divide each.  The queue keeps the
-triangle tests to the rays that pass, wherever they sit in a warp.
+stages the rows' prefix of the cluster's 32-slot groups that hold real
+triangles only when the queue is not empty, and whole warps test one
+queued ray each: its slab against each group's box (``cluster_groups``),
+then Möller–Trumbore on the slots of the groups it passes, 32 slots at a
+time, reducing to the lowest (t, slot).  Bound: operations — 64 per
+group box test, ~52 per (ray, triangle) Möller–Trumbore test, one
+divide each.  The queue keeps the triangle tests to the rays that pass,
+wherever they sit in a warp, and the groups to the slots near them.
 
 The worklists (``build_chunk_worklists``) come from a kernel of the
 same source on the card, one block per tile: the world slab of every
@@ -443,15 +446,104 @@ def require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, device, stream=False):
     return c, s
 
 
+GROUP = 32          # slots a group: a warp's lanes (closest_hit.cuh)
+GROUP_PAD = 1e-5    # ops/frustum.py's relative pad
+
+
+def _corners(lo, hi):
+    """The 8 corners [..., 8, 3] of boxes lo, hi [..., 3]."""
+    pick = torch.tensor([[(i >> a) & 1 for a in range(3)] for i in range(8)],
+                        dtype=torch.bool, device=lo.device)
+    return torch.where(pick, hi[..., None, :], lo[..., None, :])
+
+
+def _scene_reach(cl_meta, cl_inv, cl_aabb):
+    """[C] f32: per cluster, the largest |coordinate| of the scene's
+    world box (the cluster boxes' world bounds) in the cluster's object
+    space: how far, in that space, a ray from inside the scene starts
+    from the origin."""
+    o = cl_inv.shape[0]
+    inv = torch.eye(4, dtype=torch.float64).repeat(o, 1, 1)
+    inv[:, :3] = cl_inv.detach().cpu().double().reshape(o, 3, 4)
+    fwd = torch.linalg.inv(inv)
+    obj = cl_meta[:, 0].long().cpu()
+    box = cl_aabb.detach().cpu().double()
+    m = fwd[obj]                                             # [C, 4, 4]
+    world = (_corners(box[:, 0:3], box[:, 3:6]) @ m[:, :3, :3].mT
+             + m[:, None, :3, 3])                            # [C, 8, 3]
+    sc = _corners(world.amin(dim=(0, 1)), world.amax(dim=(0, 1)))
+    local = sc[None] @ inv[:, :3, :3].mT + inv[:, None, :3, 3]
+    reach = local.abs().amax(dim=(1, 2))                     # [O]
+    return reach[obj].float().to(cl_aabb.device)
+
+
+def cluster_groups(cl_meta, cl_inv, cl_aabb, cl_tris):
+    """The 32-slot groups of each cluster that K1's and K4's triangle
+    tests take (closest_hit.cuh ``Groups``, ``warp_groups``):
+    (box [C, G, 8] f32, n [C] i32), G = ceil(S / 32).  Group g holds slots
+    32g .. 32g + 31.  A cluster's real slots are a prefix: n is
+    ceil(count / 32), count being one past its last slot that is not all
+    zero (an all-zero slot is never accepted: its t is NaN).  Box g
+    (min.xyz, max.xyz, 0, 0) bounds v0, v0 + e1 and v0 + e2 of the group's
+    slots below count, in the cluster's object space, padded outward per
+    axis by ``GROUP_PAD`` (|min| + |max| + 1 + 2 ``_scene_reach``): the
+    rounding of the slab test and of Möller–Trumbore grows with the
+    distance from the ray's origin, so the pad scales with the farthest
+    a ray from inside the scene starts, and a slot that the triangle
+    test accepts is never culled.  The boxes of groups from n on are
+    NaN, a slab that never passes; the kernel never reads them."""
+    c, _, s = cl_tris.shape
+    g = -(-s // GROUP)
+    tris = torch.nn.functional.pad(cl_tris, (0, g * GROUP - s))
+    slot = torch.arange(1, g * GROUP + 1, device=cl_tris.device)
+    count = torch.where((tris != 0).any(dim=1), slot, 0).amax(dim=1)
+    n = (count + GROUP - 1) // GROUP
+    v0 = tris[:, 0:3]
+    pts = torch.stack([v0, v0 + tris[:, 3:6], v0 + tris[:, 6:9]], 1)
+    real = (slot[None] <= count[:, None])[:, None, None]     # [C, 1, 1, S']
+    inf = float("inf")
+    lo = torch.where(real, pts, inf).amin(dim=1)             # [C, 3, S']
+    hi = torch.where(real, pts, -inf).amax(dim=1)
+    lo = lo.reshape(c, 3, g, GROUP).amin(dim=3).mT           # [C, G, 3]
+    hi = hi.reshape(c, 3, g, GROUP).amax(dim=3).mT
+    reach = _scene_reach(cl_meta, cl_inv, cl_aabb)[:, None, None]
+    pad = GROUP_PAD * (lo.abs() + hi.abs() + 1.0 + 2.0 * reach)
+    box = torch.zeros((c, g, 8), dtype=torch.float32, device=cl_tris.device)
+    box[:, :, 0:3] = lo - pad
+    box[:, :, 3:6] = hi + pad
+    empty = torch.arange(g, device=cl_tris.device)[None] >= n[:, None]
+    box[:, :, 0:6] = torch.where(empty[..., None], float("nan"),
+                                 box[:, :, 0:6])
+    return box.contiguous(), n.to(torch.int32)
+
+
+def require_groups(groups, cl_meta, cl_inv, cl_aabb, cl_tris, device):
+    """(box, n, G) of the 32-slot groups a kernel takes: ``groups``
+    checked against the cluster tables, or their ``cluster_groups`` when
+    None."""
+    if groups is None:
+        groups = cluster_groups(cl_meta, cl_inv, cl_aabb, cl_tris)
+    gbox, gn = groups
+    c, _, s = cl_tris.shape
+    g = -(-s // GROUP)
+    _build.require(gbox, "gbox", torch.float32, (c, g, 8), device)
+    _build.require(gn, "gn", torch.int32, (c,), device)
+    return gbox, gn, g
+
+
 def compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
                          tile: int, eps: float, has_tmax: bool = False,
-                         any_hit: bool = False):
+                         any_hit: bool = False, groups=None):
     """Closest hit for rays8 [8, R] (R a multiple of ``tile``) over the
     worklists wl [R/tile, C] i32 / wn [R/tile] i32.  cl_meta [C, 2] i32,
     cl_inv [O, 12] f32, cl_aabb [C, 8] f32, cl_tris [C, 9, S] f32.
     ``has_tmax``/``any_hit``: the shadow-query modes (module docstring).
-    Returns (t [R] f32, tri [R] i32, obj [R] i32).  A CPU tensor takes
-    the plain version, a CUDA tensor the kernel (compacted visits)."""
+    ``groups``: the tables' ``cluster_groups``, built here when None on
+    the card (a scene keeps its own, ops/traverse.py
+    ``scene_cluster_groups``).  Returns (t [R] f32, tri [R] i32, obj [R]
+    i32).  A CPU tensor takes the plain version (which needs no groups:
+    it gives the same answer), a CUDA tensor the kernel (compacted
+    visits, the triangle test by groups)."""
     dev = rays8.device
     if dev.type == "cpu":
         return compact_wl_intersect_plain(rays8, wl, wn, cl_meta, cl_inv,
@@ -462,6 +554,8 @@ def compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
     r = rays8.shape[1]
     threads = _block_threads(r, tile, "compact_wl_intersect")
     c, s = require_scene(cl_meta, cl_inv, cl_aabb, cl_tris, dev)
+    gbox, gn, g = require_groups(groups, cl_meta, cl_inv, cl_aabb, cl_tris,
+                                 dev)
     tiles = r // tile
     _build.require(rays8, "rays8", torch.float32, (8, r), dev)
     _build.require(wl, "wl", torch.int32, (tiles, c), dev)
@@ -469,8 +563,9 @@ def compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb, cl_tris,
     t, tri, obj = _outputs(r, dev)
     _build.launch("compact_intersect", "lpt_compact_wl_intersect",
                   rays8, r, wl, wn, c, tile, cl_meta, cl_inv, cl_aabb,
-                  cl_tris, s, float(eps), threads, bool(has_tmax),
-                  bool(any_hit), t, tri, obj, _build.stream_ptr(dev))
+                  cl_tris, s, gbox, gn, g, float(eps), threads,
+                  bool(has_tmax), bool(any_hit), t, tri, obj,
+                  _build.stream_ptr(dev))
     _build.launched("compact_intersect", _mode(has_tmax, any_hit))
     return t, tri, obj
 
@@ -582,11 +677,12 @@ def cluster_intersect_compact(cl_meta, cl_inv, cl_aabb, cl_tris, rays8,
                               eps: float = 1e-4, bounds=None,
                               has_tmax: bool = False,
                               any_hit: bool = False, worklist: bool = True,
-                              cl_order=None):
+                              cl_order=None, groups=None):
     """The port of the JAX package's ``cluster_intersect_compact``:
     with ``worklist`` the worklist prepass + K1 (``bounds`` may carry
-    precomputed ``chunk_world_bounds``, the scene's are constant);
-    without, K7 over the per-octant cluster order ``cl_order`` [8, C]."""
+    precomputed ``chunk_world_bounds`` and ``groups`` the tables'
+    ``cluster_groups``: the scene's are constant); without, K7 over the
+    per-octant cluster order ``cl_order`` [8, C]."""
     if not worklist:
         return compact_order_intersect(rays8, tile_octants(rays8, tile),
                                        cl_order, cl_meta, cl_inv, cl_aabb,
@@ -599,7 +695,7 @@ def cluster_intersect_compact(cl_meta, cl_inv, cl_aabb, cl_tris, rays8,
                                    has_tmax=has_tmax)
     return compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
                                 cl_tris, tile, eps, has_tmax=has_tmax,
-                                any_hit=any_hit)
+                                any_hit=any_hit, groups=groups)
 
 
 def padded_chunk_bounds(cl_meta, cl_aabb, obj_world, chunk: int):

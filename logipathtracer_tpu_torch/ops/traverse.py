@@ -55,9 +55,10 @@ def scene_cluster_bounds(scene):
 
 
 def scene_cluster_groups(scene):
-    """K4's 32-slot groups of a device scene's clusters
-    (``stream_cluster.cluster_groups``: boxes [C, G, 8], counts [C])."""
-    return _scene_cache(scene, "cluster_groups", lambda: k4.cluster_groups(
+    """The 32-slot groups of a device scene's clusters that K1 and K4
+    take (``compact_intersect.cluster_groups``: boxes [C, G, 8], counts
+    [C])."""
+    return _scene_cache(scene, "cluster_groups", lambda: ci.cluster_groups(
         scene.cl_meta, _inv_rows(scene), scene.cl_aabb, scene.cl_tris))
 
 
@@ -102,7 +103,9 @@ def intersect_scene_sweep(scene, origin, direction, eps: float = 1e-4,
             *tables, rays8, scene.obj_world, tile=tile, eps=eps,
             bounds=scene_cluster_bounds(scene) if worklist else None,
             has_tmax=has_tmax, any_hit=any_hit and has_tmax,
-            worklist=worklist, cl_order=scene.cl_order)
+            worklist=worklist, cl_order=scene.cl_order,
+            groups=scene_cluster_groups(scene)
+            if worklist and rays8.is_cuda else None)
     elif backend in ("pallas", "interpret"):
         t, tri, obj = k6.cluster_intersect_pallas(
             scene.cl_meta, _inv_rows(scene), scene.cl_order, scene.cl_aabb,

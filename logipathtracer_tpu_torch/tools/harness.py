@@ -19,6 +19,15 @@ import torch
 
 EPS = 1e-4
 
+# The intersect kernels' operations, a divide or a compare counted as
+# one: a slab test is 64, the local ray (33), three reciprocals (3) and
+# the slab table (28: 12 for the six plane distances, 10 for t0 and t1,
+# 6 compares); a ray-triangle test is Möller–Trumbore with its acceptance
+# (52), the part up to its u decision (csrc/closest_hit.cuh mt_u and the
+# u test) 26: the P vector (9), det and its reciprocal (6), the T vector
+# (3), u (6) and its two compares.
+SLAB_OPS, MT_OPS, MT_U_OPS = 64, 52, 26
+
 
 def event_ms(fn, runs: int = 10) -> float:
     """The median of ``runs`` single calls, each between two CUDA
@@ -238,8 +247,9 @@ def runner(kind, scene, rays8, tile, chunk=16, **kw):
     and the streamed (K4, K5, K6) or order (K7, K8) kinds — on a packed
     pool, with the front end the main path gives it, computed once (wn
     [tiles]: the clusters, for K5 and K6 the chunks, each tile lists —
-    its worklist, or every one, none on a K6 tile with live == 0; K4's
-    call takes the scene's 32-slot groups where the package has them)."""
+    its worklist, or every one, none on a K6 tile with live == 0; K1's
+    and K4's calls take the scene's 32-slot groups where the package
+    has them for the kernel)."""
     from logipathtracer_tpu_torch.ops.kernels import cluster_intersect as k6
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
@@ -268,7 +278,8 @@ def runner(kind, scene, rays8, tile, chunk=16, **kw):
                        has_tmax=has_tmax)
         args = (rays8, wl, wn, *tables, tile, EPS)
         kernel_kw = dict(kw)
-        if kind == "K4" and hasattr(k4, "cluster_groups"):
+        if hasattr(ci, "cluster_groups") or (
+                kind == "K4" and hasattr(k4, "cluster_groups")):
             from logipathtracer_tpu_torch.ops.traverse import \
                 scene_cluster_groups
             kernel_kw["groups"] = scene_cluster_groups(scene)
@@ -313,9 +324,9 @@ def isect_counted(block=256, prefetch=False, chunk=16, early_exit=False,
     own pass).  With ``early_exit`` (the sub-tile visit's exit after u),
     "rest": the (lane, slot) tests of the gated sub-tiles that go on past
     the u decision — u not rejected, or a best above kInf before the
-    visit — else None.  With ``groups`` (K4's triangle test by 32-slot
-    groups, closest_hit.cuh warp_groups; the package's
-    ``stream_cluster.cluster_groups``) and where the package has them,
+    visit — else None.  With ``groups`` (K1's and K4's triangle test by
+    32-slot groups, closest_hit.cuh warp_groups; the package's
+    ``cluster_groups``) and where the package has them,
     per own pass: "group_tests", the boxes of the cluster's groups that
     hold real slots, "group_passed", those whose slab passes against the
     lane's best before the visit, and "group_slots", the slots of the
@@ -325,7 +336,8 @@ def isect_counted(block=256, prefetch=False, chunk=16, early_exit=False,
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     from logipathtracer_tpu_torch.ops.kernels import stream_cluster as k4
     plain = ci.PlainSweep
-    make_groups = getattr(k4, "cluster_groups", None) if groups else None
+    make_groups = (getattr(ci, "cluster_groups", None)
+                   or getattr(k4, "cluster_groups", None)) if groups else None
     slab, gated, own, sub, tested, rest = [0], [], [], [], [], []
     listed, passed, staged = [], [], []
     g_tests, g_passed, g_slots = [], [], []
@@ -443,10 +455,31 @@ def past_u(lo, ld, lanes, trib, best):
     return n
 
 
+def isect_ops(work, s: int, saved: int = 0) -> int:
+    """The operations of an intersect kernel from its count pass
+    (``isect_counted``) over clusters of S slots: its slab tests and S
+    triangle tests for every lane that runs them ("tested": the own
+    passes of the compacted visit, every lane of a gated sub-tile),
+    ``saved`` triangle tests fewer; with the 32-slot groups (K1, K4) its
+    group box tests as slab tests and the slots of the groups it tests in
+    place of the S tests; with the sub-tile visit's early exit MT_U_OPS
+    for each and the rest only for the "rest"."""
+    tests = work["tested"] * s - saved
+    ops = work["slab"] * SLAB_OPS + tests * MT_OPS
+    if work.get("group_slots") is not None:     # the 32-slot groups
+        ops = ((work["slab"] + work["group_tests"]) * SLAB_OPS
+               + work["group_slots"] * MT_OPS)
+    if work.get("rest") is not None:    # the sub-tile visit's early exit
+        ops = (work["slab"] * SLAB_OPS + tests * MT_U_OPS
+               + work["rest"] * (MT_OPS - MT_U_OPS))
+    return ops
+
+
 def group_line(work) -> str:
     """The count pass's group figures (``isect_counted`` with
-    ``groups``): the share of K4's group box tests that pass and the
-    slots tested per queued ray (each own pass is a queued ray)."""
+    ``groups``): the group box tests per queued ray, the share of them
+    that pass and the slots tested per queued ray (each own pass is a
+    queued ray of K1 or K4)."""
     if work.get("group_tests") is None:
         return "no group test"
     own = max(work["own"], 1)

@@ -45,7 +45,8 @@ seeds (``harness.pools``): on ``make_outside_scene()`` under the default
 RenderConfig at 1024^2, which routes it to K4, the primary pool, the
 bounce pool after one step and that bounce's NEE shadow pool (t_max +
 any-hit); on the flagship box ``make_box_scene(spheres=10, subdiv=3)``
-(K1) the same three, and the megakernel's three pools of the routes
+(K1) the same three at 1024^2 and at the default 1920x1080 ("primary
+1080p", ...), and the megakernel's three pools of the routes
 ``compact_worklist=False`` (K7) and ``intersect="sweep"`` (K8;
 ``harness.megakernel_pools``).  Each time is the median of ``--runs``
 single calls between two CUDA events.  ``--kinds`` times only the
@@ -60,15 +61,18 @@ kernels it names, ``--routes`` runs only the main routes it names
               with the mean list length wn of K4's, K5's and K6's pools;
   digest:     sha256 of each kernel's (t, tri, obj) per pool, so that two
               checkouts' runs show whether they agree bit for bit;
-  count:      with ``--count-tiles N`` and k4: the count pass
-              (``harness.isect_counted``) of K4's plain version on N
-              tiles of each pool, spread over its live lanes — the slab
-              tests, the own slab passes (queued rays), K4's group box
-              tests, those that pass and the slots tested, and their
-              line (``harness.group_line``: the share of group tests
-              that pass, the slots tested a queued ray; "no group test"
-              for a package without them) — with K4's ms on those tiles
-              (``--runs`` calls);
+  count:      with ``--count-tiles N``, for k4 and k1 ("k4 primary",
+              "k1 primary 1080p", ...): the count pass
+              (``harness.isect_counted``) of the kernel's plain version
+              on N tiles of each pool, spread over its live lanes — the
+              slab tests, the own slab passes (queued rays), the group
+              box tests, those that pass and the slots tested, and their
+              line (``harness.group_line``: group tests a queued ray,
+              the share that pass, the slots tested a queued ray) — the
+              bound of that work (``group_count``) and of every slot of
+              a queued ray's cluster, with the kernel's ms on those
+              tiles (``--runs`` calls; the kernel of a package without
+              K1's groups tests every slot);
   main:       with ``--main-runs N``: each route N times, each a fresh
               renderer (host seed 0): a warm-up session (step(1),
               step(2) twice, a camera reset: on the card the wavefront
@@ -230,7 +234,7 @@ def pick(routes, names):
 def isect_times(h, dev, runs, main_runs, kinds=tuple(ISECT_KINDS),
                 routes=MAIN_ROUTES, count_tiles=0):
     """{kind: ms per pool for each of ``kinds`` (ISECT_KINDS' keys), "wn":
-    mean list per K4 / K5 / K6 pool, "count": K4's count pass on
+    mean list per K4 / K5 / K6 pool, "count": K4's and K1's count pass on
     ``count_tiles`` tiles of each pool, "main": each of ``routes``'
     runs}."""
     from logipathtracer_tpu_torch import (ProgressiveRenderer, RenderConfig,
@@ -262,18 +266,23 @@ def isect_times(h, dev, runs, main_runs, kinds=tuple(ISECT_KINDS),
                 out["digest"][f"{key} {name}"] = digest(kernel())
                 out["wn"][f"{kind} {name}"] = float(wn.float().mean())
                 if key == "k4" and count_tiles:
-                    out["count"][name] = k4_count(h, scene, rays8, tile,
-                                                  count_tiles, kwk, runs)
+                    out["count"][f"k4 {name}"] = group_count(
+                        h, "K4", scene, rays8, tile, count_tiles, kwk, runs)
     if {"k1", "k7", "k8"} & set(kinds):
         box = scenes["box"] = compile_scene(
             make_box_scene(spheres=10, subdiv=3))
     if "k1" in kinds:
         btile = cfg.compact_tile
         bscene = box.to(dev)
-        for name, (rays8, kw) in h.pools(box, cfg, dev, btile).items():
-            kernel = h.runner("K1", bscene, rays8, btile, **kw)[0]
-            out["k1"][name] = h.event_ms(kernel, runs)
-            out["digest"][f"k1 {name}"] = digest(kernel())
+        for size, kcfg in (("", cfg), (" 1080p", RenderConfig())):
+            for name, (rays8, kw) in h.pools(box, kcfg, dev, btile).items():
+                name += size
+                kernel = h.runner("K1", bscene, rays8, btile, **kw)[0]
+                out["k1"][name] = h.event_ms(kernel, runs)
+                out["digest"][f"k1 {name}"] = digest(kernel())
+                if count_tiles:
+                    out["count"][f"k1 {name}"] = group_count(
+                        h, "K1", bscene, rays8, btile, count_tiles, kw, runs)
     for key, route in (("k7", dict(compact_worklist=False)),
                        ("k8", dict(intersect="sweep"))):
         if key not in kinds:
@@ -299,21 +308,37 @@ def isect_times(h, dev, runs, main_runs, kinds=tuple(ISECT_KINDS),
     return out
 
 
-def k4_count(h, scene, rays8, tile, tiles, kw, runs):
-    """K4's count pass on ``tiles`` tiles of a pool spread over its live
-    lanes: {rays, slab, own, tested, group_tests, group_passed,
-    group_slots, line, kernel_ms}."""
+def group_count(h, kind, scene, rays8, tile, tiles, kw, runs):
+    """The count pass of K1 or K4 (``kind``) on ``tiles`` tiles of a pool
+    spread over its live lanes: {rays, slab, own, tested, group_tests,
+    group_passed, group_slots, line, ops, bound_ms, bound_ms_all_slots,
+    kernel_ms}.  ops: ``harness.isect_ops`` of the group work (SLAB_OPS a
+    group box test, MT_OPS a tested slot); bound_ms the larger of ops ÷ 67
+    TFLOP/s and the inputs read and (t, tri, obj) written once ÷ 3.35
+    TB/s; bound_ms_all_slots the same with every slot of a queued ray's
+    cluster tested and no group box (``warp_closest``)."""
     from logipathtracer_tpu_torch.ops.kernels import compact_intersect as ci
     n_live = int((rays8[0] < 1e29).sum())
     sub8 = h.sub_pool(rays8, tile, n_live, tiles)
-    kernel, plain, _, _ = h.runner("K4", scene, sub8, tile, **kw)
-    block = ci._block_threads(sub8.shape[1], tile, "K4")
+    kernel, plain, inputs, _ = h.runner(kind, scene, sub8, tile, **kw)
+    block = ci._block_threads(sub8.shape[1], tile, kind)
     with h.isect_counted(block=block, groups=True) as work:
         plain()
     keys = ("slab", "own", "tested", "group_tests", "group_passed",
             "group_slots")
+    s = scene.cl_tris.shape[2]
+    n_bytes = sum(t.numel() * t.element_size() for t in inputs
+                  if isinstance(t, torch.Tensor)) + 12 * sub8.shape[1]
+
+    def bound_ms(ops):
+        return max(ops / 67e12, n_bytes / 3.35e12) * 1e3
+
+    ops = h.isect_ops(work, s)
     return {"rays": sub8.shape[1], **{k: work[k] for k in keys},
-            "line": h.group_line(work),
+            "line": h.group_line(work), "ops": ops,
+            "bound_ms": bound_ms(ops),
+            "bound_ms_all_slots": bound_ms(h.isect_ops(
+                dict(work, group_slots=None), s)),
             "kernel_ms": h.event_ms(kernel, runs)}
 
 
@@ -470,8 +495,8 @@ def main(argv=None):
     ap.add_argument("--glb", default=None,
                     help="tex: the textured scene to run the prologue on")
     ap.add_argument("--count-tiles", type=int, default=0,
-                    help="isect: K4's count pass on this many tiles of "
-                    "each pool (0: none)")
+                    help="isect: K4's and K1's count pass on this many "
+                    "tiles of each pool (0: none)")
     args = ap.parse_args(argv)
     if args.kernels == "tex" and not args.glb:
         ap.error("tex needs --glb")

@@ -1049,7 +1049,7 @@ def test_k4_groups_bit_equal_to_plain(dev, case, mode):
     wl, wn = k4.build_cluster_worklists(*bounds, rays8, tile,
                                         has_tmax=kw["has_tmax"])
     args = (rays8, wl, wn, *tables, tile, 1e-4)
-    groups = k4.cluster_groups(*tables)
+    groups = ci.cluster_groups(*tables)
     n0 = COUNTS["stream_cluster"].launches
     got = k4.stream_cl_intersect(*args, groups=groups, **kw)
     assert COUNTS["stream_cluster"].launches == n0 + 1
@@ -1064,6 +1064,73 @@ def test_k4_groups_bit_equal_to_plain(dev, case, mode):
         assert int(hit.sum()) > len(hit) // 4
     if case == "grid" and mode == "closest":
         assert bool(hit[:512].all())            # every grid point is hit
+
+
+_BOX = {}
+
+
+@pytest.mark.parametrize("mode", ["closest", "tmax", "any_hit"])
+@pytest.mark.parametrize("case", ["primary", "bounce", "shadow", "ground",
+                                  "grid"])
+def test_k1_groups_bit_equal_to_plain(dev, case, mode):
+    """K1's triangle test by 32-slot groups equals the plain version bit
+    for bit (t, tri and obj; t alone with any-hit): on the benchmark's
+    box class's main-path pools (camera rays, the bounce pool after a
+    step, NEE shadow rays), on the outside scene's ground quad (one
+    cluster of one group of 2 real slots, hits on its flat box's faces,
+    edges and corners) and on a flat axis-aligned grid whose hits lie on
+    its group boxes' faces."""
+    from logipathtracer_tpu_torch import RenderConfig, compile_scene
+    from logipathtracer_tpu_torch.ops.traverse import scene_cluster_groups
+    from logipathtracer_tpu_torch.scene.procedural import make_box_scene
+    from logipathtracer_tpu_torch.tools import harness
+    kw = dict(has_tmax=mode != "closest", any_hit=mode == "any_hit")
+    tile = 1024
+    groups = None
+    if case in ("primary", "bounce", "shadow"):
+        if "host" not in _BOX:
+            _BOX["host"] = compile_scene(make_box_scene(spheres=10,
+                                                        subdiv=3))
+            cfg = RenderConfig(width=64, height=64, pool_size=4096,
+                               compact_tile=tile)
+            _BOX["pools"] = harness.pools(_BOX["host"], cfg, dev, tile)
+        rays8 = _BOX["pools"][case][0].clone()
+        if kw["has_tmax"] and case != "shadow":
+            t_max = torch.from_numpy(np.random.default_rng(33).uniform(
+                0.5, 40.0, rays8.shape[1]).astype(np.float32)).to(dev)
+            rays8[6] = torch.where(rays8[0] < 1e29, t_max, ci.INF)
+        scene = _BOX["host"].to(dev)
+        bounds, tables = scene_cluster_bounds(scene), harness.scene_tables(
+            scene)
+        groups = scene_cluster_groups(scene)
+    else:
+        bounds, tables, o, d, t_max = _group_edge_case(case, dev)
+        if case == "ground":
+            scene = _outside_host().to(dev)
+            bounds, tables = scene_cluster_bounds(scene), \
+                harness.scene_tables(scene)
+        rays8, _ = ci.pack_rays8(o, d, tile,
+                                 t_max=t_max if kw["has_tmax"] else None)
+    wl, wn = ci.build_chunk_worklists(*bounds, rays8, tile,
+                                      has_tmax=kw["has_tmax"])
+    args = (rays8, wl, wn, *tables, tile, 1e-4)
+    n0 = COUNTS["compact_intersect"].launches
+    got = ci.compact_wl_intersect(*args, groups=groups, **kw)
+    assert COUNTS["compact_intersect"].launches == n0 + 1
+    ref = ci.compact_wl_intersect_plain(*args, **kw)
+    assert _same(got, ref, kw["any_hit"])
+    live = rays8[0] < 1e29
+    hit = got[0] < (rays8[6] if kw["has_tmax"] else ci.BIG)
+    assert 0 < int(hit.sum()) <= int(live.sum())
+    gn = ci.cluster_groups(*tables)[1]
+    if case == "ground":        # the ground's cluster: 2 triangles
+        counts = (tables[3] != 0).any(dim=1).sum(dim=1)
+        assert int(counts.min()) == 2 and int(gn.min()) == 1
+        assert int(hit.sum()) > len(hit) // 4
+    if case == "grid" and mode == "closest":
+        assert bool(hit[:512].all())            # every grid point is hit
+    if case == "primary":       # sparse clusters: groups are culled
+        assert int(gn.min()) == 1 and int(gn.max()) < tables[3].shape[2] // 32
 
 
 @pytest.mark.parametrize("route", [

@@ -181,7 +181,7 @@ def test_count_pass_charges_the_sub_tile_contract(kind):
         assert (work["listed"], work["passed"], work["staged"]) == (
             1 if kind == "K6[cap=0]" else 2, 1, 1)
     n_bytes = chip_smoke.nbytes(*inputs) + 12 * 256
-    ops = slab * chip_smoke.SLAB_OPS + work["tested"] * s * chip_smoke.MT_OPS
+    ops = slab * harness.SLAB_OPS + work["tested"] * s * harness.MT_OPS
     assert b == chip_smoke.bound(ops, n_bytes)
     # The sub-tile contract makes these kernels operations-bound here; the
     # compacted visits' one tested lane leaves them bytes-bound, as the
@@ -200,9 +200,9 @@ def test_count_pass_early_exit(kind):
     s = tables[3].shape[2]
     work, b, inputs = _counted_bound(kind, rays8, tables, early_exit=True)
     assert work["tested"] == 128 and work["rest"] == 64 * s
-    ops = (work["slab"] * chip_smoke.SLAB_OPS
-           + 128 * s * chip_smoke.MT_U_OPS
-           + 64 * s * (chip_smoke.MT_OPS - chip_smoke.MT_U_OPS))
+    ops = (work["slab"] * harness.SLAB_OPS
+           + 128 * s * harness.MT_U_OPS
+           + 64 * s * (harness.MT_OPS - harness.MT_U_OPS))
     assert b == chip_smoke.bound(ops, chip_smoke.nbytes(*inputs) + 12 * 256)
 
 
@@ -232,9 +232,68 @@ def test_count_pass_k4_groups():
     from types import SimpleNamespace
     b = chip_smoke.isect_bound(work, SimpleNamespace(cl_tris=tris), args[:7],
                                256)
-    ops = (256 + 2) * chip_smoke.SLAB_OPS + 32 * chip_smoke.MT_OPS
+    ops = (256 + 2) * harness.SLAB_OPS + 32 * harness.MT_OPS
     assert b == chip_smoke.bound(ops, chip_smoke.nbytes(*args[:7]) + 12 * 256)
     with harness.isect_counted(block=256) as work:
         k4.stream_cl_intersect_plain(*args)
     assert work["group_tests"] is None
     assert harness.group_line(work) == "no group test"
+
+
+def _grid_scene():
+    """A hand-built resident scene for K1: one object (identity), two
+    clusters of S = 128 slots, each a 8 x 6 grid of unit squares (two
+    triangles a square, slot 2k + j the k-th square in row-major order,
+    so that 32-slot group g holds rows 2g, 2g + 1), cluster 0 on the
+    plane z = 2 and cluster 1 on z = 3; slots 96-127 are zero, so each
+    cluster has 3 groups that hold real slots."""
+    from types import SimpleNamespace
+    tris = torch.zeros((2, 9, 128), dtype=torch.float32)
+    for c, z in enumerate((2.0, 3.0)):
+        for k in range(48):
+            x, y = k % 8, k // 8
+            tris[c, :, 2 * k] = torch.tensor([x, y, z, 1, 0, 0, 0, 1, 0])
+            tris[c, :, 2 * k + 1] = torch.tensor(
+                [x + 1, y + 1, z, -1, 0, 0, 0, -1, 0])
+    eye = torch.eye(4)[None]
+    return SimpleNamespace(
+        cl_meta=torch.tensor([[0, 0], [0, 128]], dtype=torch.int32),
+        cl_aabb=torch.tensor([[0, 0, 2, 8, 6, 2, 0, 0],
+                              [0, 0, 3, 8, 6, 3, 0, 0]],
+                             dtype=torch.float32),
+        cl_tris=tris, obj_world=eye, obj_world_inv=eye, num_objects=1)
+
+
+def test_count_pass_k1_groups():
+    """K1's triangle test by 32-slot groups in the count pass over
+    ``runner("K1")``'s plain call on a hand-built scene (``_grid_scene``):
+    rays up +z from z = 0 under the grid, half of them tilted.  Every
+    queued ray tests the boxes of the 3 groups that hold real slots (own
+    passes x 3, never the empty fourth), passes fewer, and tests at most
+    32 slots a passed group; isect_ops charges SLAB_OPS a box and MT_OPS
+    a tested slot."""
+    scene = _grid_scene()
+    g = torch.Generator().manual_seed(5)
+    o = torch.rand((1024, 3), generator=g) * torch.tensor([7.8, 5.8, 0.0]) \
+        + torch.tensor([0.1, 0.1, 0.0])
+    d = torch.zeros((1024, 3))
+    d[:, 2] = 1.0
+    d[512:, :2] = torch.rand((512, 2), generator=g) * 0.4 - 0.2
+    rays8, _ = ci.pack_rays8(o, d, 256)
+    kernel, plain, _, wn = harness.runner("K1", scene, rays8, 256)
+    assert wn.tolist() == [2] * 4
+    with harness.isect_counted(block=256, groups=True) as work:
+        t, tri, _ = plain()
+    assert torch.equal(t, kernel()[0])          # the CPU: the plain version
+    assert bool((tri[:512] >= 0).all()) and bool((tri[:512] < 96).all())
+    assert float((tri >= 0).float().mean()) > 0.8
+    own = work["own"]
+    assert own >= 512 and work["tested"] == own
+    assert work["group_tests"] == 3 * own
+    assert own <= work["group_passed"] < work["group_tests"]
+    assert work["group_slots"] <= 32 * work["group_passed"]
+    assert work["group_slots"] < 96 * own
+    assert f"{3.0:.2f} a queued ray" in harness.group_line(work)
+    assert harness.isect_ops(work, 128) == (
+        (work["slab"] + work["group_tests"]) * harness.SLAB_OPS
+        + work["group_slots"] * harness.MT_OPS)
