@@ -677,12 +677,14 @@ def cluster_intersect_compact(cl_meta, cl_inv, cl_aabb, cl_tris, rays8,
                               eps: float = 1e-4, bounds=None,
                               has_tmax: bool = False,
                               any_hit: bool = False, worklist: bool = True,
-                              cl_order=None, groups=None):
+                              cl_order=None, groups=None, fired=None):
     """The port of the JAX package's ``cluster_intersect_compact``:
     with ``worklist`` the worklist prepass + K1 (``bounds`` may carry
     precomputed ``chunk_world_bounds`` and ``groups`` the tables'
-    ``cluster_groups``: the scene's are constant); without, K7 over the
-    per-octant cluster order ``cl_order`` [8, C]."""
+    ``cluster_groups``: the scene's are constant; ``fired``, a
+    one-element int64 tensor, takes the sum of the prepass's ``wn``, on
+    the device); without, K7 over the per-octant cluster order
+    ``cl_order`` [8, C]."""
     if not worklist:
         return compact_order_intersect(rays8, tile_octants(rays8, tile),
                                        cl_order, cl_meta, cl_inv, cl_aabb,
@@ -693,6 +695,8 @@ def cluster_intersect_compact(cl_meta, cl_inv, cl_aabb, cl_tris, rays8,
         bounds = chunk_world_bounds(cl_meta, cl_aabb, obj_world, c0, c0, 1)
     wl, wn = build_chunk_worklists(bounds[0], bounds[1], rays8, tile,
                                    has_tmax=has_tmax)
+    if fired is not None:
+        fired.add_(wn.sum())
     return compact_wl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
                                 cl_tris, tile, eps, has_tmax=has_tmax,
                                 any_hit=any_hit, groups=groups)

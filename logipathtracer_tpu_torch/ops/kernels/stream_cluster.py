@@ -114,17 +114,22 @@ def cluster_intersect_stream_cl(cl_meta, cl_inv, cl_aabb, cl_tris,
                                 obj_world, rays8, tile: int = 4096,
                                 eps: float = 1e-4, has_tmax: bool = False,
                                 any_hit: bool = False, chunk_gate: int = 0,
-                                bounds=None, groups=None):
+                                bounds=None, groups=None, fired=None):
     """Frustum prepass + K4: the port of the JAX package's
     ``cluster_intersect_stream_cl``.  ``bounds`` may carry precomputed
     per-cluster ``chunk_world_bounds`` and ``groups`` the tables'
-    ``compact_intersect.cluster_groups`` (the scene's are constant)."""
+    ``compact_intersect.cluster_groups`` (the scene's are constant).
+    ``fired``, a one-element int64 tensor, takes the sum of the
+    prepass's ``wn`` (the (tile, cluster) pairs it fires), on the
+    device."""
     if bounds is None:
         c = cl_tris.shape[0]
         bounds = ci.chunk_world_bounds(cl_meta, cl_aabb, obj_world, c, c, 1)
     wl, wn = build_cluster_worklists(bounds[0], bounds[1], rays8, tile,
                                      has_tmax=has_tmax,
                                      chunk_gate=chunk_gate)
+    if fired is not None:
+        fired.add_(wn.sum())
     return stream_cl_intersect(rays8, wl, wn, cl_meta, cl_inv, cl_aabb,
                                cl_tris, tile, eps, has_tmax=has_tmax,
                                any_hit=any_hit, groups=groups)

@@ -84,7 +84,8 @@ def _rays(origin, direction, tile: int, t_max, cm: bool):
 def intersect_scene_sweep(scene, origin, direction, eps: float = 1e-4,
                           tile: int = 4096, backend: str = "compact",
                           t_max=None, cap: int = 128,
-                          worklist: bool = True, any_hit: bool = False):
+                          worklist: bool = True, any_hit: bool = False,
+                          fired=None):
     """Closest hit via a resident cluster sweep.  origin, direction
     [R, 3] f32.  Returns (t [R] f32 — INF on miss, obj [R] i32, tri [R]
     i32; -1 where missed).  ``t_max`` [R] f32 counts only hits closer
@@ -94,7 +95,9 @@ def intersect_scene_sweep(scene, origin, direction, eps: float = 1e-4,
     only the predicate t < t_max holds (blocked rays return t = -1e30).
     "pallas" / "interpret" is K8 and "jnp" the jnp twin; both answer
     closest-hit and ignore ``any_hit`` (the same t < t_max predicate).
-    ``cap`` chooses a TPU block width and is ignored."""
+    ``fired`` (K1 with ``worklist``): a one-element int64 tensor the
+    prepass's fired (tile, chunk) pairs are added into.  ``cap`` chooses
+    a TPU block width and is ignored."""
     has_tmax = t_max is not None
     rays8, r = ci.pack_rays8(origin, direction, tile, t_max=t_max)
     tables = (scene.cl_meta, _inv_rows(scene), scene.cl_aabb, scene.cl_tris)
@@ -105,7 +108,7 @@ def intersect_scene_sweep(scene, origin, direction, eps: float = 1e-4,
             has_tmax=has_tmax, any_hit=any_hit and has_tmax,
             worklist=worklist, cl_order=scene.cl_order,
             groups=scene_cluster_groups(scene)
-            if worklist and rays8.is_cuda else None)
+            if worklist and rays8.is_cuda else None, fired=fired)
     elif backend in ("pallas", "interpret"):
         t, tri, obj = k6.cluster_intersect_pallas(
             scene.cl_meta, _inv_rows(scene), scene.cl_order, scene.cl_aabb,
@@ -164,11 +167,13 @@ def intersect_scene_worklist(scene, origin, direction, eps: float = 1e-4,
 def intersect_scene_cluster_wl(scene, origin, direction, eps: float = 1e-4,
                                tile: int = 4096, t_max=None, cap: int = 32,
                                cm: bool = False, any_hit: bool = False,
-                               nbuf: int = 4, chunk_gate: int = 0):
+                               nbuf: int = 4, chunk_gate: int = 0,
+                               fired=None):
     """Closest hit via the frustum cluster worklist streamed sweep,
     kernel K4 — the default intersect of scenes beyond the resident
     budget (``stream_granularity="cluster"``).  Same contract as
-    intersect_scene_sweep."""
+    intersect_scene_sweep; ``fired`` takes the prepass's fired (tile,
+    cluster) pairs."""
     has_tmax = t_max is not None
     rays8, r = _rays(origin, direction, tile, t_max, cm)
     t, tri, obj = k4.cluster_intersect_stream_cl(
@@ -176,7 +181,8 @@ def intersect_scene_cluster_wl(scene, origin, direction, eps: float = 1e-4,
         scene.obj_world, rays8, tile=tile, eps=eps, has_tmax=has_tmax,
         any_hit=any_hit and has_tmax, chunk_gate=chunk_gate,
         bounds=scene_cluster_bounds(scene),
-        groups=scene_cluster_groups(scene) if rays8.is_cuda else None)
+        groups=scene_cluster_groups(scene) if rays8.is_cuda else None,
+        fired=fired)
     return t[:r], obj[:r], tri[:r]
 
 

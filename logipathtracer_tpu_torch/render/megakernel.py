@@ -92,37 +92,44 @@ def pick_intersect(cfg: RenderConfig, scene=None):
     tensors and its plain version on CPU ones.  Every closure takes
     ``t_max`` and ``any_hit``, so the NEE shadow rays go through the same
     backend as the path rays; K8, the jnp twin and the BVH walk answer
-    closest-hit, which gives the same t < t_max predicate."""
+    closest-hit, which gives the same t < t_max predicate.  Every closure
+    takes ``fired`` too (a one-element int64 tensor or None): the K1
+    worklist and K4 routes add into it, on the device, the (tile, box)
+    pairs their worklist prepass fires; the others leave it alone."""
     mode = resolve_intersect_mode(cfg, scene)
     if mode in ("stream", "stream_interpret"):
         cap = cfg.stream_cap if cfg.stream_compact else 0
         if mode == "stream" and cfg.stream_worklist and cap > 0:
             if cfg.stream_granularity == "cluster":
-                def isect(s, o, d, eps, t_max=None, any_hit=False):
+                def isect(s, o, d, eps, t_max=None, any_hit=False,
+                          fired=None):
                     return intersect_scene_cluster_wl(
                         s, o, d, eps=eps, tile=cfg.stream_tile, t_max=t_max,
-                        cap=cap, any_hit=any_hit)
+                        cap=cap, any_hit=any_hit, fired=fired)
                 return isect
 
-            def isect(s, o, d, eps, t_max=None, any_hit=False):
+            def isect(s, o, d, eps, t_max=None, any_hit=False, fired=None):
                 return intersect_scene_worklist(
                     s, o, d, eps=eps, tile=cfg.stream_tile,
                     chunk=cfg.stream_chunk, t_max=t_max, cap=cap,
                     any_hit=any_hit)
             return isect
 
-        def isect(s, o, d, eps, t_max=None, any_hit=False):
+        def isect(s, o, d, eps, t_max=None, any_hit=False, fired=None):
             return intersect_scene_stream(
                 s, o, d, eps=eps, tile=cfg.stream_tile,
                 chunk=cfg.stream_chunk, t_max=t_max, cap=cap,
                 any_hit=any_hit)
         return isect
     if mode == "bvh":
-        return intersect_scene
+        def isect(s, o, d, eps, t_max=None, any_hit=False, fired=None):
+            return intersect_scene(s, o, d, eps=eps, t_max=t_max,
+                                   any_hit=any_hit)
+        return isect
     if mode in ("sweep", "sweep_jnp"):
         backend = "pallas" if mode == "sweep" else "jnp"
 
-        def isect(s, o, d, eps, t_max=None, any_hit=False):
+        def isect(s, o, d, eps, t_max=None, any_hit=False, fired=None):
             return intersect_scene_sweep(s, o, d, eps=eps,
                                          tile=cfg.sweep_tile,
                                          backend=backend, t_max=t_max)
@@ -130,11 +137,11 @@ def pick_intersect(cfg: RenderConfig, scene=None):
     if mode != "compact":
         raise ValueError(f"unknown intersect mode {mode!r}")
 
-    def isect(s, o, d, eps, t_max=None, any_hit=False):
+    def isect(s, o, d, eps, t_max=None, any_hit=False, fired=None):
         return intersect_scene_sweep(s, o, d, eps=eps, tile=cfg.compact_tile,
                                      t_max=t_max,
                                      worklist=cfg.compact_worklist,
-                                     any_hit=any_hit)
+                                     any_hit=any_hit, fired=fired)
     return isect
 
 
@@ -232,7 +239,9 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
     is visible (the post-kernel tail of megakernel.py:484-493).
     ``counts`` (the wavefront pool's trace buffer; None elsewhere) takes,
     on the device and without a host sync, the number of shadow rays
-    cast into its shadow-ray column, and the stopwatch's stamps where
+    cast into its shadow-ray column and the (tile, box) pairs their
+    worklist prepass fires into its shadow-cluster column (``isect``'s
+    ``fired``), and the stopwatch's stamps where
     their paths run (utils/trace.py): ``tex`` after the prologue, and
     with NEE ``shade`` after K2 and ``shadow`` after the visibility add.
     Returns (origin, direction, acc, mask, alive, seed, prev_pdf)."""
@@ -273,7 +282,9 @@ def shade_step(scene, cfg: RenderConfig, origin, direction, acc, mask,
     if counts is not None:
         tracing.stamp(counts, "shade")
     t_s, _, _ = isect(scene, shadow_o, shadow_d, eps=cfg.eps, t_max=t_lim,
-                      any_hit=True)
+                      any_hit=True,
+                      fired=(None if counts is None
+                             else tracing.shadow_clusters(counts)))
     if counts is not None:
         tracing.count_shadow(counts,
                              (shadow_o[:, 0] != shade_kernel.PARK).sum())

@@ -140,11 +140,13 @@ def wavefront_pool_state(p: int, npix: int, device="cpu"):
     the counters ``next_work``, ``rays`` and ``it`` are device tensors at
     fixed addresses; ``counts`` holds stage A's alive, pending and free
     counts, then the stopwatch's slots, the shadow rays NEE cast since
-    the pool was made (``shadow_rays``, a view) and the stamp
-    (utils/trace.py); ``host_next_work`` and ``host_it`` are the host's
-    mirrors of ``next_work`` and ``it`` for the loop tests, and
-    ``slots_seen`` and ``shadow_seen`` the slots (None off the card) and
-    shadow rays as the trace last took them."""
+    the pool was made (``shadow_rays``, a view), the (tile, box) pairs
+    their worklist prepass fired (``shadow_clusters``, a view) and the
+    stamp (utils/trace.py); ``host_next_work`` and ``host_it`` are the
+    host's mirrors of ``next_work`` and ``it`` for the loop tests, and
+    ``slots_seen``, ``shadow_seen`` and ``clusters_seen`` the slots
+    (None off the card), shadow rays and shadow clusters as the trace
+    last took them."""
     dev = torch.device(device)
     i64 = dict(dtype=torch.int64, device=dev)
     counts = torch.zeros((tracing.WIDTH,), **i64)
@@ -165,9 +167,11 @@ def wavefront_pool_state(p: int, npix: int, device="cpu"):
         it=torch.empty((), **i64),
         counts=counts,
         shadow_rays=counts[tracing.SHADOW],
+        shadow_clusters=counts[tracing.CLUSTERS],
         slots_seen=([0] * len(tracing.SLOTS) if dev.type == "cuda"
                     else None),
         shadow_seen=0,
+        clusters_seen=0,
     )
     return reset_pool_state(st)
 

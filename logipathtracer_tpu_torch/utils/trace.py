@@ -4,8 +4,8 @@ read by time window, and host spans for the profiler's timeline.
 
 Stopwatch.  On a CUDA card a pool's ``counts`` buffer (render/
 wavefront.py) holds, after stage A's three counts, one int64 slot of
-nanoseconds for each of ``SLOTS``, the shadow-ray counter and the last
-stamp.  ``stamp`` launches csrc/trace.cu at the stage boundaries inside
+nanoseconds for each of ``SLOTS``, the shadow-ray counter, the
+shadow-cluster counter and the last stamp.  ``stamp`` launches csrc/trace.cu at the stage boundaries inside
 ``_Body.stage_a``, ``stage_b`` and ``_trace`` and, where their paths
 run, inside ``render/megakernel.py`` ``shade_step``, so the launches are
 captured into the stage graphs and run on every replay:
@@ -28,8 +28,13 @@ its stage graphs hold the stamps of the five first slots alone.
 
 The slots are cumulative on the card and reach the host in the
 iteration's one count read, so the stopwatch adds no read; a camera
-reset keeps them.  So does the shadow-ray counter (``count_shadow``,
-on every device), which the same read brings.  Stage B's slots of a
+reset keeps them.  So do the shadow-ray counter (``count_shadow``, on
+every device) and the shadow-cluster counter, which the same read
+brings: the (tile, box) pairs the shadow rays' worklist prepass fires,
+the sum of its ``wn`` (``build_cluster_worklists`` before K4 on the
+streamed route, ``build_chunk_worklists`` before K1 on the resident
+one), added on the device by the prepass's caller into the column
+``shadow_clusters`` views; other intersect routes add nothing.  Stage B's slots of a
 call's last iteration arrive with the next call's first read.  On the
 CPU nothing is stamped, and a window has no slots at all.
 
@@ -43,8 +48,8 @@ counted inside a captured stage.
 
 Records.  At the end of each chunk, drain or single-shot call
 (``loop_call``) one record, the host clock and the cumulative
-iterations, syncs, slots and shadow rays, goes into a ring of ``RING``
-records;
+iterations, syncs, slots, shadow rays and shadow clusters, goes into a
+ring of ``RING`` records;
 ``window(t0, t1)`` gives the differences over [t0, t1].  A sync after a
 call's end falls in the next record, unless ``mark()`` records the
 counters where a window should start.  Counters and
@@ -70,22 +75,24 @@ SLOTS = ("stage_a", "gap", "regen", "intersect", "tex", "shade", "shadow")
 SITES = ("count_read", "fold", "drain", "sync", "radiance", "frame",
          "upload")
 # A pool's counts buffer: alive, pending and free; the slots; the
-# shadow rays; the stamp.
+# shadow rays; the shadow clusters; the stamp.
 COUNTS = 3
 SHADOW = COUNTS + len(SLOTS)
-WIDTH = SHADOW + 2
+CLUSTERS = SHADOW + 1
+WIDTH = CLUSTERS + 2
 _STAMP = WIDTH - 1
 _SLOT = {s: COUNTS + i for i, s in enumerate(SLOTS)}
 # The ring's length: at a few records a frame, minutes of a viewer.
 RING = 1 << 16
 
 # Columns of a record: iterations, iterations timed by the stopwatch,
-# syncs by site, slot nanoseconds, shadow rays.
+# syncs by site, slot nanoseconds, shadow rays, shadow clusters.
 _IT, _TIMED = 0, 1
 _SITE = {s: 2 + i for i, s in enumerate(SITES)}
 _NS = 2 + len(SITES)
 _SHADOW = _NS + len(SLOTS)
-_COLUMNS = _SHADOW + 1
+_CLUSTERS = _SHADOW + 1
+_COLUMNS = _CLUSTERS + 1
 
 
 def stamp(counts: torch.Tensor, slot: str | None):
@@ -103,6 +110,12 @@ def count_shadow(counts: torch.Tensor, n: torch.Tensor):
     """Add ``n`` shadow rays (an int64 scalar tensor) into ``counts``'s
     shadow-ray column, on the device: the count read brings it."""
     counts[SHADOW:SHADOW + 1].add_(n)
+
+
+def shadow_clusters(counts: torch.Tensor) -> torch.Tensor:
+    """The one-element view of ``counts``'s shadow-cluster column, into
+    which the shadow rays' worklist prepass adds the pairs it fires."""
+    return counts[CLUSTERS:CLUSTERS + 1]
 
 
 class Trace:
@@ -124,7 +137,8 @@ class Trace:
         its iterations, each with one count read, the stopwatch's slots
         since the pool's last call (``st["slots_seen"]``, None off the
         card, against the last read ``st["counts_read"]``), the shadow
-        rays since then (``st["shadow_seen"]``), a record."""
+        rays and shadow clusters since then (``st["shadow_seen"]``,
+        ``st["clusters_seen"]``), a record."""
         it = st["host_it"]
         seen, read = st["slots_seen"], st.get("counts_read")
         with _build.COUNT_LOCK:
@@ -134,6 +148,8 @@ class Trace:
             if it:
                 cum[_SHADOW] += read[SHADOW] - st["shadow_seen"]
                 st["shadow_seen"] = read[SHADOW]
+                cum[_CLUSTERS] += read[CLUSTERS] - st["clusters_seen"]
+                st["clusters_seen"] = read[CLUSTERS]
             if seen is not None and it:
                 cum[_TIMED] += it
                 for i in range(len(SLOTS)):
@@ -175,7 +191,8 @@ class Trace:
     def window(self, t0: float, t1: float | None = None):
         """The counts over [t0, t1] on ``time.perf_counter``'s clock (t1
         None: up to now, the counters as they stand): ``iterations``,
-        ``host_syncs`` by site, ``shadow_rays`` and, where the stopwatch
+        ``host_syncs`` by site, ``shadow_rays``, ``shadow_clusters``
+        and, where the stopwatch
         timed every iteration, ``slots_ns`` by slot; None where the ring
         no longer holds t0's record."""
         with _build.COUNT_LOCK:
@@ -187,7 +204,8 @@ class Trace:
         d = (b - a).tolist()
         out = {"iterations": d[_IT],
                "host_syncs": {s: d[i] for s, i in _SITE.items()},
-               "shadow_rays": d[_SHADOW]}
+               "shadow_rays": d[_SHADOW],
+               "shadow_clusters": d[_CLUSTERS]}
         if d[_IT] and d[_TIMED] == d[_IT]:
             out["slots_ns"] = dict(zip(SLOTS, d[_NS:_SHADOW]))
         return out

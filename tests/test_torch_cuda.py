@@ -1677,6 +1677,38 @@ def test_stopwatch_splits_the_shade_step_on_the_card(dev):
     assert w["shadow_rays"] == shadow - shadow0 > 0
 
 
+def test_shadow_clusters_replayed_equal_eager(dev):
+    """On one streamed NEE pool (frustum prepass and K4 in any-hit mode)
+    the shadow-cluster counter after the captured stages' replays equals
+    the eager loop's, in the window and in the pool's column, beside
+    equal shadow rays and host syncs by site; the count read stays the
+    only read."""
+    from logipathtracer_tpu_torch import ProgressiveRenderer, RenderConfig
+    from logipathtracer_tpu_torch.render.graph import graph_cache
+    from logipathtracer_tpu_torch.utils import trace
+    cfg = RenderConfig(width=128, height=64, pool_size=8192, max_depth=6,
+                       nee=True, cluster_size=512, stream_tile=1024,
+                       intersect="stream")
+    host = _graph_scene("outside")
+    out = []
+    for eager in (True, False):
+        r = ProgressiveRenderer(host, cfg, host_seed=5, device=dev)
+        r._eager = eager
+        before = COUNTS["stream_cluster"].modes["any_hit"]
+        t0 = trace.mark()
+        r.step(3)
+        r.radiance()
+        w = trace.window(t0)
+        assert COUNTS["stream_cluster"].modes["any_hit"] > before
+        out.append((w["shadow_clusters"],
+                    int(r._wf_state["shadow_clusters"]), w["shadow_rays"],
+                    w["host_syncs"], w["iterations"]))
+        if not eager:
+            assert graph_cache(r.scene).replays > 0
+    assert out[0] == out[1]
+    assert out[0][0] == out[0][1] > 0
+
+
 def test_graph_cache_freed_with_its_renderer(dev):
     """A renderer's scene copy, its graph cache, pool and graphs go when
     the renderer goes, without a garbage collection (no reference

@@ -83,14 +83,14 @@ def test_host_syncs_by_site_are_exact(scene, monkeypatch):
 
 def _pool(seen=(0,) * len(trace.SLOTS)):
     return {"host_it": 0, "slots_seen": list(seen) if seen else None,
-            "shadow_seen": 0}
+            "shadow_seen": 0, "clusters_seen": 0}
 
 
-def _call(tr, st, iterations, slots, shadow=0):
+def _call(tr, st, iterations, slots, shadow=0, clusters=0):
     """A call of ``iterations`` whose last count read brought the
-    cumulative ``slots`` and ``shadow`` rays."""
+    cumulative ``slots``, ``shadow`` rays and shadow ``clusters``."""
     st["host_it"] = iterations
-    st["counts_read"] = [7, 8, 9, *slots, shadow, 123456]
+    st["counts_read"] = [7, 8, 9, *slots, shadow, clusters, 123456]
     tr.loop_call(st)
     return tr._times[(tr._n - 1) % len(tr._times)]
 
@@ -98,12 +98,12 @@ def _call(tr, st, iterations, slots, shadow=0):
 def test_window_scoping_and_slots():
     tr = trace.Trace(ring=8)
     st = _pool()
-    t_a = _call(tr, st, 2, [10, 1, 5, 20, 3, 4, 6], 100)
-    t_b = _call(tr, st, 3, [25, 2, 9, 50, 7, 10, 16], 250)
+    t_a = _call(tr, st, 2, [10, 1, 5, 20, 3, 4, 6], 100, 11)
+    t_b = _call(tr, st, 3, [25, 2, 9, 50, 7, 10, 16], 250, 26)
     tr.host_sync("fold")
-    # A camera reset keeps the slots and the shadow rays: the next read
-    # goes on from them.
-    t_c = _call(tr, st, 1, [30, 3, 10, 60, 9, 12, 20], 300)
+    # A camera reset keeps the slots, the shadow rays and the shadow
+    # clusters: the next read goes on from them.
+    t_c = _call(tr, st, 1, [30, 3, 10, 60, 9, 12, 20], 300, 31)
     w = tr.window(t_a, t_c)
     assert w["iterations"] == 4
     assert w["host_syncs"]["count_read"] == 4
@@ -112,6 +112,7 @@ def test_window_scoping_and_slots():
                              "intersect": 40, "tex": 6, "shade": 8,
                              "shadow": 14}
     assert w["shadow_rays"] == 200
+    assert w["shadow_clusters"] == 20
     assert tr.window(t_b, t_b)["iterations"] == 0
     assert "slots_ns" not in tr.window(t_b, t_b)
     # Before the first record: from zero; up to now: the counters.
@@ -121,11 +122,12 @@ def test_window_scoping_and_slots():
     assert tr.window(t_c, t_c)["host_syncs"]["frame"] == 0
     # A window that mixes timed and untimed iterations shows no slots.
     cpu = _pool(seen=None)
-    t_d = _call(tr, cpu, 5, [0] * len(trace.SLOTS), 40)
+    t_d = _call(tr, cpu, 5, [0] * len(trace.SLOTS), 40, 7)
     assert "slots_ns" not in tr.window(t_a, t_d)
     assert tr.window(t_c, t_d)["iterations"] == 5
-    # Shadow rays are counted off the card too.
+    # Shadow rays and shadow clusters are counted off the card too.
     assert tr.window(t_c, t_d)["shadow_rays"] == 40
+    assert tr.window(t_c, t_d)["shadow_clusters"] == 7
 
 
 def test_ring_bound():
@@ -196,7 +198,7 @@ def test_counters_under_threads():
             st = _pool()
             for k in range(n):
                 tr.host_sync("fold")
-                _call(tr, st, 1, [k + 1] * len(trace.SLOTS), k + 1)
+                _call(tr, st, 1, [k + 1] * len(trace.SLOTS), k + 1, k + 1)
         threads = [threading.Thread(target=work) for _ in range(n_threads)]
         for t in threads:
             t.start()
@@ -210,9 +212,10 @@ def test_counters_under_threads():
     assert tr._cum[0] == total
     assert tr._cum[2 + trace.SITES.index("fold")] == total
     assert tr._cum[2 + trace.SITES.index("count_read")] == total
-    # Each pool's slots and shadow rays went 0 -> n in steps of one.
+    # Each pool's slots, shadow rays and shadow clusters went 0 -> n in
+    # steps of one.
     assert tr._cum[2 + len(trace.SITES):] == [total] * (len(trace.SLOTS)
-                                                        + 1)
+                                                        + 2)
     # The ring holds the last 64 records in time order.
     k = tr._n % 64
     times = list(tr._times[k:]) + list(tr._times[:k])
